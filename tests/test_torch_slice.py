@@ -1,0 +1,187 @@
+"""The port's fit-and-extract slice vs the JAX package, end to end on the CPU.
+
+- ``fit_joint`` for 5 steps on a compress-mode deformation decoder with
+  nonrigid observations, handed the JAX fit's own (sel, idx) draws, vs the
+  JAX ``fit_joint(fused_search="on", fused_shape_fields="on")`` (Pallas in
+  interpret mode): latents and loss history at rtol 1e-3 / atol 5e-4 (five
+  Adam steps amplify ulp-level ordering noise), n_valid equal.
+- ``extract_mesh`` at res 32 and ``deform_mesh_batch`` from the same latents
+  as JAX: vertex arrays at atol 1e-5 (nearest-neighbour matched for the
+  extracted mesh, row by row for the posed meshes), face counts equal.
+- The port's main path leaves ``jax`` unimported (subprocess).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from nphm_tpu.data.dummy import _nonrigid_warp
+from nphm_tpu.fitting import FittingConfig as JFittingConfig, fit_joint as jfit_joint
+from nphm_tpu.models import (
+    DeformationConfig as JDeformationConfig,
+    NPHMConfig as JNPHMConfig,
+    make_deformation_decoder as jmake_deformation,
+    make_nphm_decoder as jmake_nphm,
+)
+from nphm_tpu.reconstruction.extract import (
+    deform_mesh_batch as jdeform_mesh_batch,
+    extract_mesh as jextract_mesh,
+)
+from nphm_tpu_torch.fitting.inference import FittingConfig, fit_joint
+from nphm_tpu_torch.models import (
+    DeformationConfig,
+    NPHMConfig,
+    make_deformation_decoder,
+    make_nphm_decoder,
+)
+from nphm_tpu_torch.reconstruction.extract import (
+    deform_mesh,
+    deform_mesh_batch,
+    extract_mesh,
+)
+from nphm_tpu_torch.utils.params import from_numpy_pytree
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPE_KW = dict(lat_dim_glob=8, lat_dim_loc=4, n_loc=6, n_symm_pairs=2,
+                hidden_dim=16, n_layers=4, pos_mlp_dim=16)
+DEF_KW = dict(mode="compress", lat_dim_glob_shape=8, lat_dim_loc_shape=4, n_loc=6,
+              lat_dim_expr=8, lat_dim_id=8, hidden_dim=32, n_layers=4)
+FIT = dict(n_steps=5, n_obs_per_batch=2, n_points_per_obs=64, log_every=10**9)
+MINI, MAXI = (-0.55, -0.5, -0.95), (0.55, 0.75, 0.4)
+
+
+def bridge(tree):
+    return from_numpy_pytree(jax.tree_util.tree_map(np.asarray, tree))
+
+
+def nonrigid_observations(rng, n_obs=3, n_pts=300):
+    out = []
+    for _ in range(n_obs):
+        d = rng.normal(size=(n_pts, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        out.append(_nonrigid_warp(rng)((0.4 * d).astype(np.float32)))
+    return out
+
+
+def jax_draws(seed, obs, steps, nb, npp):
+    """The JAX fit's per-step (sel, idx), recomputed as its scan draws them."""
+    key = jax.random.PRNGKey(seed)
+    lens = jnp.asarray([len(o) for o in obs])
+    sels, idxs = [], []
+    for j in range(steps):
+        k1, k2 = jax.random.split(jax.random.fold_in(key, j))
+        sel = jax.random.randint(k1, (nb,), 0, len(obs))
+        idxs.append(np.asarray(jax.random.randint(k2, (nb, npp), 0, lens[sel][:, None])))
+        sels.append(np.asarray(sel))
+    return np.stack(sels), np.stack(idxs)
+
+
+@pytest.fixture(scope="module")
+def fitted():
+    rng = np.random.default_rng(3)
+    anchors = (rng.normal(size=(SHAPE_KW["n_loc"], 3)) * 0.25).astype(np.float32)
+    js = jmake_nphm(JNPHMConfig(**SHAPE_KW), anchors)
+    je = jmake_deformation(JDeformationConfig(**DEF_KW))
+    jps, jpe = js.init(jax.random.PRNGKey(0)), je.init(jax.random.PRNGKey(1))
+    ts = make_nphm_decoder(NPHMConfig(**SHAPE_KW), anchors)
+    te = make_deformation_decoder(DeformationConfig(**DEF_KW))
+    obs = nonrigid_observations(rng)
+    ref = jfit_joint(js, jps, je, jpe, obs,
+                     cfg=JFittingConfig(fused_search="on", fused_shape_fields="on", **FIT),
+                     verbose=False)
+    draws = jax_draws(0, obs, FIT["n_steps"], FIT["n_obs_per_batch"],
+                      FIT["n_points_per_obs"])
+    return dict(js=js, jps=jps, je=je, jpe=jpe, ts=ts, tps=bridge(jps), te=te,
+                tpe=bridge(jpe), obs=obs, ref=ref, draws=draws)
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_fit_joint_matches_jax(fitted, fused):
+    f = fitted
+    le, ls, anchors, hist = fit_joint(
+        f["ts"], f["tps"], f["te"], f["tpe"], f["obs"],
+        cfg=FittingConfig(fused_search=fused, fused_shape_fields=fused, **FIT),
+        verbose=False, sample_draws=f["draws"],
+    )
+    rle, rls, ranchors, rhist = f["ref"]
+    np.testing.assert_allclose(ls, rls, rtol=1e-3, atol=5e-4)
+    np.testing.assert_allclose(le, rle, rtol=1e-3, atol=5e-4)
+    np.testing.assert_allclose(anchors, ranchors, rtol=1e-3, atol=5e-4)
+    np.testing.assert_allclose(hist["loss"], rhist["loss"], rtol=1e-3, atol=1e-5)
+    np.testing.assert_array_equal(hist["n_valid"], rhist["n_valid"])
+    np.testing.assert_array_equal(hist["broyden_iters"], rhist["broyden_iters"])
+    assert np.isfinite(hist["steady_it_s"])
+
+
+def assert_same_vertices(a, b, atol=1e-5):
+    """Same vertex count, and every vertex of each set within atol of one of
+    the other (sorting alone would pair up near-ties in the wrong order)."""
+    from scipy.spatial import cKDTree
+
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    d_ab, _ = cKDTree(b).query(a)
+    d_ba, _ = cKDTree(a).query(b)
+    assert max(d_ab.max(), d_ba.max()) <= atol, (d_ab.max(), d_ba.max())
+
+
+def test_extract_and_deform_match_jax(fitted):
+    f = fitted
+    rle, rls, ranchors, _ = f["ref"]
+    ref = jextract_mesh(f["js"], f["jps"], rls, MINI, MAXI, 32, use_pallas=True)
+    mesh = extract_mesh(f["ts"], f["tps"], rls, MINI, MAXI, 32)
+    assert len(mesh.vertices) > 0
+    assert mesh.faces.shape == ref.faces.shape
+    assert_same_vertices(mesh.vertices, ref.vertices)
+
+    posed_ref = jdeform_mesh_batch(ref, f["je"], f["jpe"], rle, anchors=ranchors,
+                                   lat_shape=rls)
+    posed = deform_mesh_batch(ref, f["te"], f["tpe"], rle, anchors=ranchors,
+                              lat_shape=rls)
+    assert len(posed) == len(posed_ref) == len(f["obs"])
+    for a, b in zip(posed, posed_ref):
+        np.testing.assert_allclose(a.vertices, b.vertices, atol=1e-5)
+        np.testing.assert_array_equal(a.faces, b.faces)
+    one = deform_mesh(ref, f["te"], f["tpe"], rle[1], anchors=ranchors, lat_shape=rls)
+    np.testing.assert_array_equal(one.vertices, posed[1].vertices)
+
+
+def test_main_path_never_imports_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import torch
+        sys.path.insert(0, {ROOT!r})
+        from nphm_tpu_torch.fitting.inference import FittingConfig, fit_joint
+        from nphm_tpu_torch.models import (DeformationConfig, NPHMConfig,
+            make_deformation_decoder, make_nphm_decoder)
+        from nphm_tpu_torch.reconstruction.extract import deform_mesh_batch, extract_mesh
+        rng = np.random.default_rng(0)
+        s = make_nphm_decoder(NPHMConfig(**{SHAPE_KW!r}),
+                              rng.normal(size=(6, 3)).astype(np.float32) * 0.25)
+        e = make_deformation_decoder(DeformationConfig(**{DEF_KW!r}))
+        gen = torch.Generator().manual_seed(0)
+        ps, pe = s.init(gen), e.init(gen)
+        obs = [rng.normal(size=(200, 3)).astype(np.float32) * 0.4 for _ in range(2)]
+        le, ls, anchors, hist = fit_joint(s, ps, e, pe, obs, verbose=False,
+            cfg=FittingConfig(n_steps=2, n_obs_per_batch=2, n_points_per_obs=32,
+                              fused_search="on", fused_shape_fields="on"))
+        mesh = extract_mesh(s, ps, ls, resolution=16)
+        posed = deform_mesh_batch(mesh, e, pe, le, anchors=anchors, lat_shape=ls)
+        posed[0].export({str(tmp_path / "posed.ply")!r})
+        assert np.isfinite(hist["loss"]).all()
+        print("JAX_LOADED", "jax" in sys.modules)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=str(tmp_path), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "JAX_LOADED False" in out.stdout
+    assert (tmp_path / "posed.ply").exists()
