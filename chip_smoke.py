@@ -13,16 +13,23 @@ Phases, in order; any failure exits non-zero:
    initialised from a seeded ``torch.Generator``; mean anchors are the
    seeded unit-sphere fallback (no assets needed).
 3. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with its tolerance, and both timed with CUDA events.
-4. The main path through the port's entry points: ``fit_joint`` on
-   synthetic single-view observations, ``extract_mesh`` at res 256,
+   paths' shapes, with its tolerance, both timed with CUDA events, and its
+   bound (the least time the card could take for the same work) computed
+   from the inputs of the timed run.
+4. The fit-and-extract path through the port's entry points: ``fit_joint``
+   on synthetic single-view observations, ``extract_mesh`` at res 256,
    ``deform_mesh_batch`` over the fitted expressions and one PLY export.
-   Every kernel's launch counter must move during this phase.  Then a
-   5-step fit through the kernels is held against the same fit on the
-   plain torch path (same draws).
+   K1-K4's launch counters must move during this phase.  Then a 5-step fit
+   through the kernels is held against the same fit on the plain torch
+   path (same draws).
+5. The identity-training path: ``IdentityTrainer.train_model`` at the
+   widths of ``configs/nphm.yaml`` on synthetic heads, with checkpointing,
+   reconstruction logging and a resume; K5, K6 and K1's counters must move.
+   Then a 3-step training run through K5/K6 is held against the same run on
+   the plain path.
 
 The second-to-last line is the kernel table as JSON, the last line the
-device record as JSON.  Nothing here imports JAX.
+device record as JSON.  Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -48,8 +55,21 @@ TOL_K2_J = 1e-2  # J^-1 entries, absolute, lanes valid in both (secant divides)
 TOL_K2_NVALID = 0.005  # |n_valid difference| / lanes
 TOL_K3 = 1e-4  # F, absolute
 TOL_K4 = 1e-4  # gradients, relative to the plain version's max magnitude
+TOL_K5 = 1e-4  # F and G, absolute
+TOL_K6 = 1e-4  # every gradient, relative to the plain version's max magnitude
 # 5-step fit, kernels vs plain path: Adam amplifies ordering noise
 TOL_FIT_RTOL, TOL_FIT_ATOL = 1e-3, 5e-4
+# 3 training steps, kernels vs plain path (measured on an H100: 2.3e-6 and
+# 6.5e-8).  Adam moves a weight by up to ~lr (5e-4) a step whatever its
+# gradient's size, so one near-zero gradient component whose sign differs
+# by ordering noise would show as a jump of that size: the bound allows one.
+TOL_TRAIN_STATE = 5e-4  # params and latent tables, absolute
+TOL_TRAIN_TERMS = 1e-4  # loss terms, relative
+
+# Card peaks for the bound (published H100 SXM figures at 700 W): fp32
+# outside the tensor cores (every kernel here is fp32 SIMT) and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES_S = 3.35e12
 
 KERNELS = {
     "ensemble_sdf": ("nphm_tpu_torch/csrc/ensemble_sdf.cu",
@@ -60,6 +80,10 @@ KERNELS = {
                 "nphm_tpu/ops/pallas_train.py:707"),
     "fit_bwd": ("nphm_tpu_torch/csrc/fit_fields.cu",
                 "nphm_tpu/ops/pallas_train.py:758"),
+    "train_fwd": ("nphm_tpu_torch/csrc/train_fields.cu",
+                  "nphm_tpu/ops/pallas_train.py:489"),
+    "train_bwd": ("nphm_tpu_torch/csrc/train_fields.cu",
+                  "nphm_tpu/ops/pallas_train.py:550"),
 }
 
 
@@ -74,6 +98,50 @@ def expect(ok: bool, what: str):
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the fp32 peak and the bytes (each input read once, each output written
+    once) over the memory rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def trunk_fmas(shapes, skip: int, ds: int, d_in: int) -> int:
+    """FMAs of one point through a trunk whose conditioning is folded into
+    biases: layer 0 and the skip layer touch only the ``ds`` point inputs."""
+    total = 0
+    for i, (n_in, n_out) in enumerate(shapes):
+        if i == 0:
+            n_in = ds
+        elif i == skip:
+            n_in = n_in - d_in + ds
+        total += n_in * n_out
+    return total
+
+
+def nphm_fmas(cfg) -> int:
+    shapes, skip = cfg.layer_shapes
+    return trunk_fmas(shapes, skip, cfg.input_dim, cfg.d_in)
+
+
+def weight_bytes(params_ensemble, cfg) -> int:
+    """Bytes of the per-member weights a kernel reads (expanded members)."""
+    return 4 * cfg.n_members * sum(
+        lay["w"][0].numel() + lay["b"][0].numel() for lay in params_ensemble)
+
+
+def live_lanes(active, tile: int, n_rows: int, n_real: int) -> int:
+    """(lane, member) pairs a culled kernel computes, pad lanes excluded.
+    active: [n_tiles, members]; rows of Np lanes hold n_real real points."""
+    n_t = active.shape[0]
+    Np = n_t * tile // n_rows
+    real = [min(tile, max(0, n_real - (t * tile) % Np)) for t in range(n_t)]
+    per_tile = active.sum(dim=1).cpu().tolist()
+    return int(sum(r * int(a) for r, a in zip(real, per_tile)))
 
 
 def cuda_ms(fn, reps: int):
@@ -117,7 +185,7 @@ def device_and_build():
     for line in report.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
-    from nphm_tpu.ops.native import get_lib
+    from nphm_tpu_torch.ops.native import get_lib
 
     t0 = time.perf_counter()
     get_lib()
@@ -163,7 +231,7 @@ def observations(n_obs: int, n_pts: int, seed: int):
     """Sphere of radius 0.4 warped per observation by a seeded nonrigid warp."""
     import numpy as np
 
-    from nphm_tpu.data.dummy import _nonrigid_warp
+    from nphm_tpu_torch.data.dummy import _nonrigid_warp
 
     rng = np.random.default_rng(seed)
     out = []
@@ -184,6 +252,10 @@ def check_k1(shape, params, gen, device, rows):
 
     from nphm_tpu_torch.ops.ensemble import (
         CULL_EPS,
+        DEFAULT_TILE,
+        _brick_points,
+        _prepare,
+        grid_tile,
         nphm_grid_sdf,
         nphm_sdf,
         nphm_sdf_plain,
@@ -211,8 +283,18 @@ def check_k1(shape, params, gen, device, rows):
     ms = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64), 5)
     plain_ms = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64,
                                              sdf_fn=nphm_sdf_plain), 2)
-    log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the timed grid's live (point, member) pairs, as the kernel culls them
+    tile, brick = grid_tile(64, DEFAULT_TILE)
+    axes = [torch.linspace(GRID_MIN[i], GRID_MAX[i], 64, device=device) for i in range(3)]
+    grid = _brick_points(axes, torch.arange(64**3, device=device), 64, brick, tile)
+    with torch.no_grad():
+        _, _, _, active = _prepare(params, cfg, grid, lat, tile, CULL_EPS)
+    pairs = int(active.sum()) * tile
+    b = bound(2.0 * nphm_fmas(cfg) * pairs,
+              64**3 * 16 + weight_bytes(params["ensemble"], cfg) // cfg.n_members * cfg.n_loc)
+    log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+        f"{pairs} live (point, member) pairs, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
 
 def search_inputs(shape, params_shape, expr, params_expr, gen, device, B, N):
@@ -240,7 +322,7 @@ def check_k2(shape, params_shape, expr, params_expr, gen, device, rows):
     ~9 iterations)."""
     import torch
 
-    from nphm_tpu_torch.ops.search import broyden_search, broyden_search_plain
+    from nphm_tpu_torch.ops.search import TILE, broyden_search, broyden_search_plain
 
     B, N = 5, 1000
     obs, cond, eye = search_inputs(shape, params_shape, expr, params_expr, gen,
@@ -274,8 +356,21 @@ def check_k2(shape, params_shape, expr, params_expr, gen, device, rows):
             warm = p
     ms = cuda_ms(lambda: broyden_search(base, tcfg, cond, obs, obs, eye, 15), 5)
     plain_ms = cuda_ms(lambda: broyden_search_plain(base, tcfg, cond, obs, obs, eye, 15), 3)
-    log(f"[K2] B=5 N=1000 budget 15: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    rows["broyden_search"] = dict(max_abs_err=err_x, ms=ms, plain_ms=plain_ms)
+    # trunk evaluations the timed search ran: one per lane, plus one per
+    # lane and iteration of its tile
+    run = broyden_search(base, tcfg, cond, obs, obs, eye, 15)
+    its = run["tile_iters"].cpu().tolist()
+    real = [min(TILE, B * N - t * TILE) for t in range(len(its))]
+    evals = sum(r * (1 + i) for r, i in zip(real, its))
+    shapes, skip = tcfg.layer_shapes
+    fmas = trunk_fmas(shapes, skip, tcfg.d_in_spatial, tcfg.d_in)
+    wbytes = 4 * sum(lay["w"].numel() + lay["b"].numel() for lay in base["layers"])
+    b = bound(2.0 * fmas * evals, B * N * 4 * (15 + 14) + wbytes)
+    log(f"[K2] B=5 N=1000 budget 15: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+        f"iterations per {TILE}-lane tile mean {sum(its) / len(its):.2f} max {max(its)}, "
+        f"{evals} trunk evaluations of {fmas} FMAs, bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']})")
+    rows["broyden_search"] = dict(max_abs_err=err_x, ms=ms, plain_ms=plain_ms, **b)
 
 
 def check_k3_k4(shape, params, gen, device, rows):
@@ -334,10 +429,118 @@ def check_k3_k4(shape, params, gen, device, rows):
         plain3 = cuda_ms(lambda: member_f_plain(cfg, layers, coords, active, tile, B), 5)
     ms4 = cuda_ms(lambda: torch.autograd.grad(Fk, ins, dF, retain_graph=True), 10)
     plain4 = cuda_ms(lambda: torch.autograd.grad(Fp, ins, dF, retain_graph=True), 5)
-    log(f"[K3] M=5x1024: kernel {ms3:.3f} ms, plain {plain3:.3f} ms")
-    log(f"[K4] M=5x1024: kernel {ms4:.3f} ms, plain backward {plain4:.3f} ms")
-    rows["fit_fwd"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3)
-    rows["fit_bwd"] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4)
+    pairs = live_lanes(active, tile, B, N)
+    wb = weight_bytes(params["ensemble"], cfg)
+    b3 = bound(2.0 * nphm_fmas(cfg) * pairs, pairs * 16 + wb)
+    b4 = bound(4.0 * nphm_fmas(cfg) * pairs, pairs * 28 + wb)
+    log(f"[K3] M=5x1024: kernel {ms3:.3f} ms, plain {plain3:.3f} ms; {pairs} live "
+        f"(point, member) pairs, bound {b3['bound_ms']:.3f} ms ({b3['bound_by']})")
+    log(f"[K4] M=5x1024: kernel {ms4:.3f} ms, plain backward {plain4:.3f} ms; bound "
+        f"{b4['bound_ms']:.3f} ms ({b4['bound_by']})")
+    rows["fit_fwd"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3, **b3)
+    rows["fit_bwd"] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4, **b4)
+
+
+def train_batch(n_rows: int, seed: int):
+    """Points [n_rows, 1693, 3] of one synthetic identity batch at the
+    production sampling (750 face / 250 non-face points a row)."""
+    import numpy as np
+
+    from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
+
+    ds = SyntheticIdentityDataset(n_subjects=n_rows, batch_size=n_rows, n_face=750,
+                                  n_non_face=250, n_anchors=39, seed=seed)
+    b = next(iter(ds.batch_iter(seed=seed)))
+    return np.concatenate([b["points_face"], b["points_non_face"], b["sup_grad_far"],
+                           b["sup_grad_near"]], axis=1)
+
+
+def check_k5_k6(shape, params, gen, device, rows):
+    """K5/K6 at production width, B=8 rows x 1693 points (padded to 2048),
+    without culling (the training default) and with cull_eps 1e-10 on
+    Morton-sorted points (the fit's "train" route)."""
+    import torch
+
+    from nphm_tpu_torch.models.ensemble import mirror_scale, predict_anchors
+    from nphm_tpu_torch.ops.fit_fields import active_mask, morton_codes, prepare_train_operands
+    from nphm_tpu_torch.ops.train_fields import (
+        _flat,
+        _unflat,
+        member_fields,
+        member_fields_plain,
+    )
+
+    cfg = shape.cfg
+    B, tile, A = 8, 512, cfg.n_members
+    xyz0 = torch.tensor(train_batch(B, SEED + 4), device=device)
+    N = xyz0.shape[1]
+    lat = (torch.randn((B, cfg.lat_dim), generator=gen) * 0.1).to(device)
+    e5 = e6 = 0.0
+    for cull_eps in (0.0, 1e-10):
+        xyz = xyz0
+        if cull_eps > 0:
+            perm = torch.argsort(morton_codes(xyz), dim=1, stable=True)
+            xyz = torch.gather(xyz, 1, perm[..., None].expand(B, N, 3))
+        Np = -(-N // tile) * tile
+        xyz = torch.cat([xyz, xyz[:, -1:].expand(B, Np - N, 3)], dim=1)
+        with torch.no_grad():
+            anchors = predict_anchors(params, cfg, lat)
+            centers = torch.cat([anchors, torch.zeros_like(anchors[:, :1])], dim=1)
+            coords = (xyz[:, :, None] - centers[:, None]) * mirror_scale(cfg, device)
+            coords = coords.permute(2, 3, 0, 1).reshape(A, 3, B * Np).contiguous()
+            layers, _ = prepare_train_operands(params, cfg, lat)
+        flat = [t.detach().clone().requires_grad_(True) for t in _flat(cfg, layers)]
+        layers = _unflat(cfg, flat)
+        coords.requires_grad_(True)
+        active = active_mask(cfg, coords, tile, cull_eps)
+        ins = flat + [coords]
+        dF = torch.randn((A, B * Np), generator=gen).to(device)
+        dG = torch.randn((A, 3, B * Np), generator=gen).to(device)
+
+        Fk, Gk = member_fields(cfg, layers, coords, active, tile, B)
+        Fp, Gp = member_fields_plain(cfg, layers, coords, active, tile, B)
+        ef = float((Fk - Fp).detach().abs().max())
+        eg = float((Gk - Gp).detach().abs().max())
+        log(f"[K5] cull_eps={cull_eps:g}: F [{A}, {B * Np}] max|err| {ef:.3e}, G max|err| "
+            f"{eg:.3e} (tol {TOL_K5:g}); live (tile, member) pairs "
+            f"{int(active.sum())}/{active.numel()}")
+        expect(bool(torch.isfinite(Fk).all() and torch.isfinite(Gk).all()), "K5 non-finite")
+        expect(ef <= TOL_K5 and eg <= TOL_K5, "K5 disagrees with its plain version")
+        e5 = max(e5, ef, eg)
+        phi_k = (Fk * dF).sum() + (Gk * dG).sum()
+        phi_p = (Fp * dF).sum() + (Gp * dG).sum()
+        gk = torch.autograd.grad(phi_k, ins, retain_graph=True)
+        gp = torch.autograd.grad(phi_p, ins, retain_graph=True)
+        names = [f"op{i}{list(t.shape)}" for i, t in enumerate(flat)] + ["d_coords"]
+        worst = (0.0, "")
+        for name, a, b in zip(names, gk, gp):
+            err = float((a - b).abs().max())
+            rel = err / max(float(b.abs().max()), 1e-30)
+            expect(bool(torch.isfinite(a).all()), f"K6 {name} non-finite")
+            if rel > TOL_K6:
+                log(f"[K6] {name}: max|err| {err:.3e}, relative {rel:.3e}")
+            expect(rel <= TOL_K6, f"K6 {name} disagrees with its plain version")
+            e6 = max(e6, err)
+            worst = max(worst, (rel, name))
+        log(f"[K6] cull_eps={cull_eps:g}: {len(names)} gradients, worst relative error "
+            f"{worst[0]:.3e} ({worst[1]}) (tol {TOL_K6:g})")
+        if cull_eps == 0.0:
+            with torch.no_grad():
+                ms5 = cuda_ms(lambda: member_fields(cfg, layers, coords, active, tile, B), 5)
+            plain5 = cuda_ms(lambda: member_fields_plain(cfg, layers, coords, active, tile, B), 3)
+            ms6 = cuda_ms(lambda: torch.autograd.grad(phi_k, ins, retain_graph=True), 3)
+            plain6 = cuda_ms(lambda: torch.autograd.grad(phi_p, ins, retain_graph=True), 3)
+            pairs = live_lanes(active, tile, B, N)
+            wb = weight_bytes(params["ensemble"], cfg)
+            b5 = bound(2.0 * 2 * nphm_fmas(cfg) * pairs, pairs * 28 + wb)
+            b6 = bound(2.0 * 6 * nphm_fmas(cfg) * pairs, pairs * 40 + 2 * wb)
+            log(f"[K5] M={B}x{Np}: kernel {ms5:.3f} ms, plain {plain5:.3f} ms; {pairs} "
+                f"(point, member) pairs, bound {b5['bound_ms']:.3f} ms ({b5['bound_by']})")
+            log(f"[K6] M={B}x{Np}: kernel {ms6:.3f} ms, plain double backward "
+                f"{plain6:.3f} ms; bound {b6['bound_ms']:.3f} ms ({b6['bound_by']})")
+        del Fp, Gp, phi_p, gp
+    rows["train_fwd"] = dict(max_abs_err=e5, ms=ms5, plain_ms=plain5, **b5)
+    rows["train_bwd"] = dict(max_abs_err=e6, ms=ms6, plain_ms=plain6, **b6)
 
 
 def kernel_checks(models, device):
@@ -346,6 +549,7 @@ def kernel_checks(models, device):
     check_k1(shape, params_shape, gen, device, rows)
     check_k2(shape, params_shape, expr, params_expr, gen, device, rows)
     check_k3_k4(shape, params_shape, gen, device, rows)
+    check_k5_k6(shape, params_shape, gen, device, rows)
     return rows
 
 
@@ -358,23 +562,29 @@ def reset_counters():
     from nphm_tpu_torch.ops.ensemble import nphm_sdf
     from nphm_tpu_torch.ops.fit_fields import member_f
     from nphm_tpu_torch.ops.search import broyden_search
+    from nphm_tpu_torch.ops.train_fields import member_fields
 
     nphm_sdf.launches = 0
     broyden_search.launches = 0
     member_f.launches = 0
     member_f.bwd_launches = 0
+    member_fields.launches = 0
+    member_fields.bwd_launches = 0
 
 
 def read_counters():
     from nphm_tpu_torch.ops.ensemble import nphm_sdf
     from nphm_tpu_torch.ops.fit_fields import member_f
     from nphm_tpu_torch.ops.search import broyden_search
+    from nphm_tpu_torch.ops.train_fields import member_fields
 
     return {
         "ensemble_sdf": nphm_sdf.launches,
         "broyden_search": broyden_search.launches,
         "fit_fwd": member_f.launches,
         "fit_bwd": member_f.bwd_launches,
+        "train_fwd": member_fields.launches,
+        "train_bwd": member_fields.bwd_launches,
     }
 
 
@@ -434,9 +644,9 @@ def main_path(models, device):
     log(f"[deform] {len(posed)} expressions in {t_def:.3f} s; exported one PLY "
         f"({size} bytes)")
     counts = read_counters()
-    log(f"[counters] {json.dumps(counts)}")
-    for name, n in counts.items():
-        expect(n > 0, f"kernel {name} was not launched on the main path")
+    log(f"[counters] fit path: {json.dumps(counts)}")
+    for name in ("ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd"):
+        expect(counts[name] > 0, f"kernel {name} was not launched on the fit path")
     check_fit_reference(models, obs, device)
     return counts
 
@@ -470,6 +680,160 @@ def check_fit_reference(models, obs, device):
            "the kernel fit's n_valid disagrees with the plain path's")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: identity training
+# ---------------------------------------------------------------------------
+
+
+def train_config(**overrides):
+    from nphm_tpu_torch.config import load_yaml
+
+    cfg = load_yaml(os.path.join(ROOT, "configs", "nphm.yaml"))
+    cfg["training"].update(overrides)
+    return cfg
+
+
+def identity_sets(n_train: int, n_val: int, batch: int):
+    from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
+
+    kw = dict(n_face=750, n_non_face=250, n_anchors=39, batch_size=batch)
+    return (SyntheticIdentityDataset(n_subjects=n_train, seed=SEED, **kw),
+            SyntheticIdentityDataset(n_subjects=n_val, seed=SEED + 5, **kw))
+
+
+class _History:
+    """Quiet metrics logger that keeps every epoch's record."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, metrics, step=None):
+        self.records.append(dict(metrics, epoch=step))
+
+    def print(self, msg):
+        log(f"[train] {msg}")
+
+
+def _timed_val_steps(trainer):
+    """Wrap the trainer's validation step with a synchronised host clock."""
+    import torch
+
+    times = []
+    inner = trainer._val_step
+
+    def timed(batch, lr_lat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(batch, lr_lat)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    trainer._val_step = timed
+    return times
+
+
+def train_path(models, device):
+    """Stage-1 training at the widths of configs/nphm.yaml through
+    ``IdentityTrainer.train_model``: 64 synthetic subjects in batches of 32
+    (750 face / 250 non-face points a row), 4 validation subjects, 3
+    epochs with the checkpoint and reconstruction logging (res 128) at
+    epoch 0; then a fresh trainer resumes from that checkpoint for one
+    epoch, which must repeat the first run's epoch 1."""
+    import numpy as np
+
+    from nphm_tpu_torch.training.trainer import IdentityTrainer
+
+    shape, params_shape = models[0], models[1]
+    train_ds, val_ds = identity_sets(64, 4, 32)
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = _History()
+        tr = IdentityTrainer(shape, params_shape, train_config(), train_ds, val_ds, "smoke",
+                             exp_dir=tmp, logger=hist, recon_resolution=128, seed=SEED,
+                             device=device)
+        expect(tr._fields_fn is not None, "the trainer did not route to K5/K6")
+        val_times = _timed_val_steps(tr)
+        reset_counters()
+        t0 = time.perf_counter()
+        tr.train_model(3)
+        t_train = time.perf_counter() - t0
+        counts = read_counters()
+        recs = sorted(os.listdir(os.path.join(tmp, "smoke", "recs", "epoch_0")))
+        ckpts = sorted(os.listdir(os.path.join(tmp, "smoke", "checkpoints")))
+
+        hist2 = _History()
+        tr2 = IdentityTrainer(shape, params_shape, train_config(), train_ds, val_ds,
+                              "smoke", exp_dir=tmp, logger=hist2, recon_resolution=128,
+                              seed=SEED + 1, device=device)
+        tr2.train_model(2)
+    steps = [1e3 * t for t in tr._timer.times]
+    losses = [r["loss"] for r in hist.records]
+    log(f"[train] 3 epochs x 2 steps of B=32 rows x 1693 points in {t_train:.2f} s; "
+        f"train step ms {[round(t, 3) for t in steps]} (steady mean "
+        f"{float(np.mean(steps[1:])):.3f} ms, first step excluded); validation step ms "
+        f"{[round(1e3 * t, 3) for t in val_times]}; loss per epoch {losses}; val loss "
+        f"per epoch {[r['val_loss'] for r in hist.records]}")
+    log(f"[train] epoch-0 exports: {recs}; checkpoints: {ckpts}")
+    log(f"[counters] training path: {json.dumps(counts)}")
+    for name in ("train_fwd", "train_bwd", "ensemble_sdf"):
+        expect(counts[name] > 0, f"kernel {name} was not launched on the training path")
+    expect(len(hist.records) == 3 and all(np.isfinite(losses)), "training losses not finite")
+    expect(len(recs) == 4 and ckpts == ["checkpoint_epoch_0.pkl"],
+           "epoch-0 reconstructions or checkpoint missing")
+    expect([r["epoch"] for r in hist2.records] == [1], "the resumed run did not run epoch 1")
+    resumed, first = hist2.records[0]["loss"], hist.records[1]["loss"]
+    log(f"[train] resumed from epoch 0: epoch-1 loss {resumed!r} vs uninterrupted "
+        f"{first!r}")
+    expect(abs(resumed - first) <= 1e-6 * abs(first), "the resumed epoch 1 differs")
+    check_train_reference(models, device)
+    return counts
+
+
+def check_train_reference(models, device):
+    """A 3-step training run through K5/K6 against the same run on the plain
+    path (decoder + autograd spatial gradient): same batches, B=4 rows."""
+    import numpy as np
+
+    from nphm_tpu_torch.training.trainer import IdentityTrainer
+
+    shape, params_shape = models[0], models[1]
+    train_ds, val_ds = identity_sets(12, 4, 4)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fused in (True, False):
+            hist = _History()
+            cfg = train_config(fused_train_kernel=fused, ckpt_interval=10**9)
+            tr = IdentityTrainer(shape, params_shape, cfg, train_ds, val_ds, f"ref{fused}",
+                                 exp_dir=tmp, logger=hist, recon_resolution=32, seed=SEED,
+                                 device=device)
+            tr.train_model(1)
+            out[fused] = (tr.state_dict(), hist.records[0])
+    (sk, hk), (sp, hp) = out[True], out[False]
+    errs = {}
+    for key in ("params", "latents", "latents_val"):
+        a = np.concatenate([np.ravel(x) for x in _leaves(sk[key])])
+        b = np.concatenate([np.ravel(x) for x in _leaves(sp[key])])
+        errs[key] = float(np.abs(a - b).max())
+    terms = {k: (hk[k], hp[k]) for k in hk
+             if k not in ("step_time_s", "steps_per_s", "epoch")}
+    errs["terms"] = max(abs(a - b) / max(abs(b), 1e-12) for a, b in terms.values())
+    log(f"[train-check] 3 steps, K5/K6 vs plain path: max|diff| params "
+        f"{errs['params']:.3e} latents {errs['latents']:.3e} val latents "
+        f"{errs['latents_val']:.3e}; loss terms max relative {errs['terms']:.3e} (tol "
+        f"params/latents {TOL_TRAIN_STATE:g} absolute, terms {TOL_TRAIN_TERMS:g} relative)")
+    expect(max(errs["params"], errs["latents"], errs["latents_val"]) <= TOL_TRAIN_STATE,
+           "the kernel training run disagrees with the plain-path run")
+    expect(errs["terms"] <= TOL_TRAIN_TERMS, "the kernel training loss terms disagree")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def run():
     import torch
 
@@ -477,11 +841,14 @@ def run():
     device = torch.device("cuda", 0)
     models = build_models(device)
     rows = kernel_checks(models, device)
-    counts = main_path(models, device)
+    fit_counts = main_path(models, device)
+    train_counts = train_path(models, device)
     table = []
     for name, (source, replaces) in KERNELS.items():
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": counts[name], **rows[name]})
+                      "replaces": replaces,
+                      "launches": fit_counts[name] + train_counts[name],
+                      **rows[name], "library_ms": None})
     log(smi)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import yaml
 
-from nphm_tpu import env_paths
+from nphm_tpu_torch import env_paths
 from nphm_tpu_torch.models import (
     DeformationConfig,
     NPHMConfig,

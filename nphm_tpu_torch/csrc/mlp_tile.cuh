@@ -114,6 +114,60 @@ __device__ __forceinline__ void tile_mm(const float* __restrict__ W, int ldw,
   }
 }
 
+// Two products through one weight matrix, as tile_mm with each weight read
+// once for both: epi(o, t, sum_k W[k * ldw + o] * in1[k * T + t],
+// sum_k W[k * ldw + o] * in2[k * T + t]).  Same requirements as tile_mm.
+template <int T, int TO, int TL, class Epi>
+__device__ __forceinline__ void tile_mm2(const float* __restrict__ W, int ldw,
+                                         int n_in, int n_out, const float* in1,
+                                         const float* in2, Epi epi) {
+  static_assert(T % TL == 0 && TO % 4 == 0 && TL % 4 == 0, "tile shape");
+  constexpr int LG = T / TL;
+  const int n_og = (n_out + TO - 1) / TO;
+  for (int item = threadIdx.x; item < n_og * LG; item += blockDim.x) {
+    const int o0 = (item / LG) * TO;
+    const int t0 = (item % LG) * TL;
+    float acc1[TO][TL], acc2[TO][TL];
+#pragma unroll
+    for (int j = 0; j < TO; ++j)
+#pragma unroll
+      for (int l = 0; l < TL; ++l) acc1[j][l] = acc2[j][l] = 0.f;
+    const float* wrow = W + o0;
+#pragma unroll 2
+    for (int k = 0; k < n_in; ++k) {
+      float wv[TO];
+      float iv1[TL], iv2[TL];
+#pragma unroll
+      for (int j = 0; j < TO; j += 4) {
+        const float4 v =
+            __ldg(reinterpret_cast<const float4*>(wrow + (size_t)k * ldw + j));
+        wv[j] = v.x; wv[j + 1] = v.y; wv[j + 2] = v.z; wv[j + 3] = v.w;
+      }
+#pragma unroll
+      for (int l = 0; l < TL; l += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(in1 + k * T + t0 + l);
+        const float4 b = *reinterpret_cast<const float4*>(in2 + k * T + t0 + l);
+        iv1[l] = a.x; iv1[l + 1] = a.y; iv1[l + 2] = a.z; iv1[l + 3] = a.w;
+        iv2[l] = b.x; iv2[l + 1] = b.y; iv2[l + 2] = b.z; iv2[l + 3] = b.w;
+      }
+#pragma unroll
+      for (int j = 0; j < TO; ++j)
+#pragma unroll
+        for (int l = 0; l < TL; ++l) {
+          acc1[j][l] = fmaf(wv[j], iv1[l], acc1[j][l]);
+          acc2[j][l] = fmaf(wv[j], iv2[l], acc2[j][l]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < TO; ++j) {
+      if (o0 + j < n_out) {
+#pragma unroll
+        for (int l = 0; l < TL; ++l) epi(o0 + j, t0 + l, acc1[j][l], acc2[j][l]);
+      }
+    }
+  }
+}
+
 // Narrow head: out = epi(o, t, sum_k W[k * n_out + o] * in[k * T + t]) for
 // n_out <= kMaxHead.  Warps split the contraction; partials meet in `part`
 // ([kWarps][kMaxHead][T] floats).  Ends with every thread synchronised.

@@ -29,7 +29,7 @@ import torch
 from nphm_tpu_torch.fitting.broyden import ift_correction, search
 from nphm_tpu_torch.models.ensemble import predict_anchors
 from nphm_tpu_torch.utils.math import safe_l2norm, sq_norm
-from nphm_tpu_torch.utils.params import tree_device
+from nphm_tpu_torch.utils.params import default_device, tree_to
 
 
 def default_joint_lambdas() -> Dict[str, float]:
@@ -71,7 +71,8 @@ class FittingConfig:
     training_mode_shape: bool = True  # the reference fits in train mode
     log_every: int = 50
     seed: int = 0
-    # shape field at the roots through K3/K4: "auto" (CUDA), "on", "off"
+    # shape field at the roots through K3/K4: "auto" (CUDA), "on", "off";
+    # "train" through the full training field K5/K6
     fused_shape_fields: str = "auto"
     # warm-start each search from the point's previous root
     warm_start_corresp: bool = True
@@ -162,15 +163,25 @@ def _shape_fields_fn(decoder_shape, cfg: FittingConfig, device):
 
     Training-mode semantics, loss-specialised (first-order gradient w.r.t.
     lat and points only; valid because the decoder is frozen), Morton-sorted
-    points with per-tile member culling at 1e-10.
+    points with per-tile member culling at 1e-10.  ``"train"`` selects the
+    full training field (K5/K6, ~8x the work; kept for A/B like the JAX
+    package's).
     """
     mode = cfg.fused_shape_fields
-    if mode == "train":
-        raise NotImplementedError("the full training kernel is not ported")
     is_nphm = getattr(decoder_shape, "kind", None) == "nphm"
     use = device.type == "cuda" if mode == "auto" else bool(mode) and mode != "off"
     if not (use and is_nphm):
         return None
+    if mode == "train":
+        from nphm_tpu_torch.ops.train_fields import apply_nphm_train
+
+        def fields(params_shape, pts, lat_b):
+            sdf, _grads, _anchors = apply_nphm_train(
+                params_shape, decoder_shape.cfg, pts, lat_b, cull_eps=1e-10, sort=True
+            )
+            return sdf
+
+        return fields
     from nphm_tpu_torch.ops.fit_fields import apply_nphm_fit
 
     def fields(params_shape, pts, lat_b):
@@ -301,14 +312,17 @@ def fit_joint(
     """Joint identity + expression fitting with Broyden correspondences.
 
     Returns (lat_expr [n_obs, E], lat_shape [1, D], anchors, history dict)
-    as numpy.  ``device`` defaults to the parameters' device.
+    as numpy.  The parameters move to ``device`` first (default
+    ``default_device()``).
     ``sample_draws``: optional (sel [T, nb], idx [T, nb, npp]) integer
     arrays replacing the per-step random draws (seeded from ``cfg.seed``).
     The history holds one entry per step for each term, plus
     ``elapsed_s``, ``first_step_s`` and ``steady_it_s`` (steps after the
     first over their wall time).
     """
-    device = torch.device(device) if device is not None else tree_device(params_shape)
+    device = default_device() if device is None else torch.device(device)
+    params_shape = tree_to(params_shape, device)
+    params_expr = tree_to(params_expr, device)
     lambdas = dict(lambdas or default_joint_lambdas())
     schedule = schedule or default_joint_schedule()
     total = cfg.total_steps

@@ -3,7 +3,7 @@
     decoder.apply(params, xyz, lat, **kw) -> (pred, anchors_or_None)
 
 ``lat`` is [B, lat_dim], constant along the point axis.  ``init`` takes a
-``torch.Generator`` and a device.
+``torch.Generator`` and a device (default ``utils.params.default_device()``).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def make_nphm_decoder(cfg: NPHMConfig, mean_anchors) -> Decoder:
     return Decoder(
         kind="nphm",
         cfg=cfg,
-        init=lambda gen, device="cpu": init_nphm(gen, cfg, mean_anchors, device),
+        init=lambda gen, device=None: init_nphm(gen, cfg, mean_anchors, device),
         apply=apply,
         lat_dim=cfg.lat_dim,
         lat_dim_glob=cfg.lat_dim_glob,
@@ -66,7 +66,7 @@ def make_deformation_decoder(cfg: DeformationConfig) -> Decoder:
     return Decoder(
         kind="deformation",
         cfg=cfg,
-        init=lambda gen, device="cpu": init_deformation(gen, cfg, device),
+        init=lambda gen, device=None: init_deformation(gen, cfg, device),
         apply=apply,
         lat_dim=cfg.lat_dim_expr,
     )

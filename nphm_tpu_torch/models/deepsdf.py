@@ -50,7 +50,7 @@ class DeepSDFConfig:
         return mlp_dims(self.d_in, self.hidden_dim, self.n_layers, self.out_dim)
 
 
-def init_deepsdf(gen: torch.Generator, cfg: DeepSDFConfig, device="cpu"):
+def init_deepsdf(gen: torch.Generator, cfg: DeepSDFConfig, device=None):
     shapes, _skip = cfg.layer_shapes
     n = len(shapes)
     layers = []

@@ -76,7 +76,7 @@ class DeformationConfig:
         )
 
 
-def init_deformation(gen: torch.Generator, cfg: DeformationConfig, device="cpu"):
+def init_deformation(gen: torch.Generator, cfg: DeformationConfig, device=None):
     params = {"trunk": init_deepsdf(gen, cfg.trunk_cfg, device)}
     if cfg.mode == "compress":
         params["compressor"] = torch_linear_init(

@@ -21,6 +21,7 @@ import torch
 
 from nphm_tpu_torch.models.mlp import linear, mlp_dims, softplus_beta, torch_linear_init
 from nphm_tpu_torch.utils.math import safe_l2norm
+from nphm_tpu_torch.utils.params import default_device
 
 SQRT2 = 1.4142135623730951
 
@@ -79,8 +80,10 @@ class NPHMConfig:
         return mlp_dims(self.d_in, self.hidden_dim, self.n_layers, self.out_dim)
 
 
-def init_nphm(gen: torch.Generator, cfg: NPHMConfig, mean_anchors, device="cpu"):
-    """Full NPHM parameter dict; mean_anchors: [n_loc, 3] (held fixed)."""
+def init_nphm(gen: torch.Generator, cfg: NPHMConfig, mean_anchors, device=None):
+    """Full NPHM parameter dict; mean_anchors: [n_loc, 3] (held fixed).
+    ``device`` defaults to ``default_device()``."""
+    device = default_device() if device is None else device
     shapes, _ = cfg.layer_shapes
     ensemble = []
     for s_in, s_out in shapes:

@@ -1,7 +1,8 @@
 """Shared MLP building blocks (counterpart of ``nphm_tpu/models/mlp.py``).
 
 Decoders are plain functions over dicts of tensors.  Initializers draw from
-an explicit ``torch.Generator`` (on the CPU, then move to ``device``) with
+an explicit ``torch.Generator`` (on the CPU, then move to ``device``, by
+default ``utils.params.default_device()``) with
 the distributions of the JAX package: U(+-1/sqrt(fan_in)) for every Linear
 and the DeepSDF geometric init for a sphere-SDF last layer.
 """
@@ -13,14 +14,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from nphm_tpu_torch.utils.params import default_device
+
 
 def _uniform(gen, shape, bound, device):
     u = torch.rand(shape, generator=gen, dtype=torch.float32)
     return ((u * 2.0 - 1.0) * bound).to(device)
 
 
-def torch_linear_init(gen, in_features: int, out_features: int, device="cpu"):
+def torch_linear_init(gen, in_features: int, out_features: int, device=None):
     """U(+-1/sqrt(fan_in)) weight [out, in] and bias [out]."""
+    device = default_device() if device is None else device
     bound = 1.0 / math.sqrt(in_features) if in_features > 0 else 0.0
     w = _uniform(gen, (out_features, in_features), bound, device)
     b = _uniform(gen, (out_features,), bound, device)
@@ -28,8 +32,9 @@ def torch_linear_init(gen, in_features: int, out_features: int, device="cpu"):
 
 
 def geometric_last_layer_init(gen, in_features: int, out_features: int,
-                              radius: float, device="cpu"):
+                              radius: float, device=None):
     """DeepSDF geometric init: W ~ sqrt(pi/fan_in) + 1e-5 N(0,1), b = -radius."""
+    device = default_device() if device is None else device
     noise = torch.randn((out_features, in_features), generator=gen)
     w = (math.sqrt(math.pi / in_features) + 1e-5 * noise).to(device)
     b = torch.full((out_features,), -radius, device=device)

@@ -79,9 +79,18 @@ _SIGNATURES = {
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
         _i32, _i32, _i32, _i32, _vp,
     ],
+    "nphm_train_fwd": [
+        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp,
+    ],
+    "nphm_train_bwd": [
+        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
+        _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
+    ],
     "nphm_ensemble_points_per_block": [],
     "nphm_search_lanes_per_block": [],
     "nphm_fit_lanes_per_block": [],
+    "nphm_train_lanes_per_block": [],
+    "nphm_train_split_k": [],
 }
 
 

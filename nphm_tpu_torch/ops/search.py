@@ -93,7 +93,7 @@ def _matvec3(j9, v):
     return torch.einsum("pij,pj->pi", j9.reshape(-1, 3, 3), v)
 
 
-def _result(B, N, xb, bn, j9, act, iters, cvg):
+def _result(B, N, xb, bn, j9, act, tile_iters, cvg):
     diff = bn[: B * N].reshape(B, N)
     return {
         "result": xb[: B * N].reshape(B, N, 3),
@@ -101,7 +101,9 @@ def _result(B, N, xb, bn, j9, act, iters, cvg):
         "valid_ids": diff < cvg,
         "j_inv": j9[: B * N].reshape(B, N, 3, 3),
         "active": act[: B * N].reshape(B, N),
-        "iters": iters,
+        "iters": tile_iters.max() if tile_iters.numel() else torch.zeros(
+            (), dtype=torch.int32, device=tile_iters.device),
+        "tile_iters": tile_iters,  # iterations each TILE-lane tile ran
     }
 
 
@@ -164,8 +166,7 @@ def broyden_search_plain(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
         bn = torch.where(live, bn2, bn)
         act = torch.where(live, act2, act)
         tile_it = tile_it + tile_live.to(torch.int32)
-    iters = tile_it.max() if n_t else torch.zeros((), dtype=torch.int32)
-    return _result(B, N, xb, bn, j9, act, iters, cvg_thresh)
+    return _result(B, N, xb, bn, j9, act, tile_it, cvg_thresh)
 
 
 def _search_trunk(layers, tcfg: DeepSDFConfig, n_per_row: int):
@@ -213,7 +214,8 @@ def broyden_search(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
     cond: [B, tcfg.lat_dim] row-constant conditioning; obs / xc_init:
     [B, N, 3]; j_inv_init: [B, N, 3, 3]; n_iters: iteration budget.
     Returns dict(result [B,N,3], diff [B,N], valid_ids [B,N], j_inv
-    [B,N,3,3], active [B,N], iters) like ``fitting.broyden.broyden``.
+    [B,N,3,3], active [B,N], iters) like ``fitting.broyden.broyden``, plus
+    ``tile_iters``, the iterations each tile of lanes ran.
     """
     if not obs.is_cuda:
         return broyden_search_plain(
@@ -247,7 +249,7 @@ def broyden_search(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
     )
     _build.check(rc, "nphm_broyden_search")
     broyden_search.launches += 1
-    return _result(B, N, xb, bn, jo, act > 0.5, iters.max(), cvg_thresh)
+    return _result(B, N, xb, bn, jo, act > 0.5, iters, cvg_thresh)
 
 
 broyden_search.launches = 0

@@ -3,7 +3,7 @@
 
 Grid logits come from K1's brick-ordered dense-grid evaluation
 (``ops.ensemble.nphm_grid_sdf``); marching runs on the host through the
-JAX package's numpy/C++ ``mesh_from_logits``.  Deformation pushes mesh
+port's C++ ``ops.marching.mesh_from_logits``.  Deformation pushes mesh
 vertices through the deformation trunk in plain torch, in chunks (the JAX
 package runs that trunk outside any kernel too).
 """
@@ -15,10 +15,10 @@ import time
 import numpy as np
 import torch
 
-from nphm_tpu.ops.marching import mesh_from_logits
-from nphm_tpu.utils.mesh_io import Mesh as TriMesh
 from nphm_tpu_torch.ops.ensemble import nphm_grid_sdf
-from nphm_tpu_torch.utils.params import tree_device, tree_to
+from nphm_tpu_torch.ops.marching import mesh_from_logits
+from nphm_tpu_torch.utils.mesh_io import Mesh as TriMesh
+from nphm_tpu_torch.utils.params import default_device, tree_device, tree_to
 
 DEFAULT_CHUNK = 1 << 16
 
@@ -41,13 +41,12 @@ def extract_mesh(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
                  return_timing: bool = False):
     """Grid-evaluate through K1 (or its plain version on the CPU), then march.
 
-    ``device`` moves the parameters there first (default: where they are).
+    The parameters move to ``device`` first (default ``default_device()``).
     With ``return_timing`` also returns {"grid_s", "march_s"}: the grid
     evaluation including its device->host copy, and host marching.
     """
-    if device is not None:
-        params = tree_to(params, torch.device(device))
-    dev = tree_device(params)
+    dev = default_device() if device is None else torch.device(device)
+    params = tree_to(params, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -76,10 +75,10 @@ def deform_mesh_batch(mesh: TriMesh, deformer, params, lat_exprs, anchors=None,
                       lat_shape=None, chunk_size: int = DEFAULT_CHUNK,
                       device=None) -> list:
     """Forward-warp mesh vertices through the deformation field for each of
-    E expression latents (identity latent prepended when given)."""
-    if device is not None:
-        params = tree_to(params, torch.device(device))
-    dev = tree_device(params)
+    E expression latents (identity latent prepended when given).  The
+    parameters move to ``device`` first (default ``default_device()``)."""
+    dev = default_device() if device is None else torch.device(device)
+    params = tree_to(params, dev)
     lats = torch.stack([_as_lat(le, dev) for le in lat_exprs])  # [E, 1, L]
     if lat_shape is not None:
         ls = _as_lat(lat_shape, dev)

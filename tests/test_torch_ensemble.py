@@ -31,7 +31,7 @@ def pair():
     anchors = (rng.normal(size=(KW["n_loc"], 3)) * 0.3).astype(np.float32)
     jd = jmake(JNPHMConfig(**KW), anchors)
     jp = jd.init(jax.random.PRNGKey(0))
-    tp = from_numpy_pytree(jax.tree_util.tree_map(np.asarray, jp))
+    tp = from_numpy_pytree(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     lat = (rng.normal(size=(jd.lat_dim,)) * 0.1).astype(np.float32)
     return jd, jp, make_nphm_decoder(NPHMConfig(**KW), anchors), tp, lat
 

@@ -31,7 +31,7 @@ def pair():
     anchors = (rng.normal(size=(KW["n_loc"], 3)) * 0.25).astype(np.float32)
     jd = jmake(JNPHMConfig(**KW), anchors)
     jp = jd.init(jax.random.PRNGKey(1))
-    tp = from_numpy_pytree(jax.tree_util.tree_map(np.asarray, jp))
+    tp = from_numpy_pytree(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jd, jp, make_nphm_decoder(NPHMConfig(**KW), anchors), tp
 
 

@@ -24,6 +24,7 @@ from nphm_tpu_torch.models import (
 from nphm_tpu_torch.ops import ensemble as ens
 from nphm_tpu_torch.ops import fit_fields as ff
 from nphm_tpu_torch.ops import search as srch
+from nphm_tpu_torch.ops import train_fields as trf
 
 pytestmark = pytest.mark.cuda
 
@@ -101,9 +102,40 @@ def test_k3_k4_tiny_widths(device):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
 
+@pytest.mark.parametrize("cull_eps", [0.0, 1e-10])
+def test_k5_k6_tiny_widths(device, cull_eps):
+    """apply_nphm_train through K5/K6 vs its plain version: outputs and the
+    gradient of a loss over (sdf, grads) w.r.t. params, lat and xyz."""
+    shape, params, _e, _pe, gen = tiny_models(device)
+    xyz = (torch.randn((3, 700, 3), generator=gen) * 0.3).to(device)
+    lat = (torch.randn((3, shape.lat_dim), generator=gen) * 0.1).to(device)
+    tgt = torch.randn((3, 700, 3), generator=gen).to(device)
+    out = {}
+    for name, fn in (("kernel", trf.member_fields), ("plain", trf.member_fields_plain)):
+        p = {"ensemble": [{k: v.clone().requires_grad_(True) for k, v in lay.items()}
+                          for lay in params["ensemble"]],
+             "mlp_pos": params["mlp_pos"], "mean_anchors": params["mean_anchors"]}
+        x = xyz.clone().requires_grad_(True)
+        la = lat.clone().requires_grad_(True)
+        before = (trf.member_fields.launches, trf.member_fields.bwd_launches)
+        sdf, g, anchors = trf.apply_nphm_train(p, shape.cfg, x, la, cull_eps=cull_eps,
+                                               member_fn=fn)
+        loss = (sdf.abs().mean() + ((g - tgt) ** 2).sum(-1).mean()
+                + (g.norm(dim=-1) - 1).abs().mean())
+        leaves = [v for lay in p["ensemble"] for v in lay.values()]
+        grads = torch.autograd.grad(loss, leaves + [la, x])
+        if name == "kernel":
+            assert (trf.member_fields.launches, trf.member_fields.bwd_launches) == (
+                before[0] + 1, before[1] + 1)
+        out[name] = (sdf.detach(), g.detach()) + tuple(grads)
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
+
+
 def test_production_dims(device):
     """chip_smoke.py's phase 3: every kernel at the main path's shapes."""
     c = smoke()
     models = c.build_models(device)
     rows = c.kernel_checks(models, device)
-    assert set(rows) == {"ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd"}
+    assert set(rows) == {"ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd",
+                         "train_fwd", "train_bwd"}

@@ -39,7 +39,7 @@ SHAPE_KW = dict(lat_dim_glob=8, lat_dim_loc=4, n_loc=6, n_symm_pairs=2,
 
 
 def bridge(tree):
-    return from_numpy_pytree(jax.tree_util.tree_map(np.asarray, tree))
+    return from_numpy_pytree(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
 
 
 def shape_pair(seed=0):
@@ -131,8 +131,8 @@ def test_torch_init_matches_jax_distributions():
     """Generator-drawn inits: same shapes and U(+-1/sqrt(fan_in)) bounds as
     the JAX inits, and identical draws from identical torch seeds."""
     jd, jp, td, _ = shape_pair()
-    tp = td.init(torch.Generator().manual_seed(0))
-    tp2 = td.init(torch.Generator().manual_seed(0))
+    tp = td.init(torch.Generator().manual_seed(0), "cpu")
+    tp2 = td.init(torch.Generator().manual_seed(0), "cpu")
     ref = jax.tree_util.tree_map(np.asarray, jp)
     for i, lay in enumerate(tp["ensemble"]):
         w = lay["w"].numpy()
@@ -141,7 +141,7 @@ def test_torch_init_matches_jax_distributions():
         assert np.abs(w).max() <= bound and np.abs(w).max() > 0.5 * bound
         np.testing.assert_array_equal(w, tp2["ensemble"][i]["w"].numpy())
     _, _, te, _ = deform_pair("compress")
-    pe = te.init(torch.Generator().manual_seed(1))
+    pe = te.init(torch.Generator().manual_seed(1), "cpu")
     assert pe["compressor"]["w"].shape == (8, te.cfg.compressor_in)
 
 

@@ -44,7 +44,7 @@ def setup(mode="compress", n_pts=700, nb=2, seed=0, cond_scale=0.1, gain=1.0):
     jp = jd.init(jax.random.PRNGKey(seed))
     head = jp["trunk"]["layers"][-1]
     jp["trunk"]["layers"][-1] = {"w": head["w"] * gain, "b": head["b"] * gain}
-    tp = from_numpy_pytree(jax.tree_util.tree_map(np.asarray, jp))
+    tp = from_numpy_pytree(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(seed)
     obs = (rng.normal(size=(nb, n_pts, 3)) * 0.3).astype(np.float32)
     cond = (rng.normal(size=(nb, jd.cfg.lat_dim_shape_full + 8)) * cond_scale)

@@ -8,10 +8,14 @@
 - ``extract_mesh`` at res 32 and ``deform_mesh_batch`` from the same latents
   as JAX: vertex arrays at atol 1e-5 (nearest-neighbour matched for the
   extracted mesh, row by row for the posed meshes), face counts equal.
-- The port's main path leaves ``jax`` unimported (subprocess).
+- The port's main paths (fit, extract, deform, identity training) leave
+  ``jax`` and ``nphm_tpu`` unimported (subprocess), and no source file of
+  the port, nor ``chip_smoke.py``, imports them.
 """
 
+import glob
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -59,7 +63,7 @@ MINI, MAXI = (-0.55, -0.5, -0.95), (0.55, 0.75, 0.4)
 
 
 def bridge(tree):
-    return from_numpy_pytree(jax.tree_util.tree_map(np.asarray, tree))
+    return from_numpy_pytree(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
 
 
 def nonrigid_observations(rng, n_obs=3, n_pts=300):
@@ -109,7 +113,7 @@ def test_fit_joint_matches_jax(fitted, fused):
     le, ls, anchors, hist = fit_joint(
         f["ts"], f["tps"], f["te"], f["tpe"], f["obs"],
         cfg=FittingConfig(fused_search=fused, fused_shape_fields=fused, **FIT),
-        verbose=False, sample_draws=f["draws"],
+        verbose=False, sample_draws=f["draws"], device="cpu",
     )
     rle, rls, ranchors, rhist = f["ref"]
     np.testing.assert_allclose(ls, rls, rtol=1e-3, atol=5e-4)
@@ -137,7 +141,7 @@ def test_extract_and_deform_match_jax(fitted):
     f = fitted
     rle, rls, ranchors, _ = f["ref"]
     ref = jextract_mesh(f["js"], f["jps"], rls, MINI, MAXI, 32, use_pallas=True)
-    mesh = extract_mesh(f["ts"], f["tps"], rls, MINI, MAXI, 32)
+    mesh = extract_mesh(f["ts"], f["tps"], rls, MINI, MAXI, 32, device="cpu")
     assert len(mesh.vertices) > 0
     assert mesh.faces.shape == ref.faces.shape
     assert_same_vertices(mesh.vertices, ref.vertices)
@@ -145,21 +149,33 @@ def test_extract_and_deform_match_jax(fitted):
     posed_ref = jdeform_mesh_batch(ref, f["je"], f["jpe"], rle, anchors=ranchors,
                                    lat_shape=rls)
     posed = deform_mesh_batch(ref, f["te"], f["tpe"], rle, anchors=ranchors,
-                              lat_shape=rls)
+                              lat_shape=rls, device="cpu")
     assert len(posed) == len(posed_ref) == len(f["obs"])
     for a, b in zip(posed, posed_ref):
         np.testing.assert_allclose(a.vertices, b.vertices, atol=1e-5)
         np.testing.assert_array_equal(a.faces, b.faces)
-    one = deform_mesh(ref, f["te"], f["tpe"], rle[1], anchors=ranchors, lat_shape=rls)
+    one = deform_mesh(ref, f["te"], f["tpe"], rle[1], anchors=ranchors, lat_shape=rls,
+                      device="cpu")
     np.testing.assert_array_equal(one.vertices, posed[1].vertices)
 
 
 def test_main_path_never_imports_jax(tmp_path):
+    """Every module of the port imported, and the fit, extract, deform and
+    identity-training paths run on the CPU, with neither ``jax`` nor any
+    module of ``nphm_tpu`` loaded."""
     code = textwrap.dedent(f"""
+        import importlib
+        import pkgutil
         import sys
         import numpy as np
         import torch
         sys.path.insert(0, {ROOT!r})
+        import nphm_tpu_torch
+        for mod in pkgutil.walk_packages(nphm_tpu_torch.__path__, "nphm_tpu_torch."):
+            importlib.import_module(mod.name)
+        from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
+        from nphm_tpu_torch.training.trainer import IdentityTrainer
+        from nphm_tpu_torch.utils.logging_utils import MetricsLogger
         from nphm_tpu_torch.fitting.inference import FittingConfig, fit_joint
         from nphm_tpu_torch.models import (DeformationConfig, NPHMConfig,
             make_deformation_decoder, make_nphm_decoder)
@@ -169,19 +185,57 @@ def test_main_path_never_imports_jax(tmp_path):
                               rng.normal(size=(6, 3)).astype(np.float32) * 0.25)
         e = make_deformation_decoder(DeformationConfig(**{DEF_KW!r}))
         gen = torch.Generator().manual_seed(0)
-        ps, pe = s.init(gen), e.init(gen)
+        ps, pe = s.init(gen, "cpu"), e.init(gen, "cpu")
         obs = [rng.normal(size=(200, 3)).astype(np.float32) * 0.4 for _ in range(2)]
-        le, ls, anchors, hist = fit_joint(s, ps, e, pe, obs, verbose=False,
+        le, ls, anchors, hist = fit_joint(s, ps, e, pe, obs, verbose=False, device="cpu",
             cfg=FittingConfig(n_steps=2, n_obs_per_batch=2, n_points_per_obs=32,
                               fused_search="on", fused_shape_fields="on"))
-        mesh = extract_mesh(s, ps, ls, resolution=16)
-        posed = deform_mesh_batch(mesh, e, pe, le, anchors=anchors, lat_shape=ls)
+        mesh = extract_mesh(s, ps, ls, resolution=16, device="cpu")
+        posed = deform_mesh_batch(mesh, e, pe, le, anchors=anchors, lat_shape=ls,
+                                  device="cpu")
         posed[0].export({str(tmp_path / "posed.ply")!r})
         assert np.isfinite(hist["loss"]).all()
-        print("JAX_LOADED", "jax" in sys.modules)
+        ds = SyntheticIdentityDataset(n_subjects=2, batch_size=2, n_face=40, n_non_face=20,
+                                      n_anchors=6)
+        lam = dict(lat_reg=0.01, surf_sdf=2.0, normals=0.3, space_sdf=0.01, grad=0.1,
+                   anchors=7.5, symm_dist=0.01, middle_dist=0.0)
+        cfg = dict(training=dict(ckpt_interval=1, grad_clip=0.1, grad_clip_lat=0.1, lr=5e-4,
+                                 lr_lat=1e-3, weight_decay=0.01, lambdas=lam,
+                                 fused_train_kernel=True))
+        tr = IdentityTrainer(s, ps, cfg, ds, ds, "exp", exp_dir={str(tmp_path)!r},
+                             logger=MetricsLogger(quiet=True), recon_resolution=16,
+                             device="cpu")
+        tr.train_model(1)
+        loaded = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or m == "nphm_tpu" or m.startswith("nphm_tpu."))
+        print("FOREIGN_LOADED", loaded)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=str(tmp_path), timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "JAX_LOADED False" in out.stdout
+    assert "FOREIGN_LOADED []" in out.stdout, out.stdout
     assert (tmp_path / "posed.ply").exists()
+    assert (tmp_path / "exp" / "checkpoints" / "checkpoint_epoch_0.pkl").exists()
+
+
+def test_port_source_never_imports_nphm_tpu():
+    """No import of the JAX package in the port's source or the smoke script."""
+    pattern = re.compile(r"^\s*(import\s+nphm_tpu(\.|\s|$|,)|from\s+nphm_tpu(\.|\s))",
+                         re.MULTILINE)
+    files = sorted(glob.glob(os.path.join(ROOT, "nphm_tpu_torch", "**", "*.py"),
+                             recursive=True))
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 20
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        offenders += [f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}"
+                      for m in pattern.finditer(text)]
+        if re.search(r"^\s*(import|from)\s+jax\b", text, re.MULTILINE):
+            offenders.append(f"{os.path.relpath(path, ROOT)}: imports jax")
+    assert not offenders, offenders
+    assert pattern.search("from nphm_tpu.ops import marching")
+    assert pattern.search("import nphm_tpu")
+    assert not pattern.search("from nphm_tpu_torch.ops import marching")
