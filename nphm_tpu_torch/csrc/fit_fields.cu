@@ -13,8 +13,9 @@
 // every hidden activation in shared memory), then runs one reverse sweep
 // with the transposed weights: d(coords) is written directly, and the
 // per-row bias cotangents of layer 0 and of the skip layer go to per-block
-// partials [A][n_blocks][H], which a second pass sums over each row's
-// blocks in a fixed order (deterministic, unlike atomics).  Weight
+// partials [A][n_blocks][H], which a second pass (mlp_tile.cuh's
+// sum_block_partials, shared with K6) sums over each row's blocks in a
+// fixed order (deterministic, unlike atomics).  Weight
 // cotangents are not computed: the decoder is frozen during a fit.
 //
 // Bound on this card: fp32 FMA throughput (forward ~81k FMAs per point and
@@ -164,24 +165,6 @@ fit_bwd_kernel(nphm::Trunk tr, const float* __restrict__ coords,
     for (int c = 0; c < 3; ++c) dcoords[(m * 3 + c) * M + p0 + t] = dg[c * T + t];
 }
 
-// out[m][r][o] = sum over the row's blocks b of part[m][r * bpr + b][o]
-__global__ void sum_row_partials(const float* __restrict__ part,
-                                 float* __restrict__ out, int n_members,
-                                 int n_rows, int bpr, int H) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t total = (int64_t)n_members * n_rows * H;
-  if (idx >= total) return;
-  const int o = (int)(idx % H);
-  const int64_t mr = idx / H;
-  const int r = (int)(mr % n_rows);
-  const int m = (int)(mr / n_rows);
-  const int64_t n_blk = (int64_t)n_rows * bpr;
-  const float* src = part + (m * n_blk + (int64_t)r * bpr) * H + o;
-  float s = 0.f;
-  for (int b = 0; b < bpr; ++b) s += src[(int64_t)b * H];
-  out[idx] = s;
-}
-
 }  // namespace
 
 extern "C" int nphm_fit_lanes_per_block() { return kLanes; }
@@ -233,17 +216,17 @@ extern "C" int nphm_fit_bwd(const nphm::Trunk* tr, const float* coords,
       hsum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int bpr = (int)(n_blk / n_rows);
+  // each row's bias cotangent: that row's block partials in a fixed order
   const int skip = (int)tr->skip;
   const int H0 = (int)tr->n_out[0];
   const int HS = (int)tr->n_out[skip];
   int64_t total = (int64_t)n_members * n_rows * H0;
-  sum_row_partials<<<(unsigned)((total + 255) / 256), 256, 0,
-                     (cudaStream_t)stream>>>(part0, d_bias0, n_members, n_rows,
-                                             bpr, H0);
+  nphm::sum_block_partials<<<(unsigned)((total + 255) / 256), 256, 0,
+                             (cudaStream_t)stream>>>(
+      part0, d_bias0, n_members, n_blk, H0, 0, H0, n_rows, (int64_t)n_rows * H0);
   total = (int64_t)n_members * n_rows * HS;
-  sum_row_partials<<<(unsigned)((total + 255) / 256), 256, 0,
-                     (cudaStream_t)stream>>>(part_s, d_bias_s, n_members,
-                                             n_rows, bpr, HS);
+  nphm::sum_block_partials<<<(unsigned)((total + 255) / 256), 256, 0,
+                             (cudaStream_t)stream>>>(
+      part_s, d_bias_s, n_members, n_blk, HS, 0, HS, n_rows, (int64_t)n_rows * HS);
   return (int)cudaGetLastError();
 }

@@ -265,4 +265,25 @@ __device__ __forceinline__ void trunk_forward(const Trunk& tr, int m,
   }
 }
 
+// Fixed-order sum of per-block partials (no atomics, deterministic):
+// out[c * out_ms + r * ncols + j] = sum over row r's blocks b (in order) of
+// part[(c * n_blk + b) * n_part + col0 + j]; n_rows = 1 sums every block.
+// One thread per output; internal linkage, as every .cu includes this file.
+static __global__ void sum_block_partials(const float* __restrict__ part,
+                                          float* __restrict__ out, int n_chunk,
+                                          int64_t n_blk, int n_part, int col0,
+                                          int ncols, int n_rows, int64_t out_ms) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)n_chunk * n_rows * ncols) return;
+  const int j = (int)(idx % ncols);
+  const int64_t cr = idx / ncols;
+  const int r = (int)(cr % n_rows);
+  const int c = (int)(cr / n_rows);
+  const int64_t bpr = n_blk / n_rows;
+  const float* src = part + ((int64_t)c * n_blk + r * bpr) * n_part + col0 + j;
+  float s = 0.f;
+  for (int64_t b = 0; b < bpr; ++b) s += src[b * n_part];
+  out[c * out_ms + (int64_t)r * ncols + j] = s;
+}
+
 }  // namespace nphm

@@ -454,25 +454,6 @@ train_bwd_rev_kernel(nphm::Trunk tr, const float* __restrict__ coords,
       dcoords[((int64_t)m * 3 + c) * M + p0 + t] = dg[c * T + t];
 }
 
-// out[c * out_ms + r * ncols + j] = sum over row r's blocks b (in order) of
-// part[(c * n_blk + b) * n_part + col0 + j]; n_rows = 1 sums every block.
-__global__ void sum_block_partials(const float* __restrict__ part,
-                                   float* __restrict__ out, int n_chunk,
-                                   int64_t n_blk, int n_part, int col0,
-                                   int ncols, int n_rows, int64_t out_ms) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)n_chunk * n_rows * ncols) return;
-  const int j = (int)(idx % ncols);
-  const int64_t cr = idx / ncols;
-  const int r = (int)(cr % n_rows);
-  const int c = (int)(cr / n_rows);
-  const int64_t bpr = n_blk / n_rows;
-  const float* src = part + ((int64_t)c * n_blk + r * bpr) * n_part + col0 + j;
-  float s = 0.f;
-  for (int64_t b = 0; b < bpr; ++b) s += src[b * n_part];
-  out[c * out_ms + (int64_t)r * ncols + j] = s;
-}
-
 // K6's lane contraction: part[c][s][r][k] = sum over lanes j of split s of
 // A[c][r][j] * B[c][k][j] (rows of length K, lanes contiguous).  One block
 // owns a 64x64 output tile of one split; each thread a 4x4 register tile.
@@ -638,12 +619,12 @@ extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
   // small gradients from the per-block partials: row biases sum each row's
   // blocks; the rest sum each row's blocks into gsp, then the rows
   auto per_row = [&](int col0, int ncols, float* out) {
-    sum_block_partials<<<n_grid((int64_t)n_chunk * n_rows * ncols), 256, 0, st>>>(
+    nphm::sum_block_partials<<<n_grid((int64_t)n_chunk * n_rows * ncols), 256, 0, st>>>(
         part, out, n_chunk, n_blk, n_part, col0, ncols, n_rows, (int64_t)n_rows * ncols);
   };
   auto per_member = [&](int col0, int ncols, float* out) {
     per_row(col0, ncols, gsp);
-    sum_block_partials<<<n_grid((int64_t)n_chunk * ncols), 256, 0, st>>>(
+    nphm::sum_block_partials<<<n_grid((int64_t)n_chunk * ncols), 256, 0, st>>>(
         gsp, out, n_chunk, n_rows, ncols, 0, ncols, 1, ncols);
   };
   int col = 0;

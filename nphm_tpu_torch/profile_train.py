@@ -110,6 +110,12 @@ def main(argv=None):
         return sum(v for k, v in by_name.items() if any(n in k for n in names))
 
     device_ms = sum(by_name.values())
+    if device_ms > wall_ms:
+        # one stream: kernel time cannot exceed the step's wall time, so the
+        # sum counted something twice
+        raise RuntimeError(f"device kernels sum to {device_ms:.3f} ms a step, more than "
+                           f"the {wall_ms:.3f} ms wall time: the device-time count is wrong "
+                           f"({sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})")
     k5, k6 = share(K5_KERNELS), share(K6_KERNELS)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
@@ -119,7 +125,7 @@ def main(argv=None):
         "steps": args.steps,
         "step_wall_ms": wall_ms,
         "device_ms_per_step": device_ms,
-        "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "idle_share": 1.0 - device_ms / wall_ms,
         "k5_ms": k5,
         "k6_ms": k6,
         "k6_parts_ms": {n: share((n,)) for n in K6_KERNELS},

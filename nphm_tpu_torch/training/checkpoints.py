@@ -6,6 +6,13 @@ latest-epoch discovery by file name, and ``val_min=EPOCH.npy`` marker files
 (reference training.py:166-247).  The content is plain dicts, lists and
 numpy arrays, so a checkpoint loads without torch.  Checkpoints are local
 trusted artifacts (pickle, as the reference's torch.save).
+
+Epoch numbering differs from the JAX package's: the port's
+``IdentityTrainer`` writes ``checkpoint_epoch_N`` at the end of epoch N,
+after validation (so ``latents_val`` holds epoch N's validation update),
+and resumes at epoch N + 1.  The JAX trainer writes it before validation
+and resumes at epoch N.  The files share a name and layout, but two
+checkpoints of the same N do not hold the same state.
 """
 
 from __future__ import annotations

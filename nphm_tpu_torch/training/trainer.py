@@ -16,7 +16,9 @@ true; otherwise through the decoder and an autograd spatial gradient.
 Resume is exact: the checkpoint of epoch N is written at the end of the
 epoch (after validation) and training resumes at epoch N + 1, so a resumed
 run equals an uninterrupted one.  (The JAX trainer writes it before
-validation and repeats epoch N.)  Matmul precision is fp32 with TF32 off;
+validation and repeats epoch N, so its checkpoint of epoch N holds the
+validation latents before that epoch's update; see ``checkpoints``.)
+Matmul precision is fp32 with TF32 off;
 ``matmul_precision`` accepts only "default".
 """
 
