@@ -10,23 +10,30 @@ Phases, in order; any failure exits non-zero:
    marching library from ``csrc`` (so phase 4 times marching, not its build).
 2. Models at production dims: the NPHM ensemble of ``configs/nphm.yaml``
    and the compress-mode deformation field of ``configs/nphm_def.yaml``,
-   initialised from a seeded ``torch.Generator``; mean anchors are the
-   seeded unit-sphere fallback (no assets needed).
+   and the NPM family of ``configs/npm.yaml`` / ``configs/npm_def.yaml``
+   (8x1024 DeepSDF identity decoder and offsets network), initialised from
+   seeded ``torch.Generator``s; mean anchors are the seeded unit-sphere
+   fallback (no assets needed).
 3. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with its tolerance, both timed with CUDA events, and its
    bound (the least time the card could take for the same work) computed
-   from the inputs of the timed run.
+   from the inputs of the timed run.  K7 is also timed against one
+   ``torch.addmm`` per layer at its shapes (``library_ms``).
 4. The fit-and-extract path through the port's entry points: ``fit_joint``
    on synthetic single-view observations, ``extract_mesh`` at res 256,
    ``deform_mesh_batch`` over the fitted expressions and one PLY export.
-   K1-K4's launch counters must move during this phase.  Then a 5-step fit
-   through the kernels is held against the same fit on the plain torch
-   path (same draws).
+   K1-K4's and K7's (posing) launch counters must move during this phase.
+   Then a 5-step fit through the kernels is held against the same fit on
+   the plain torch path (same draws).
 5. The identity-training path: ``IdentityTrainer.train_model`` at the
    widths of ``configs/nphm.yaml`` on synthetic heads, with checkpointing,
    reconstruction logging and a resume; K5, K6 and K1's counters must move.
    Then a 3-step training run through K5/K6 is held against the same run on
    the plain path.
+6. The NPM path through the same entry points: ``fit_joint`` (K2's shared
+   memory does not fit the 8x1024 offsets trunk, so its counter must stay
+   at 0), ``extract_mesh`` at res 256 and ``deform_mesh_batch`` through K7,
+   one PLY export; then the NPM grid through K7 against its plain version.
 
 The second-to-last line is the kernel table as JSON, the last line the
 device record as JSON.  Nothing here imports JAX or the JAX package.
@@ -46,6 +53,9 @@ SEED = 0
 GRID_MIN = (-0.55, -0.5, -0.95)
 GRID_MAX = (0.55, 0.75, 0.4)
 FIT_STEPS = 300
+EXTRACT_RES = 256
+K7_GRID_POINTS = 1 << 20  # K7's check (a): points of the res-256 grid
+K7_MESH_POINTS = 1 << 19  # checks (b), (c): points of a warped sphere
 
 # Tolerances of kernel vs plain version (fp32 both; only summation order
 # and FMA contraction differ, amplified through 4-7 layers).
@@ -68,6 +78,12 @@ TOL_FIT_RTOL, TOL_FIT_ATOL = 1e-3, 5e-4
 # take one row-Adam step, made mostly of such ~lr * sign moves.
 TOL_TRAIN_UPDATE = {"params": 5e-5, "latents": 5e-5, "latents_val": 5e-4}
 TOL_TRAIN_TERMS = 1e-4  # loss terms, relative
+# K7, relative to the magnitude of the plain version's head product (its
+# output less the head bias): fp32 both ways, only the summation order
+# differs, over K = 1024 and 8 layers.  The NPM identity field's head bias
+# is shifted to cancel the product (build_npm_models), so its output alone
+# would be no measure of the rounding.
+TOL_K7 = 1e-4
 
 # Card peaks for the bound (published H100 SXM figures at 700 W): fp32
 # outside the tensor cores (every kernel here is fp32 SIMT) and HBM3.
@@ -87,6 +103,8 @@ KERNELS = {
                   "nphm_tpu/ops/pallas_train.py:489"),
     "train_bwd": ("nphm_tpu_torch/csrc/train_fields.cu",
                   "nphm_tpu/ops/pallas_train.py:550"),
+    "deepsdf_trunk": ("nphm_tpu_torch/csrc/deepsdf_trunk.cu",
+                      "nphm_tpu/ops/pallas_mlp.py:191"),
 }
 
 
@@ -228,6 +246,47 @@ def build_models(device):
     log(f"[models] NPHM {cfg_s.n_members} members x {cfg_s.layer_shapes[0]}; "
         f"deformation {cfg_e.mode} trunk {cfg_e.trunk_cfg.layer_shapes[0]}")
     return shape, params_shape, expr, params_expr, gen
+
+
+def build_npm_models(device):
+    """The NPM family at the widths of configs/npm.yaml and npm_def.yaml.
+
+    At the configs' init the identity field is nearly constant (about -0.4
+    over the head box: the U(+-1/sqrt(fan_in)) hidden layers damp the
+    spatial signal and only the head is geometric), so it has no zero set.
+    The head bias is shifted by the field's median over the observed points
+    of phase 6, which puts the zero set through them.
+    """
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.config import (
+        build_expression_decoder,
+        build_identity_decoder,
+        load_yaml,
+    )
+    from nphm_tpu_torch.ops.trunk import deepsdf_trunk_plain
+
+    shape = build_identity_decoder(
+        load_yaml(os.path.join(ROOT, "configs", "npm.yaml"))["decoder"], local=False)
+    expr = build_expression_decoder(
+        load_yaml(os.path.join(ROOT, "configs", "npm_def.yaml")), "npm")
+    gen = torch.Generator().manual_seed(SEED + 10)
+    params_shape = shape.init(gen, device)
+    params_expr = expr.init(gen, device)
+    pts = torch.tensor(np.concatenate(npm_observations()), device=device)
+    sdf = deepsdf_trunk_plain(params_shape, shape.cfg, pts,
+                              torch.zeros(shape.lat_dim, device=device))
+    shift = float(sdf.median())
+    params_shape["layers"][-1]["b"] -= shift
+    log(f"[models] NPM identity {shape.cfg.layer_shapes[0]} (head bias shifted by "
+        f"{-shift:.5f}; field at the observed points was {float(sdf.min()):.5f} .. "
+        f"{float(sdf.max()):.5f}); offsets {expr.cfg.layer_shapes[0]}")
+    return shape, params_shape, expr, params_expr, gen
+
+
+def npm_observations():
+    return observations(20, 2500, SEED + 3)
 
 
 def observations(n_obs: int, n_pts: int, seed: int):
@@ -552,13 +611,123 @@ def check_k5_k6(shape, params, gen, device, rows):
     rows["train_bwd"] = dict(max_abs_err=e6, ms=ms6, plain_ms=plain6, **b6)
 
 
-def kernel_checks(models, device):
+def addmm_chain_ms(cfg, n: int, device, reps: int) -> float:
+    """One ``torch.addmm`` per layer at K7's shapes (layer 0 over the point
+    features, the skip layer over hidden + point features, conditioning
+    folded): the products cuBLAS would run for the same work, TF32 off,
+    random operands, no activations.  Timed only; the port never calls it."""
+    import torch
+
+    shapes, skip = cfg.layer_shapes
+    ds = cfg.d_in_spatial
+    ws, bs = [], []
+    for i, (n_in, n_out) in enumerate(shapes):
+        k = ds if i == 0 else (n_in - cfg.d_in + ds if i == skip else n_in)
+        ws.append(torch.randn(k, n_out, device=device) / k**0.5)
+        bs.append(torch.zeros(n_out, device=device))
+    pe = torch.randn(n, ds, device=device)
+    skip_in = torch.randn(n, ws[skip].shape[0], device=device)
+
+    def chain():
+        x = torch.addmm(bs[0], pe, ws[0])
+        for i in range(1, len(ws)):
+            x = torch.addmm(bs[i], skip_in if i == skip else x, ws[i])
+        return x
+
+    return cuda_ms(chain, reps)
+
+
+def trunk_bound(cfg, n: int, layers) -> dict:
+    """K7's bound: its FMAs (conditioning folded) over the fp32 peak against
+    the point features read, the outputs written and the folded weights."""
+    shapes, skip = cfg.layer_shapes
+    fmas = trunk_fmas(shapes, skip, cfg.d_in_spatial, cfg.d_in)
+    wbytes = 4 * sum(t.numel() for lay in layers for t in lay.values())
+    return bound(2.0 * fmas * n, n * 4 * (cfg.d_in_spatial + cfg.out_dim) + wbytes)
+
+
+def k7_error(kernel, plain, head_bias):
+    """(max |kernel - plain|, the plain head product's max magnitude)."""
+    return (float((kernel - plain).abs().max()),
+            float((plain - head_bias).abs().max()))
+
+
+def check_k7(models, npm, device, rows):
+    """K7 on the three trunks the main paths run, each against its plain
+    version, both timed with CUDA events after a warm-up, beside the addmm
+    chain: (a) the NPM identity trunk on 2^20 points of the res-256 grid
+    (its middle x-slabs), (b) the NPM offsets trunk and (c) the NPHM
+    compress trunk on 2^19 points of a warped sphere (a mesh's vertices).
+    The table row is (a), the res-256 NPM grid's trunk."""
+    import torch
+
+    from nphm_tpu_torch.models.deformation import conditioning
+    from nphm_tpu_torch.models.ensemble import predict_anchors
+    from nphm_tpu_torch.ops.trunk import (
+        deepsdf_trunk,
+        deepsdf_trunk_plain,
+        prepare_trunk_operands,
+    )
+
+    shape, params_shape, expr, params_expr, gen = models
+    n_shape, n_ps, n_expr, n_pe, _ = npm
+    res, n_a = 256, K7_GRID_POINTS
+    lin = torch.arange(n_a, device=device) + (res**3 - n_a) // 2
+    axes = [torch.linspace(GRID_MIN[i], GRID_MAX[i], res, device=device) for i in range(3)]
+    grid = torch.stack([axes[0][lin // res**2], axes[1][(lin // res) % res],
+                        axes[2][lin % res]], dim=-1)
+    verts = torch.tensor(observations(1, K7_MESH_POINTS, SEED + 6)[0], device=device)
+    lat_npm = (torch.randn(n_shape.lat_dim, generator=gen) * 0.01).to(device)
+    cond_b = (torch.randn(n_expr.cfg.lat_dim, generator=gen) * 0.01).to(device)
+    lat_s = (torch.randn((1, shape.lat_dim), generator=gen) * 0.01).to(device)
+    lat_e = (torch.randn((1, expr.lat_dim), generator=gen) * 0.01).to(device)
+    with torch.no_grad():
+        anchors = predict_anchors(params_shape, shape.cfg, lat_s)
+        cond_c = conditioning(params_expr, expr.cfg, torch.cat([lat_s, lat_e], -1),
+                              anchors)[0]
+    cases = (
+        ("(a) NPM identity 8x1024, 2^20 res-256 grid points", n_ps, n_shape.cfg, grid,
+         lat_npm, 3),
+        ("(b) NPM offsets 8x1024, 2^19 sphere points", n_pe, n_expr.cfg, verts, cond_b, 3),
+        ("(c) NPHM compress 6x512, 2^19 sphere points", params_expr["trunk"],
+         expr.cfg.trunk_cfg, verts, cond_c, 5),
+    )
+    err = 0.0
+    row = None
+    for tag, params, cfg, pts, cond, reps in cases:
+        k = deepsdf_trunk(params, cfg, pts, cond)
+        p = deepsdf_trunk_plain(params, cfg, pts, cond)
+        e, scale = k7_error(k, p, params["layers"][-1]["b"])
+        log(f"[K7] {tag}: max|err| {e:.3e}, relative {e / max(scale, 1e-30):.3e} "
+            f"(tol {TOL_K7:g}) to the head product's max magnitude {scale:.4f}")
+        expect(bool(torch.isfinite(k).all()), f"K7 non-finite on {tag}")
+        expect(e <= TOL_K7 * scale, f"K7 disagrees with its plain version on {tag}")
+        err = max(err, e)
+        del k, p
+        ms = cuda_ms(lambda: deepsdf_trunk(params, cfg, pts, cond), reps)
+        plain_ms = cuda_ms(lambda: deepsdf_trunk_plain(params, cfg, pts, cond), reps)
+        lib_ms = addmm_chain_ms(cfg, pts.shape[0], device, reps)
+        with torch.no_grad():
+            b = trunk_bound(cfg, pts.shape[0], prepare_trunk_operands(params, cfg, cond))
+        tflops = 2.0 * trunk_fmas(*cfg.layer_shapes, cfg.d_in_spatial, cfg.d_in) \
+            * pts.shape[0] / ms / 1e9
+        log(f"[K7] {tag}: kernel {ms:.3f} ms ({tflops:.2f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, addmm chain {lib_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']})")
+        torch.cuda.empty_cache()
+        if row is None:
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+    rows["deepsdf_trunk"] = dict(max_abs_err=err, **row)
+
+
+def kernel_checks(models, npm, device):
     shape, params_shape, expr, params_expr, gen = models
     rows = {}
     check_k1(shape, params_shape, gen, device, rows)
     check_k2(shape, params_shape, expr, params_expr, gen, device, rows)
     check_k3_k4(shape, params_shape, gen, device, rows)
     check_k5_k6(shape, params_shape, gen, device, rows)
+    check_k7(models, npm, device, rows)
     return rows
 
 
@@ -572,7 +741,9 @@ def reset_counters():
     from nphm_tpu_torch.ops.fit_fields import member_f
     from nphm_tpu_torch.ops.search import broyden_search
     from nphm_tpu_torch.ops.train_fields import member_fields
+    from nphm_tpu_torch.ops.trunk import deepsdf_trunk
 
+    deepsdf_trunk.launches = 0
     nphm_sdf.launches = 0
     broyden_search.launches = 0
     member_f.launches = 0
@@ -586,6 +757,7 @@ def read_counters():
     from nphm_tpu_torch.ops.fit_fields import member_f
     from nphm_tpu_torch.ops.search import broyden_search
     from nphm_tpu_torch.ops.train_fields import member_fields
+    from nphm_tpu_torch.ops.trunk import deepsdf_trunk
 
     return {
         "ensemble_sdf": nphm_sdf.launches,
@@ -594,6 +766,7 @@ def read_counters():
         "fit_bwd": member_f.bwd_launches,
         "train_fwd": member_fields.launches,
         "train_bwd": member_fields.bwd_launches,
+        "deepsdf_trunk": deepsdf_trunk.launches,
     }
 
 
@@ -654,7 +827,7 @@ def main_path(models, device):
         f"({size} bytes)")
     counts = read_counters()
     log(f"[counters] fit path: {json.dumps(counts)}")
-    for name in ("ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd"):
+    for name in ("ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
         expect(counts[name] > 0, f"kernel {name} was not launched on the fit path")
     check_fit_reference(models, obs, device)
     return counts
@@ -841,6 +1014,89 @@ def check_train_reference(models, device):
     expect(rel_terms <= TOL_TRAIN_TERMS, "the kernel training loss terms disagree")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the NPM family
+# ---------------------------------------------------------------------------
+
+
+def npm_path(npm, device):
+    """The NPM family's fit -> extract -> pose path at the widths of
+    configs/npm.yaml and npm_def.yaml, through the port's entry points."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.fitting.inference import FittingConfig, _use_fused_search, fit_joint
+    from nphm_tpu_torch.ops.trunk import deepsdf_trunk_plain, npm_grid_sdf
+    from nphm_tpu_torch.reconstruction.extract import deform_mesh_batch, extract_mesh
+
+    shape, params_shape, expr, params_expr, _gen = npm
+    obs = npm_observations()
+    cfg = FittingConfig(n_steps=FIT_STEPS, log_every=100, seed=SEED)
+    expect(not _use_fused_search(expr, cfg, device),
+           "K2's gate let the 8x1024 offsets trunk through")
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat_expr, lat_shape, anchors, hist = fit_joint(
+        shape, params_shape, expr, params_expr, obs, cfg=cfg, device=device,
+        verbose=False,
+    )
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    loss = np.asarray(hist["loss"])
+    log(f"[npm-fit] {FIT_STEPS} steps in {t_fit:.2f} s; steady {hist['steady_it_s']:.2f} "
+        f"it/s (first step {hist['first_step_s']:.2f} s excluded); loss {loss[0]:.5f} -> "
+        f"{loss[-1]:.5f}; surface {float(hist['surface'][0]):.5f} -> "
+        f"{float(hist['surface'][-1]):.5f}; n_valid {int(hist['n_valid'][0])} -> "
+        f"{int(hist['n_valid'][-1])} of {cfg.n_obs_per_batch * cfg.n_points_per_obs}; "
+        f"executed Broyden iterations mean {float(np.mean(hist['broyden_iters'])):.2f}")
+    expect(anchors is None, "the NPM fit returned anchors")
+    expect(bool(np.isfinite(loss).all()), "NPM fit loss history is not finite")
+    expect(bool(np.isfinite(lat_shape).all() and np.isfinite(lat_expr).all()),
+           "NPM fitted latents are not finite")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh, timing = extract_mesh(shape, params_shape, lat_shape, GRID_MIN, GRID_MAX,
+                                EXTRACT_RES, device=device, return_timing=True)
+    t_ext = time.perf_counter() - t0
+    log(f"[npm-extract] res {EXTRACT_RES}: grid eval {timing['grid_s']:.3f} s "
+        f"({EXTRACT_RES**3 / timing['grid_s'] / 1e6:.2f} M q/s), marching {timing['march_s']:.3f} "
+        f"s, total {t_ext:.3f} s; {len(mesh.vertices)} vertices, {len(mesh.faces)} faces")
+    expect(len(mesh.vertices) > 0 and len(mesh.faces) > 0, "NPM mesh is empty")
+    expect(bool(np.isfinite(mesh.vertices).all()), "NPM mesh vertices are not finite")
+
+    t0 = time.perf_counter()
+    posed = deform_mesh_batch(mesh, expr, params_expr, lat_expr, lat_shape=lat_shape,
+                              device=device)
+    t_def = time.perf_counter() - t0
+    expect(len(posed) == len(obs), "one posed NPM mesh per expression")
+    expect(all(np.isfinite(m.vertices).all() for m in posed), "posed NPM vertices not finite")
+    moved = float(np.abs(posed[0].vertices - mesh.vertices).max())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "npm_expr_000.ply")
+        posed[0].export(path)
+        size = os.path.getsize(path)
+    log(f"[npm-deform] {len(posed)} expressions x {len(mesh.vertices)} vertices in "
+        f"{t_def:.3f} s (max offset {moved:.4f}); exported one PLY ({size} bytes)")
+    counts = read_counters()
+    log(f"[counters] NPM path: {json.dumps(counts)}")
+    expect(counts["deepsdf_trunk"] > 0, "K7 was not launched on the NPM path")
+    expect(counts["broyden_search"] == 0, "K2 was launched on the NPM path")
+
+    lat = torch.tensor(lat_shape, device=device).reshape(-1)
+    a = npm_grid_sdf(params_shape, shape.cfg, lat, GRID_MIN, GRID_MAX, 64)
+    b = npm_grid_sdf(params_shape, shape.cfg, lat, GRID_MIN, GRID_MAX, 64,
+                     trunk_fn=deepsdf_trunk_plain)
+    e, scale = k7_error(a, b, params_shape["layers"][-1]["b"])
+    log(f"[npm-check] 64^3 NPM grid, K7 vs plain: max|err| {e:.3e}, relative "
+        f"{e / max(scale, 1e-30):.3e} (tol {TOL_K7:g}) to the head product's max "
+        f"magnitude {scale:.4f}")
+    expect(e <= TOL_K7 * scale, "the NPM grid through K7 disagrees with its plain version")
+    return counts
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -861,15 +1117,17 @@ def run():
     smi = device_and_build()
     device = torch.device("cuda", 0)
     models = build_models(device)
-    rows = kernel_checks(models, device)
+    npm = build_npm_models(device)
+    rows = kernel_checks(models, npm, device)
     fit_counts = main_path(models, device)
     train_counts = train_path(models, device)
+    npm_counts = npm_path(npm, device)
     table = []
     for name, (source, replaces) in KERNELS.items():
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces,
-                      "launches": fit_counts[name] + train_counts[name],
-                      **rows[name], "library_ms": None})
+                      "launches": fit_counts[name] + train_counts[name] + npm_counts[name],
+                      "library_ms": None, **rows[name]})
     log(smi)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,25 @@
 """YAML config handling and model constructors (counterpart of ``nphm_tpu/config.py``).
 
-Reads the same ``configs/*.yaml`` files as the JAX package.  Only the NPHM
-family is ported: the NPM identity decoder and the NPM offsets network raise
-``NotImplementedError``.
+Reads the same ``configs/*.yaml`` files as the JAX package and builds both
+model families: the NPHM ensemble with its deformation field, and the NPM
+global DeepSDF identity decoder with its DeepSDF offsets network.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import yaml
 
 from nphm_tpu_torch import env_paths
 from nphm_tpu_torch.models import (
+    DeepSDFConfig,
     DeformationConfig,
     NPHMConfig,
     make_deformation_decoder,
     make_nphm_decoder,
+    make_npm_decoder,
 )
 
 
@@ -57,21 +61,47 @@ def deformation_config_from_yaml(cfg: dict, mode: str) -> DeformationConfig:
 
 
 def build_identity_decoder(cfg_decoder: dict, local: bool, mean_anchors=None):
-    """NPHM identity decoder (local=True) from a YAML 'decoder' block.
+    """NPHM (local=True) or NPM identity decoder from a YAML 'decoder' (or
+    'id_decoder') block.
 
-    mean_anchors defaults to the dataset asset (``load_mean_anchors``).
+    mean_anchors (NPHM only) defaults to the dataset asset
+    (``load_mean_anchors``).
     """
     if not local:
-        raise NotImplementedError("the NPM identity decoder is not ported")
+        return make_npm_decoder(DeepSDFConfig(
+            lat_dim=cfg_decoder["decoder_lat_dim"],
+            hidden_dim=cfg_decoder["decoder_hidden_dim"],
+            n_layers=cfg_decoder.get("decoder_nlayers", 8),
+            geometric_init=True,
+            out_dim=1,
+        ))
     if mean_anchors is None:
         mean_anchors = load_mean_anchors()
     return make_nphm_decoder(nphm_config_from_yaml(cfg_decoder), mean_anchors)
 
 
 def build_expression_decoder(cfg: dict, mode: str):
-    """Stage-2 expression decoder from a full config."""
+    """Stage-2 expression decoder from a full config.
+
+    mode == "npm" selects the NPM family's global DeepSDF offsets network
+    over ``[z_id, z_ex]`` (kind ``deformation_npm``); its ``lat_dim`` is the
+    expression width and its ``apply`` ignores anchors.
+    """
     if mode == "npm":
-        raise NotImplementedError("the NPM offsets network is not ported")
+        base = make_npm_decoder(DeepSDFConfig(
+            lat_dim=cfg["id_decoder"]["decoder_lat_dim"]
+            + cfg["ex_decoder"]["decoder_lat_dim"],
+            hidden_dim=cfg["ex_decoder"].get("decoder_hidden_dim", 1024),
+            n_layers=cfg["ex_decoder"].get("decoder_nlayers", 8),
+            geometric_init=False,
+            out_dim=3,
+        ))
+
+        def apply(params, xyz, lat, anchors=None, **_):
+            return base.apply(params, xyz, lat)
+
+        return dataclasses.replace(base, kind="deformation_npm", apply=apply,
+                                   lat_dim=cfg["ex_decoder"]["decoder_lat_dim"])
     return make_deformation_decoder(deformation_config_from_yaml(cfg, mode))
 
 

@@ -181,7 +181,12 @@ extern "C" int nphm_broyden_search(const nphm::Trunk* tr, const float* obs,
   const int smem = nphm_search_smem_bytes(hmax);
   cudaError_t err = cudaFuncSetAttribute(
       broyden_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) {
+    // refused for a trunk wider than a block's shared memory (hidden 1024);
+    // clear the error so the next launch's check does not report it again
+    cudaGetLastError();
+    return (int)err;
+  }
   const int64_t blocks = n_pad / kLanes;
   broyden_search_kernel<<<(unsigned)blocks, nphm::kThreads, smem,
                           (cudaStream_t)stream>>>(

@@ -10,11 +10,14 @@ store of roots and inverse Jacobians, the Adam moments and the history all
 kept on the device (the history is pulled once, at the end).
 
 Kernel routing: on a CUDA device the correspondence search runs as K2
-(``ops.search``) and the shape field at the roots as K3/K4
+(``ops.search``) and the NPHM shape field at the roots as K3/K4
 (``ops.fit_fields``) — ``fused_search`` / ``fused_shape_fields`` "auto".
 "on" selects the same wrappers everywhere (on the CPU they run the kernels'
 plain versions); "off" selects the plain ``fitting.broyden.search`` and
-``apply_nphm``.
+``apply_nphm``.  "auto" skips K2 when its shared memory exceeds the card's
+limit (the NPM family's 8x1024 offsets trunk).  The NPM family's shape
+field is the plain ``apply_deepsdf`` with autograd, as in the JAX package;
+its fit has no anchors.
 """
 
 from __future__ import annotations
@@ -139,7 +142,12 @@ _JOINT_HIST_KEYS = (
 
 
 def _shape_regularizers(decoder, lat_shape, unobserved):
-    """Latent regularizers for the ensemble decoder's structured code."""
+    """Latent regularizers for the ensemble decoder's structured code; a
+    global code (the NPM family) has only ``reg_global``."""
+    if decoder.lat_dim_glob is None:
+        zero = torch.zeros((), device=lat_shape.device)
+        return {"reg_loc": zero, "reg_global": torch.mean(sq_norm(lat_shape)),
+                "reg_unobserved": zero, "symm_dist": zero}
     g, l = decoder.lat_dim_glob, decoder.lat_dim_loc
     terms = {
         "reg_loc": torch.mean(sq_norm(lat_shape[..., g:])),
@@ -195,7 +203,9 @@ def _shape_fields_fn(decoder_shape, cfg: FittingConfig, device):
 
 def _use_fused_search(decoder_expr, cfg: FittingConfig, device) -> bool:
     """Gate for K2: warm path with an explicit J^-1 init, exact any(active)
-    exit semantics, and a kernel-eligible deformation trunk."""
+    exit semantics, and a kernel-eligible deformation trunk.  "auto" also
+    needs the kernel's shared memory to fit one block (decided from the
+    trunk's shape, before any launch)."""
     mode = cfg.fused_search
     if mode == "off" or not mode:
         return False
@@ -203,11 +213,13 @@ def _use_fused_search(decoder_expr, cfg: FittingConfig, device) -> bool:
         return False
     if not (cfg.warm_jacobian_store or cfg.warm_identity_jacobian):
         return False
-    from nphm_tpu_torch.ops.search import search_fusable
+    from nphm_tpu_torch.ops.search import search_fits, search_fusable
 
     if not search_fusable(decoder_expr):
         return False
-    return device.type == "cuda" if mode == "auto" else True
+    if mode == "auto":
+        return device.type == "cuda" and search_fits(decoder_expr)
+    return True
 
 
 def _make_joint_loss(decoder_shape, decoder_expr, cfg: FittingConfig, lam_keys,
@@ -217,13 +229,16 @@ def _make_joint_loss(decoder_shape, decoder_expr, cfg: FittingConfig, lam_keys,
     """
     nb = cfg.n_obs_per_batch
     warm = cfg.warm_start_corresp
+    use_anchors = decoder_shape.lat_dim_glob is not None
 
     def loss_fn(lat_s, lat_e, params_shape, params_expr, padded, lam_row,
                 clamp_j, sel, idx, xc0, jinv0, broyden_steps):
-        anchors = predict_anchors(params_shape, decoder_shape.cfg, lat_s)
         obs = padded[sel[:, None], idx]
         cond = torch.cat([lat_s.expand(nb, -1), lat_e[sel]], dim=-1)
-        anchors_b = anchors.expand((nb,) + anchors.shape[1:])
+        anchors_b = None
+        if use_anchors:
+            anchors = predict_anchors(params_shape, decoder_shape.cfg, lat_s)
+            anchors_b = anchors.expand((nb,) + anchors.shape[1:])
         if fused_search:
             from nphm_tpu_torch.ops.search import search_fused
 
@@ -233,7 +248,8 @@ def _make_joint_loss(decoder_shape, decoder_expr, cfg: FittingConfig, lam_keys,
                 else jinv0
             )
             xc_opt, result = search_fused(
-                decoder_expr, params_expr, obs, cond.detach(), anchors_b.detach(),
+                decoder_expr, params_expr, obs, cond.detach(),
+                None if anchors_b is None else anchors_b.detach(),
                 max_steps=broyden_steps, cvg_thresh=cfg.broyden_cvg,
                 dvg_thresh=cfg.broyden_dvg,
                 xc_init=obs if xc0 is None else xc0, j_inv_init=jinv_k,
@@ -311,9 +327,9 @@ def fit_joint(
 ):
     """Joint identity + expression fitting with Broyden correspondences.
 
-    Returns (lat_expr [n_obs, E], lat_shape [1, D], anchors, history dict)
-    as numpy.  The parameters move to ``device`` first (default
-    ``default_device()``).
+    Returns (lat_expr [n_obs, E], lat_shape [1, D], anchors (None for the
+    NPM family), history dict) as numpy.  The parameters move to ``device``
+    first (default ``default_device()``).
     ``sample_draws``: optional (sel [T, nb], idx [T, nb, npp]) integer
     arrays replacing the per-step random draws (seeded from ``cfg.seed``).
     The history holds one entry per step for each term, plus
@@ -438,11 +454,9 @@ def fit_joint(
             print(msg, int(history["n_valid"][j]))
         print(f"[fit_joint] {total} steps in {history['elapsed_s']:.1f}s "
               f"({history['steady_it_s']:.1f} it/s after the first step)")
-    with torch.no_grad():
-        anchors = predict_anchors(params_shape, decoder_shape.cfg, lat_shape)
-    return (
-        lat_expr[:n_obs].cpu().numpy(),
-        lat_shape.cpu().numpy(),
-        anchors.cpu().numpy(),
-        history,
-    )
+    anchors = None
+    if decoder_shape.lat_dim_glob is not None:
+        with torch.no_grad():
+            anchors = predict_anchors(params_shape, decoder_shape.cfg,
+                                      lat_shape).cpu().numpy()
+    return lat_expr[:n_obs].cpu().numpy(), lat_shape.cpu().numpy(), anchors, history

@@ -3,6 +3,7 @@ from nphm_tpu_torch.models.decoders import (
     Decoder,
     make_deformation_decoder,
     make_nphm_decoder,
+    make_npm_decoder,
 )
 from nphm_tpu_torch.models.deformation import (
     DeformationConfig,
@@ -32,4 +33,5 @@ __all__ = [
     "Decoder",
     "make_nphm_decoder",
     "make_deformation_decoder",
+    "make_npm_decoder",
 ]

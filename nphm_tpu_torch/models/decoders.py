@@ -13,6 +13,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from nphm_tpu_torch.models.deepsdf import DeepSDFConfig, apply_deepsdf, init_deepsdf
 from nphm_tpu_torch.models.deformation import (
     DeformationConfig,
     apply_deformation,
@@ -32,6 +33,21 @@ class Decoder:
     lat_dim_loc: Optional[int] = None
     n_symm_pairs: Optional[int] = None
     n_loc: Optional[int] = None
+
+
+def make_npm_decoder(cfg: DeepSDFConfig) -> Decoder:
+    """Global DeepSDF identity/expression decoder (the NPM family)."""
+
+    def apply(params, xyz, lat, **_):
+        return apply_deepsdf(params, cfg, xyz, lat), None
+
+    return Decoder(
+        kind="npm",
+        cfg=cfg,
+        init=lambda gen, device=None: init_deepsdf(gen, cfg, device),
+        apply=apply,
+        lat_dim=cfg.lat_dim,
+    )
 
 
 def make_nphm_decoder(cfg: NPHMConfig, mean_anchors) -> Decoder:

@@ -29,6 +29,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 MAX_LAYERS = 12  # csrc/mlp_tile.cuh kMaxLayers
+MAX_HEAD = 4  # csrc/mlp_tile.cuh kMaxHead
+N_WARPS = 8  # csrc/mlp_tile.cuh kWarps
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -86,11 +88,16 @@ _SIGNATURES = {
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
         _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
     ],
+    "nphm_trunk_layer": [
+        _vp, _i32, _i32, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _i64, _f32, _vp,
+    ],
+    "nphm_trunk_head": [_vp, _vp, _vp, _i32, _vp, _i32, _i64, _i64, _vp],
     "nphm_ensemble_points_per_block": [],
     "nphm_search_lanes_per_block": [],
     "nphm_fit_lanes_per_block": [],
     "nphm_train_lanes_per_block": [],
     "nphm_train_split_k": [],
+    "nphm_trunk_tile": [],
 }
 
 

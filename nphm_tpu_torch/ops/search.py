@@ -28,6 +28,7 @@ from nphm_tpu_torch.ops import _build
 
 SQRT2 = 1.4142135623730951
 TILE = 32  # lanes per tile (one CUDA block)
+MAX_SMEM_BYTES = 232448  # shared memory one block can use on an H100
 
 
 def prepare_search_operands(params_trunk, tcfg: DeepSDFConfig, cond):
@@ -256,9 +257,15 @@ broyden_search.launches = 0
 
 
 def _trunk_of(decoder_expr):
-    if getattr(decoder_expr, "kind", None) != "deformation":
+    """The DeepSDF trunk config K2 would run: the deformation field's trunk,
+    or the NPM offsets network itself; None when K2 cannot run it."""
+    kind = getattr(decoder_expr, "kind", None)
+    if kind == "deformation_npm":
+        tcfg = decoder_expr.cfg
+    elif kind == "deformation":
+        tcfg = decoder_expr.cfg.trunk_cfg
+    else:
         return None
-    tcfg = decoder_expr.cfg.trunk_cfg
     if tcfg.d_in_spatial != 3 or tcfg.out_dim < 3 or tcfg.beta <= 0:
         return None
     return tcfg
@@ -269,6 +276,24 @@ def search_fusable(decoder_expr) -> bool:
     return _trunk_of(decoder_expr) is not None
 
 
+def search_smem_bytes(tcfg: DeepSDFConfig) -> int:
+    """K2's dynamic shared memory for this trunk: a mirror of
+    ``nphm_search_smem_bytes`` (csrc/broyden_search.cu) at hmax, the widest
+    non-head layer output."""
+    shapes, _skip = tcfg.layer_shapes
+    hmax = max(n_out for _n_in, n_out in shapes[:-1])
+    T, head = TILE, _build.MAX_HEAD
+    return 4 * (2 * hmax * T + 3 * T + head * T + _build.N_WARPS * head * T + T)
+
+
+def search_fits(decoder_expr) -> bool:
+    """Does K2 for this decoder fit one block's shared memory?  False for the
+    NPM family's 8x1024 offsets trunk (267,264 bytes), True for the NPHM
+    6x512 deformation trunk (136,192)."""
+    tcfg = _trunk_of(decoder_expr)
+    return tcfg is not None and search_smem_bytes(tcfg) <= MAX_SMEM_BYTES
+
+
 @torch.no_grad()
 def search_fused(decoder_expr, params_expr, obs, cond_lat, anchors, *,
                  max_steps, xc_init, j_inv_init, cvg_thresh: float = 1e-6,
@@ -276,13 +301,18 @@ def search_fused(decoder_expr, params_expr, obs, cond_lat, anchors, *,
     """Counterpart of ``fitting.broyden.search`` on the fused path.
 
     cond_lat: [B, lat_shape_full + lat_expr]; requires explicit warm inits.
-    Diverged points (final-state inactive and not valid) get J^-1 reset to I.
-    Returns (xc [B, N, 3], result dict).
+    The NPM family's offsets network is the trunk itself, conditioned on
+    cond_lat = [z_id, z_ex].  Diverged points (final-state inactive and not
+    valid) get J^-1 reset to I.  Returns (xc [B, N, 3], result dict).
     """
-    dcfg = decoder_expr.cfg
-    cond = conditioning(params_expr, dcfg, cond_lat, anchors)
+    if decoder_expr.kind == "deformation_npm":
+        tcfg, cond, trunk = decoder_expr.cfg, cond_lat, params_expr
+    else:
+        dcfg = decoder_expr.cfg
+        cond = conditioning(params_expr, dcfg, cond_lat, anchors)
+        tcfg, trunk = dcfg.trunk_cfg, params_expr["trunk"]
     res = search_fn(
-        params_expr["trunk"], dcfg.trunk_cfg, cond, obs, xc_init, j_inv_init,
+        trunk, tcfg, cond, obs, xc_init, j_inv_init,
         max_steps, cvg_thresh=cvg_thresh, dvg_thresh=dvg_thresh,
     )
     diverged = ~res["active"] & ~res["valid_ids"]

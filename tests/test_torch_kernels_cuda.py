@@ -16,15 +16,18 @@ import pytest
 import torch
 
 from nphm_tpu_torch.models import (
+    DeepSDFConfig,
     DeformationConfig,
     NPHMConfig,
     make_deformation_decoder,
     make_nphm_decoder,
+    make_npm_decoder,
 )
 from nphm_tpu_torch.ops import ensemble as ens
 from nphm_tpu_torch.ops import fit_fields as ff
 from nphm_tpu_torch.ops import search as srch
 from nphm_tpu_torch.ops import train_fields as trf
+from nphm_tpu_torch.ops import trunk
 
 pytestmark = pytest.mark.cuda
 
@@ -132,10 +135,85 @@ def test_k5_k6_tiny_widths(device, cull_eps):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
 
+@pytest.mark.parametrize("kw,scratch", [
+    (dict(lat_dim=32, hidden_dim=64, n_layers=4), None),
+    (dict(lat_dim=16, hidden_dim=200, n_layers=8, num_freq_bands=2, out_dim=3),
+     2 * 4 * 200 * 256),
+    (dict(lat_dim=0, hidden_dim=32, n_layers=4, out_dim=2, beta=0.0), None),
+])
+def test_k7_tiny_widths(device, monkeypatch, kw, scratch):
+    """K7 vs its plain version: conditioned and unconditioned trunks, a
+    positional encoding, widths that are not tile multiples (the skip
+    layer's input), 1-3 outputs, ReLU, and point counts that are not tile
+    multiples, in one chunk or (a scratch of 256 points) several."""
+    if scratch is not None:
+        monkeypatch.setattr(trunk, "SCRATCH_BYTES", scratch)
+    cfg = DeepSDFConfig(**kw)
+    gen = torch.Generator().manual_seed(0)
+    params = make_npm_decoder(cfg).init(gen, device)
+    xyz = (torch.randn((1000, 3), generator=gen) * 0.4).to(device)
+    cond = (torch.randn(cfg.lat_dim, generator=gen) * 0.1).to(device) if cfg.lat_dim else None
+    before = trunk.deepsdf_trunk.launches
+    out = trunk.deepsdf_trunk(params, cfg, xyz, cond)
+    torch.cuda.synchronize()
+    assert trunk.deepsdf_trunk.launches == before + 1
+    ref = trunk.deepsdf_trunk_plain(params, cfg, xyz, cond)
+    assert out.shape == ref.shape == (1000, cfg.out_dim)
+    torch.testing.assert_close(out, ref, atol=1e-4 * float(ref.abs().max()), rtol=0)
+
+
+def test_k7_posing_matches_cpu(device):
+    """deform_mesh_batch through K7 on the card vs the plain chunked decoder
+    on the CPU, for the compress-mode field."""
+    from nphm_tpu_torch.reconstruction.extract import deform_mesh_batch
+    from nphm_tpu_torch.utils.mesh_io import Mesh
+    from nphm_tpu_torch.utils.params import tree_to
+
+    shape, ps, expr, pe, gen = tiny_models(device)
+    rng = np.random.default_rng(1)
+    mesh = Mesh((rng.normal(size=(3000, 3)) * 0.3).astype(np.float32),
+                np.zeros((0, 3), np.int64))
+    lat_s = (rng.normal(size=(1, shape.lat_dim)) * 0.1).astype(np.float32)
+    lat_e = (rng.normal(size=(2, expr.lat_dim)) * 0.1).astype(np.float32)
+    anchors = (rng.normal(size=(39, 3)) * 0.3).astype(np.float32)
+    before = trunk.deepsdf_trunk.launches
+    gpu = deform_mesh_batch(mesh, expr, pe, lat_e, anchors=anchors, lat_shape=lat_s,
+                            device=device)
+    assert trunk.deepsdf_trunk.launches == before + 2
+    cpu = deform_mesh_batch(mesh, expr, tree_to(pe, "cpu"), lat_e, anchors=anchors,
+                            lat_shape=lat_s, device="cpu")
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a.vertices, b.vertices, atol=1e-5)
+
+
+def test_k2_refuses_npm_offsets_trunk(device):
+    """fused_search="on" with the 8x1024 NPM offsets trunk: K2 needs 267,264
+    bytes of shared memory, the launch is refused and raises (no fallback),
+    and the next launch is unaffected."""
+    from nphm_tpu_torch.config import build_expression_decoder, load_yaml
+
+    expr = build_expression_decoder(
+        load_yaml(os.path.join(ROOT, "configs", "npm_def.yaml")), "npm")
+    gen = torch.Generator().manual_seed(0)
+    params = expr.init(gen, device)
+    obs = (torch.randn((1, 64, 3), generator=gen) * 0.3).to(device)
+    cond = torch.zeros((1, expr.cfg.lat_dim), device=device)
+    eye = torch.eye(3, device=device).expand(1, 64, 3, 3).contiguous()
+    before = srch.broyden_search.launches
+    with pytest.raises(RuntimeError, match="nphm_broyden_search"):
+        srch.broyden_search(params, expr.cfg, cond, obs, obs, eye, 3)
+    assert srch.broyden_search.launches == before
+    out = trunk.deepsdf_trunk(params, expr.cfg, obs[0], cond[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, trunk.deepsdf_trunk_plain(params, expr.cfg, obs[0],
+                                                              cond[0]),
+                               atol=1e-4 * float(out.abs().max()), rtol=0)
+
+
 def test_production_dims(device):
     """chip_smoke.py's phase 3: every kernel at the main path's shapes."""
     c = smoke()
     models = c.build_models(device)
-    rows = c.kernel_checks(models, device)
+    rows = c.kernel_checks(models, c.build_npm_models(device), device)
     assert set(rows) == {"ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd",
-                         "train_fwd", "train_bwd"}
+                         "train_fwd", "train_bwd", "deepsdf_trunk"}

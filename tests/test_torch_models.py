@@ -167,8 +167,8 @@ def test_config_reads_the_shipped_yaml():
     assert shape.cfg.layer_shapes == JNPHMConfig().layer_shapes
     assert expr.cfg.trunk_cfg.layer_shapes == jexpr.cfg.trunk_cfg.layer_shapes
     assert expr.lat_dim == jexpr.lat_dim == 200
-    with pytest.raises(NotImplementedError):
-        config.build_expression_decoder(cfg_e, "npm")
+    cfg_npm = config.load_yaml(os.path.join(ROOT, "configs", "npm_def.yaml"))
+    assert config.build_expression_decoder(cfg_npm, "npm").kind == "deformation_npm"
     lam, sched = config.fitting_overrides_from_cfg(
         {"lambdas": {"surface": 3.0}, "schedule": {"lr": {"100": 2}}}
     )

@@ -8,7 +8,8 @@
 - ``extract_mesh`` at res 32 and ``deform_mesh_batch`` from the same latents
   as JAX: vertex arrays at atol 1e-5 (nearest-neighbour matched for the
   extracted mesh, row by row for the posed meshes), face counts equal.
-- The port's main paths (fit, extract, deform, identity training) leave
+- The port's main paths (fit, extract, deform, identity training; the NPM
+  family's fit, extract and deform) leave
   ``jax`` and ``nphm_tpu`` unimported (subprocess), and no source file of
   the port, nor ``chip_smoke.py``, imports them.
 """
@@ -161,8 +162,9 @@ def test_extract_and_deform_match_jax(fitted):
 
 def test_main_path_never_imports_jax(tmp_path):
     """Every module of the port imported, and the fit, extract, deform and
-    identity-training paths run on the CPU, with neither ``jax`` nor any
-    module of ``nphm_tpu`` loaded."""
+    identity-training paths (NPHM) and the fit, extract and deform paths
+    (NPM) run on the CPU, with neither ``jax`` nor any module of
+    ``nphm_tpu`` loaded."""
     code = textwrap.dedent(f"""
         import importlib
         import pkgutil
@@ -206,6 +208,22 @@ def test_main_path_never_imports_jax(tmp_path):
                              logger=MetricsLogger(quiet=True), recon_resolution=16,
                              device="cpu")
         tr.train_model(1)
+        from nphm_tpu_torch.models import DeepSDFConfig, make_npm_decoder
+        from nphm_tpu_torch.config import build_expression_decoder
+        s = make_npm_decoder(DeepSDFConfig(lat_dim=8, hidden_dim=16, n_layers=4))
+        e = build_expression_decoder({{"id_decoder": {{"decoder_lat_dim": 8}},
+                                      "ex_decoder": {{"decoder_lat_dim": 4,
+                                                     "decoder_hidden_dim": 16,
+                                                     "decoder_nlayers": 4}}}}, "npm")
+        ps, pe = s.init(gen, "cpu"), e.init(gen, "cpu")
+        le, ls, anchors, hist = fit_joint(s, ps, e, pe, obs, verbose=False, device="cpu",
+            cfg=FittingConfig(n_steps=2, n_obs_per_batch=2, n_points_per_obs=32,
+                              fused_search="on"))
+        assert anchors is None and np.isfinite(hist["loss"]).all()
+        mesh = extract_mesh(s, ps, ls, (-1.1,) * 3, (1.1,) * 3, resolution=16,
+                            device="cpu")
+        posed = deform_mesh_batch(mesh, e, pe, le, lat_shape=ls, device="cpu")
+        assert len(posed) == len(le)
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "nphm_tpu" or m.startswith("nphm_tpu."))

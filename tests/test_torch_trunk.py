@@ -1,0 +1,136 @@
+"""K7's plain version (``ops/trunk.py``) vs the JAX package's fused DeepSDF
+trunk kernel (``ops/pallas_mlp.py``, Pallas in interpret mode), on the CPU.
+
+Same weights (the JAX ``Decoder.init`` bridged with ``from_numpy_pytree``)
+and the same numpy inputs; the bound is ``tests/test_pallas_mlp.py``'s own,
+atol 3e-6 (fp32, only summation order differs).
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from nphm_tpu.models import (
+    DeepSDFConfig as JDeepSDFConfig,
+    DeformationConfig as JDeformationConfig,
+    make_deformation_decoder as jmake_deformation,
+    make_npm_decoder as jmake_npm,
+)
+from nphm_tpu.ops.pallas_mlp import (
+    deformation_pallas,
+    deepsdf_trunk_pallas,
+    npm_grid_sdf_pallas,
+    npm_sdf_pallas,
+)
+from nphm_tpu_torch.models import DeepSDFConfig, DeformationConfig
+from nphm_tpu_torch.ops import trunk
+from nphm_tpu_torch.utils.params import from_numpy_pytree
+
+ATOL = 3e-6
+MINI, MAXI = (-0.55, -0.5, -0.95), (0.55, 0.75, 0.4)
+
+
+def bridge(tree):
+    return from_numpy_pytree(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
+
+
+def npm_pair(**kw):
+    jd = jmake_npm(JDeepSDFConfig(**kw))
+    jp = jd.init(jax.random.PRNGKey(0))
+    return jd, jp, DeepSDFConfig(**kw), bridge(jp)
+
+
+@pytest.mark.parametrize("freq", [None, 2])
+def test_npm_sdf_matches_pallas(freq):
+    jd, jp, cfg, tp = npm_pair(lat_dim=32, hidden_dim=64, n_layers=4, num_freq_bands=freq)
+    rng = np.random.default_rng(1)
+    xyz = (rng.normal(size=(1700, 3)) * 0.4).astype(np.float32)
+    lat = (rng.normal(size=(32,)) * 0.1).astype(np.float32)
+    ref = npm_sdf_pallas(jp, jd.cfg, jnp.asarray(xyz), jnp.asarray(lat), interpret=True)
+    out = trunk.npm_sdf(tp, cfg, torch.tensor(xyz), torch.tensor(lat))
+    assert out.shape == (1700,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_npm_grid_sdf_matches_pallas():
+    jd, jp, cfg, tp = npm_pair(lat_dim=16, hidden_dim=48, n_layers=4)
+    lat = (np.random.default_rng(2).normal(size=(16,)) * 0.1).astype(np.float32)
+    ref = npm_grid_sdf_pallas(jp, jd.cfg, jnp.asarray(lat), MINI, MAXI, 24, interpret=True)
+    out = trunk.npm_grid_sdf(tp, cfg, torch.tensor(lat), MINI, MAXI, 24)
+    assert out.shape == (24**3,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["compress", "glob_only", "expr_only"])
+def test_deformation_matches_pallas(mode):
+    kw = dict(mode=mode, lat_dim_glob_shape=16, lat_dim_loc_shape=8, n_loc=7,
+              lat_dim_expr=8, lat_dim_id=8, hidden_dim=48, n_layers=4)
+    jd = jmake_deformation(JDeformationConfig(**kw))
+    jp = jd.init(jax.random.PRNGKey(0))
+    dcfg = DeformationConfig(**kw)
+    rng = np.random.default_rng(0)
+    xyz = (rng.normal(size=(900, 3)) * 0.3).astype(np.float32)
+    lat = (rng.normal(size=(dcfg.lat_dim_shape_full + 8,)) * 0.1).astype(np.float32)
+    anchors = (rng.normal(size=(7, 3)) * 0.3).astype(np.float32)
+    ref = deformation_pallas(jp, jd.cfg, jnp.asarray(xyz), jnp.asarray(lat),
+                             jnp.asarray(anchors), interpret=True)
+    out = trunk.deformation(bridge(jp), dcfg, torch.tensor(xyz), torch.tensor(lat),
+                            torch.tensor(anchors))
+    assert out.shape == (900, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("out_dim,beta", [(2, 100.0), (3, 0.0)])
+def test_unconditioned_trunk_matches_pallas(out_dim, beta):
+    """lat_dim 0 (cond None), a 2- or 3-wide head, and the ReLU (beta <= 0)."""
+    jd, jp, cfg, tp = npm_pair(lat_dim=0, hidden_dim=32, n_layers=4, out_dim=out_dim,
+                               beta=beta)
+    xyz = (np.random.default_rng(3).normal(size=(500, 3)) * 0.4).astype(np.float32)
+    ref = deepsdf_trunk_pallas(jp, jd.cfg, jnp.asarray(xyz), None, interpret=True)
+    out = trunk.deepsdf_trunk(tp, cfg, torch.tensor(xyz), None)
+    assert out.shape == (500, out_dim)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_trunk_plain_matches_decoder_and_operand_fold():
+    """The CPU wrapper is the plain version, which equals the unfolded
+    ``apply_deepsdf``; the fold puts 1/sqrt(2) into the skip weights and
+    the conditioning into the layer-0 and skip biases."""
+    from nphm_tpu_torch.models import apply_deepsdf
+
+    _jd, _jp, cfg, tp = npm_pair(lat_dim=12, hidden_dim=40, n_layers=6)
+    rng = np.random.default_rng(4)
+    xyz = torch.tensor((rng.normal(size=(333, 3)) * 0.4).astype(np.float32))
+    lat = torch.tensor((rng.normal(size=(12,)) * 0.2).astype(np.float32))
+    ref = apply_deepsdf(tp, cfg, xyz[None], lat[None])[0]
+    torch.testing.assert_close(trunk.deepsdf_trunk(tp, cfg, xyz, lat), ref, atol=ATOL, rtol=0)
+    torch.testing.assert_close(trunk.deepsdf_trunk_plain(tp, cfg, xyz, lat), ref,
+                               atol=ATOL, rtol=0)
+    layers = trunk.prepare_trunk_operands(tp, cfg, lat)
+    _shapes, skip = cfg.layer_shapes
+    w = tp["layers"][skip]["w"]
+    h = w.shape[1] - cfg.d_in
+    torch.testing.assert_close(layers[skip]["w"] * trunk.SQRT2, w[:, :h])
+    torch.testing.assert_close(layers[0]["b"],
+                               tp["layers"][0]["b"] + tp["layers"][0]["w"][:, 3:] @ lat)
+    assert set(layers[0]) == {"wp", "b"} and set(layers[-1]) == {"w", "b"}
+
+
+def test_chunking_and_kernel_layouts():
+    """Chunk sizes keep the two activation buffers within SCRATCH_BYTES; the
+    kernel layout pads transposed hidden weights to the tile with zeros."""
+    assert trunk.chunk_points(1024, 128) == 262144
+    assert trunk.chunk_points(512, 128) == 524288
+    assert 2 * 4 * 1024 * trunk.chunk_points(1024, 128) <= trunk.SCRATCH_BYTES
+    _jd, _jp, cfg, tp = npm_pair(lat_dim=8, hidden_dim=40, n_layers=4, out_dim=3)
+    ops = trunk._kernel_layers(trunk.prepare_trunk_operands(tp, cfg, torch.zeros(8)), 128)
+    assert ops[0]["K"] == 0 and ops[0]["wt"] is None and ops[0]["wp"].shape == (40, 3)
+    _shapes, skip = cfg.layer_shapes
+    n_out, n_in = ops[1]["n_out"], ops[1]["K"]
+    assert ops[1]["wt"].shape == (n_in, 128)
+    assert float(ops[1]["wt"][:, n_out:].abs().sum()) == 0.0
+    assert ops[skip]["wp"].shape == (ops[skip]["n_out"], 3)
+    assert ops[-1]["w"].shape == (3, 40) and ops[-1]["wt"] is None
