@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
 
 1. Device and build: require CUDA, print the card's name and power limit,
-   build every kernel from ``nphm_tpu_torch/csrc`` with nvcc, and the host
+   build every kernel from ``nphm_tpu_torch/csrc`` with nvcc (the SASS of
+   K4's and K7's kernels must hold tensor-core instructions), and the host
    marching library from ``csrc`` (so phase 4 times marching, not its build).
 2. Models at production dims: the NPHM ensemble of ``configs/nphm.yaml``
    and the compress-mode deformation field of ``configs/nphm_def.yaml``,
@@ -17,8 +18,12 @@ Phases, in order; any failure exits non-zero:
 3. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with its tolerance, both timed with CUDA events, and its
    bound (the least time the card could take for the same work) computed
-   from the inputs of the timed run.  K7 is also timed against one
-   ``torch.addmm`` per layer at its shapes (``library_ms``).
+   from the inputs of the timed run: fp32 operations for the SIMT kernels,
+   3xTF32 tensor-core operations for K4 and K7.  Each is also timed against
+   the PyTorch calls cuBLAS would run for its products (``library_ms``):
+   one ``torch.addmm`` per layer for K7, one ``torch.baddbmm`` per layer
+   and pass over the member axis for K1 and K3-K6 (K2, an iterative
+   search, has none).
 4. The fit-and-extract path through the port's entry points: ``fit_joint``
    on synthetic single-view observations, ``extract_mesh`` at res 256,
    ``deform_mesh_batch`` over the fitted expressions and one PLY export.
@@ -85,10 +90,15 @@ TOL_TRAIN_TERMS = 1e-4  # loss terms, relative
 # would be no measure of the rounding.
 TOL_K7 = 1e-4
 
-# Card peaks for the bound (published H100 SXM figures at 700 W): fp32
-# outside the tensor cores (every kernel here is fp32 SIMT) and HBM3.
+# Card peaks for the bound (published H100 SXM figures at 700 W, dense):
+# fp32 outside the tensor cores (K1-K3, K5, K6: fp32 SIMT), TF32 on the
+# tensor cores (K4, K7: 3xTF32, three TF32 products per fp32 product), HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_S = 3.35e12
+# Kernels whose products run as 3xTF32 on the tensor cores, and the kernel
+# function (mangled-name fragment) whose SASS must hold HMMA/HGMMA.
+TENSOR_CORE_KERNELS = {"fit_bwd": "fit_bwd_kernel", "deepsdf_trunk": "trunk_layer_kernel"}
 
 KERNELS = {
     "ensemble_sdf": ("nphm_tpu_torch/csrc/ensemble_sdf.cu",
@@ -121,14 +131,23 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, tf32x3: bool = False) -> dict:
     """The least time the card could take: the larger of the operations over
-    the fp32 peak and the bytes (each input read once, each output written
-    once) over the memory rate."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    the peak of the units that run them and the bytes (each input read once,
+    each output written once) over the memory rate.  flops counts fp32
+    multiply-adds as 2; a 3xTF32 kernel runs three TF32 products for each,
+    on the tensor cores."""
+    t_ops = (3.0 * flops / PEAK_TF32_FLOPS if tf32x3 else flops / PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bound_note(flops: float, b: dict) -> str:
+    """A 3xTF32 kernel's bound beside its fp32 figure, for the log."""
+    return (f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}, 3xTF32 at "
+            f"{PEAK_TF32_FLOPS / 1e12:g} TFLOP/s; fp32 at {PEAK_FP32_FLOPS / 1e12:g} "
+            f"TFLOP/s: {flops / PEAK_FP32_FLOPS * 1e3:.3f} ms)")
 
 
 def trunk_fmas(shapes, skip: int, ds: int, d_in: int) -> int:
@@ -206,6 +225,13 @@ def device_and_build():
     for line in report.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
+    counts = _build.sass_mma_counts()
+    for name, fn in TENSOR_CORE_KERNELS.items():
+        n = {k: v for k, v in counts.items() if fn in k}
+        log(f"[sass] {name}: tensor-core instructions (HGMMA/HMMA) per kernel "
+            f"{json.dumps(n)}")
+        expect(bool(n) and all(v > 0 for v in n.values()),
+               f"{name}'s SASS holds no tensor-core instruction")
     from nphm_tpu_torch.ops.native import get_lib
 
     t0 = time.perf_counter()
@@ -354,9 +380,12 @@ def check_k1(shape, params, gen, device, rows):
     pairs = int(active.sum()) * tile
     b = bound(2.0 * nphm_fmas(cfg) * pairs,
               64**3 * 16 + weight_bytes(params["ensemble"], cfg) // cfg.n_members * cfg.n_loc)
-    log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-        f"{pairs} live (point, member) pairs, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
-    rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+    lib_ms = baddbmm_chain_ms(cfg, cfg.n_members, 64**3, "f", device, 2)
+    log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"baddbmm chain (all members, no culling) {lib_ms:.3f} ms; {pairs} live (point, "
+        f"member) pairs, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, **b)
 
 
 def search_inputs(shape, params_shape, expr, params_expr, gen, device, B, N):
@@ -494,13 +523,18 @@ def check_k3_k4(shape, params, gen, device, rows):
     pairs = live_lanes(active, tile, B, N)
     wb = weight_bytes(params["ensemble"], cfg)
     b3 = bound(2.0 * nphm_fmas(cfg) * pairs, pairs * 16 + wb)
-    b4 = bound(4.0 * nphm_fmas(cfg) * pairs, pairs * 28 + wb)
-    log(f"[K3] M=5x1024: kernel {ms3:.3f} ms, plain {plain3:.3f} ms; {pairs} live "
-        f"(point, member) pairs, bound {b3['bound_ms']:.3f} ms ({b3['bound_by']})")
-    log(f"[K4] M=5x1024: kernel {ms4:.3f} ms, plain backward {plain4:.3f} ms; bound "
-        f"{b4['bound_ms']:.3f} ms ({b4['bound_by']})")
-    rows["fit_fwd"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3, **b3)
-    rows["fit_bwd"] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4, **b4)
+    flops4 = 4.0 * nphm_fmas(cfg) * pairs
+    b4 = bound(flops4, pairs * 28 + wb, tf32x3=True)
+    M = B * Np
+    lib3 = baddbmm_chain_ms(cfg, A, M, "f", device, 10)
+    lib4 = baddbmm_chain_ms(cfg, A, M, "fr", device, 10)
+    log(f"[K3] M=5x1024: kernel {ms3:.3f} ms, plain {plain3:.3f} ms, baddbmm chain "
+        f"{lib3:.3f} ms; {pairs} live (point, member) pairs, bound {b3['bound_ms']:.3f} ms "
+        f"({b3['bound_by']})")
+    log(f"[K4] M=5x1024: kernel {ms4:.3f} ms, plain backward {plain4:.3f} ms, baddbmm "
+        f"forward + reverse chains {lib4:.3f} ms; {bound_note(flops4, b4)}")
+    rows["fit_fwd"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3, library_ms=lib3, **b3)
+    rows["fit_bwd"] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4, library_ms=lib4, **b4)
 
 
 def train_batch(n_rows: int, seed: int):
@@ -606,9 +640,60 @@ def check_k5_k6(shape, params, gen, device, rows):
         del Fp, Gp, phi_p, gp
     log(f"[K5/K6] peak device memory of the checks at B={B}: "
         f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    del Fk, Gk, phi_k, gk, flat, layers, coords, ins, dF, dG
     torch.cuda.empty_cache()
-    rows["train_fwd"] = dict(max_abs_err=e5, ms=ms5, plain_ms=plain5, **b5)
-    rows["train_bwd"] = dict(max_abs_err=e6, ms=ms6, plain_ms=plain6, **b6)
+    lib5 = baddbmm_chain_ms(cfg, A, B * Np, "fr", device, 3)
+    lib6 = baddbmm_chain_ms(cfg, A, B * Np, "frfwrw", device, 3)
+    log(f"[K5/K6] M={B}x{Np}: baddbmm forward + reverse chains {lib5:.3f} ms (K5's "
+        f"products), forward, reverse, tangent forward, weight gradients, reverse, weight "
+        f"gradients {lib6:.3f} ms (K6's)")
+    rows["train_fwd"] = dict(max_abs_err=e5, ms=ms5, plain_ms=plain5, library_ms=lib5, **b5)
+    rows["train_bwd"] = dict(max_abs_err=e6, ms=ms6, plain_ms=plain6, library_ms=lib6, **b6)
+
+
+def baddbmm_chain_ms(cfg, n_members: int, M: int, passes: str, device, reps: int) -> float:
+    """One ``torch.baddbmm`` per layer and pass over the member axis at the
+    NPHM ensemble's shapes (conditioning folded: layer 0 reads the 3 point
+    inputs, the skip layer hidden + 3), M points a member, TF32 off, random
+    operands, no activations.  Passes: "f" a forward chain (each layer's
+    output feeds the next; the skip layer reads a separate input), "r" a
+    reverse chain through the transposed weights, "w" the weight-gradient
+    products x^T d of every layer.  The products cuBLAS would run for the
+    per-member chains of K1 and K3-K6; timed only, the port never calls it."""
+    import torch
+
+    shapes, skip = cfg.layer_shapes
+    ds = cfg.input_dim
+    kn = [(ds if i == 0 else (n_in - cfg.d_in + ds if i == skip else n_in), n_out)
+          for i, (n_in, n_out) in enumerate(shapes)]
+    A = n_members
+    W = [torch.randn(A, k, n, device=device) / k**0.5 for k, n in kn]
+    bias = [torch.zeros(A, 1, n, device=device) for _, n in kn]
+    zero = torch.zeros(1, 1, 1, device=device)
+    x0 = torch.randn(A, M, ds, device=device)
+    x_skip = torch.randn(A, M, kn[skip][0], device=device)
+    d0 = torch.randn(A, M, kn[-1][1], device=device)
+    if "w" in passes:
+        X = torch.randn(A, M, max(k for k, _ in kn), device=device)
+        D = torch.randn(A, M, max(n for _, n in kn), device=device)
+
+    def chain():
+        for p in passes:
+            if p == "f":
+                x = x0
+                for i in range(len(W)):
+                    x = torch.baddbmm(bias[i], x_skip if i == skip else x, W[i])
+            elif p == "r":
+                d = d0
+                for i in reversed(range(1, len(W))):
+                    d = torch.baddbmm(zero, d, W[i].transpose(1, 2))[:, :, : kn[i - 1][1]]
+            else:
+                for i, (k, n) in enumerate(kn):
+                    torch.baddbmm(zero, X[:, :, :k].transpose(1, 2), D[:, :, :n])
+
+    ms = cuda_ms(chain, reps)
+    torch.cuda.empty_cache()
+    return ms
 
 
 def addmm_chain_ms(cfg, n: int, device, reps: int) -> float:
@@ -637,13 +722,18 @@ def addmm_chain_ms(cfg, n: int, device, reps: int) -> float:
     return cuda_ms(chain, reps)
 
 
-def trunk_bound(cfg, n: int, layers) -> dict:
-    """K7's bound: its FMAs (conditioning folded) over the fp32 peak against
-    the point features read, the outputs written and the folded weights."""
+def trunk_flops(cfg, n: int) -> float:
+    """K7's fp32 operations on n points (conditioning folded)."""
     shapes, skip = cfg.layer_shapes
-    fmas = trunk_fmas(shapes, skip, cfg.d_in_spatial, cfg.d_in)
+    return 2.0 * trunk_fmas(shapes, skip, cfg.d_in_spatial, cfg.d_in) * n
+
+
+def trunk_bound(cfg, n: int, layers) -> dict:
+    """K7's bound: its products as 3xTF32 on the tensor cores against the
+    point features read, the outputs written and the folded weights."""
     wbytes = 4 * sum(t.numel() for lay in layers for t in lay.values())
-    return bound(2.0 * fmas * n, n * 4 * (cfg.d_in_spatial + cfg.out_dim) + wbytes)
+    return bound(trunk_flops(cfg, n), n * 4 * (cfg.d_in_spatial + cfg.out_dim) + wbytes,
+                 tf32x3=True)
 
 
 def k7_error(kernel, plain, head_bias):
@@ -709,11 +799,10 @@ def check_k7(models, npm, device, rows):
         lib_ms = addmm_chain_ms(cfg, pts.shape[0], device, reps)
         with torch.no_grad():
             b = trunk_bound(cfg, pts.shape[0], prepare_trunk_operands(params, cfg, cond))
-        tflops = 2.0 * trunk_fmas(*cfg.layer_shapes, cfg.d_in_spatial, cfg.d_in) \
-            * pts.shape[0] / ms / 1e9
-        log(f"[K7] {tag}: kernel {ms:.3f} ms ({tflops:.2f} TFLOP/s), plain "
-            f"{plain_ms:.3f} ms, addmm chain {lib_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
-            f"({b['bound_by']})")
+        flops = trunk_flops(cfg, pts.shape[0])
+        log(f"[K7] {tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} fp32-equivalent "
+            f"TFLOP/s), plain {plain_ms:.3f} ms, addmm chain {lib_ms:.3f} ms "
+            f"({'kernel faster' if ms < lib_ms else 'kernel slower'}); {bound_note(flops, b)}")
         torch.cuda.empty_cache()
         if row is None:
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)

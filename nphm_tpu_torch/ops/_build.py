@@ -1,8 +1,11 @@
 """Build and load the package's CUDA kernels (``nphm_tpu_torch/csrc/*.cu``).
 
-All sources compile with ``nvcc`` into one shared library with a plain C
-interface, at first use, into ``nphm_tpu_torch/_build/`` (git-ignored), and
-again whenever a source is newer than the library.  The library is loaded
+Every source compiles with its own ``nvcc`` process, all started together,
+and the objects link into one shared library with a plain C interface, at
+first use, into ``nphm_tpu_torch/_build/`` (git-ignored), and again whenever
+a source is newer than the library.  No library beyond the CUDA runtime is
+linked: K7's TMA descriptors reach the driver through the runtime's
+entry-point query.  The library is loaded
 with ``ctypes``: every pointer and the stream travel as ``c_void_p``, every
 entry point returns ``cudaGetLastError()`` and ``check`` raises on a non-zero
 code.  Nothing is downloaded; the only inputs are the sources in the package.
@@ -26,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnphm_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 MAX_LAYERS = 12  # csrc/mlp_tile.cuh kMaxLayers
 MAX_HEAD = 4  # csrc/mlp_tile.cuh kMaxHead
@@ -79,7 +82,7 @@ _SIGNATURES = {
     ],
     "nphm_fit_bwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-        _i32, _i32, _i32, _i32, _vp,
+        _i32, _i32, _i32, _vp,
     ],
     "nphm_train_fwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp,
@@ -89,12 +92,14 @@ _SIGNATURES = {
         _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
     ],
     "nphm_trunk_layer": [
-        _vp, _i32, _i32, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _i64, _f32, _vp,
+        _vp, _vp, _i32, _i32, _vp, _vp, _i32, _vp, _i32, _vp, _vp, _vp, _vp, _i32,
+        _i32, _i64, _f32, _vp,
     ],
-    "nphm_trunk_head": [_vp, _vp, _vp, _i32, _vp, _i32, _i64, _i64, _vp],
+    "nphm_trunk_head": [_vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i64, _vp],
     "nphm_ensemble_points_per_block": [],
     "nphm_search_lanes_per_block": [],
     "nphm_fit_lanes_per_block": [],
+    "nphm_fit_bwd_lanes_per_block": [],
     "nphm_train_lanes_per_block": [],
     "nphm_train_split_k": [],
     "nphm_trunk_tile": [],
@@ -122,21 +127,54 @@ def _stale() -> bool:
 
 
 def build() -> tuple[float, str]:
-    """Compile every ``csrc/*.cu`` into the library.
+    """Compile every ``csrc/*.cu`` (one nvcc process each, in parallel) and
+    link the objects into the library.
 
     Returns (seconds taken, the compiler's ``-Xptxas -v`` report of each
     kernel's registers, shared memory and spills).
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-o", tmp,
-           *sorted(glob.glob(os.path.join(CSRC, "*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+    procs = [subprocess.Popen([nvcc, "-Xptxas=-v", *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [o for p, o in zip(procs, outs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return time.perf_counter() - t0, "".join(outs)
+
+
+def sass_mma_counts() -> dict[str, int]:
+    """Tensor-core instructions (``HGMMA``, ``HMMA``) per kernel in the built
+    library's SASS (``cuobjdump --dump-sass``), keyed by mangled name."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", LIB_PATH], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HGMMA" in line or "HMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def lib() -> ctypes.CDLL:

@@ -9,7 +9,9 @@ member-local coordinates [A, 3, M]:
 
 - K3 computes ``F`` with the latent folded into per-(member, row) biases;
 - K4 takes F's cotangent and returns d(coords) and the per-(member, row)
-  cotangents of the two folded biases; weight cotangents are ``None``.
+  cotangents of the two folded biases; weight cotangents are ``None``.  Its
+  products run on the tensor cores in 3xTF32 (``ops/tf32.py``) over the
+  K-major weights below, staged in K slices through shared memory.
 
 Symmetric sharing and the mirror sign are expanded outside (torch autograd
 maps the bias and coordinate cotangents back to the latent), and so are the
@@ -43,6 +45,8 @@ from nphm_tpu_torch.ops import _build
 
 SQRT2 = 1.4142135623730951
 DEFAULT_TILE = 512  # cull-tile size (points sharing one member predicate)
+K_STEP = 8  # the MMA's K step: weight rows are padded to a multiple of it
+MAX_WIDTH = 256  # csrc/tc_tile.cuh kMaxN: K4's widest product
 CULL_EPS_TRAIN = 0.0
 
 
@@ -134,7 +138,14 @@ def member_f_plain(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: i
 
 
 def _fit_trunk(cfg: NPHMConfig, layers, n_rows: int, row_len: int):
-    """Kernel-layout tensors and the ``Trunk`` descriptor for K3/K4."""
+    """Kernel-layout tensors and the ``Trunk`` descriptor for K3/K4 (and
+    K5/K6, ``ops/train_fields.py``).
+
+    Hidden layers carry both K-major orientations: ``wt`` [A, out, ldwt]
+    for forward products over the inputs, ``w`` [A, in, ldw] for reverse
+    products over the outputs, their leading dims rounded to ``K_STEP``
+    with zero columns.  K4 stages them in K slices and reads zeros past the
+    width rounded to ``K_STEP``, so no wider padding is needed."""
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
     specs, keep = [], []
@@ -154,8 +165,8 @@ def _fit_trunk(cfg: NPHMConfig, layers, n_rows: int, row_len: int):
         else:
             wd = lay["w"].detach()
             n_out, n_in = wd.shape[1], wd.shape[2]
-            ldw = _build.round_up(n_out, 8)
-            ldwt = _build.round_up(n_in, 8)
+            ldw = _build.round_up(n_out, K_STEP)
+            ldwt = _build.round_up(n_in, K_STEP)
             w = _build.padded(wd.transpose(1, 2), ldw)  # [A, in, ldw]
             wt = _build.padded(wd, ldwt)  # [A, out, ldwt]
             b = lay["b"].detach().contiguous()
@@ -189,7 +200,7 @@ class _MemberF(torch.autograd.Function):
         lib = _build.lib()
         A, _, M = coords.shape
         row_len = M // n_rows
-        tr, keep, hmax, hsum = _fit_trunk(cfg, layers, n_rows, row_len)
+        tr, keep, hmax, _hsum = _fit_trunk(cfg, layers, n_rows, row_len)
         coords_c = coords.detach().contiguous()
         _build.require_cuda_f32(coords_c, *keep)
         _build.require_mask(active, (M // tile, A), coords.device)
@@ -201,17 +212,17 @@ class _MemberF(torch.autograd.Function):
         _build.check(rc, "nphm_fit_fwd")
         member_f.launches += 1
         ctx.save_for_backward(coords_c)
-        ctx.fit = (tr, keep, active, tile, n_rows, hsum, layers[0]["b"].shape[-1])
+        ctx.fit = (tr, keep, active, tile, n_rows)
         return F
 
     @staticmethod
     def backward(ctx, dF):
         (coords,) = ctx.saved_tensors
-        tr, keep, active, tile, n_rows, hsum, H0 = ctx.fit
+        tr, keep, active, tile, n_rows = ctx.fit
         lib = _build.lib()
         A, _, M = coords.shape
-        n_blk = M // lib.nphm_fit_lanes_per_block()
-        HS = tr.n_out[tr.skip]
+        n_blk = M // lib.nphm_fit_bwd_lanes_per_block()
+        H0, HS = tr.n_out[0], tr.n_out[tr.skip]
         dev = coords.device
         dF = dF.to(torch.float32).contiguous()
         dcoords = torch.empty((A, 3, M), device=dev)
@@ -223,7 +234,7 @@ class _MemberF(torch.autograd.Function):
         rc = lib.nphm_fit_bwd(
             ctypes.byref(tr), coords.data_ptr(), dF.data_ptr(), active.data_ptr(),
             dcoords.data_ptr(), part0.data_ptr(), part_s.data_ptr(),
-            d_bias0.data_ptr(), d_bias_s.data_ptr(), M, A, n_rows, tile, hsum,
+            d_bias0.data_ptr(), d_bias_s.data_ptr(), M, A, n_rows, tile,
             _build.stream_ptr(dev),
         )
         _build.check(rc, "nphm_fit_bwd")
@@ -237,9 +248,11 @@ def member_f(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: int):
     if not coords.is_cuda:
         return member_f_plain(cfg, layers, coords, active, tile, n_rows)
     lib = _build.lib()
-    if tile % lib.nphm_fit_lanes_per_block():
-        raise ValueError("tile must be a multiple of the kernel's lanes per block")
+    if tile % lib.nphm_fit_lanes_per_block() or tile % lib.nphm_fit_bwd_lanes_per_block():
+        raise ValueError("tile must be a multiple of the kernels' lanes per block")
     _, skip_in = cfg.layer_shapes
+    if max(max(lay["w"].shape[1:]) for lay in layers[1:-1]) > MAX_WIDTH:
+        raise ValueError(f"K4 takes hidden layers at most {MAX_WIDTH} wide")
     return _MemberF.apply(layers[0]["b"], layers[skip_in]["b"], coords, cfg,
                           layers, active.contiguous(), tile, n_rows)
 

@@ -11,7 +11,10 @@ Positional-encoding features are computed outside the kernel.
 
 ``deepsdf_trunk`` launches K7 for a CUDA tensor (one launch per layer and
 point chunk; ``deepsdf_trunk.launches`` counts the calls that ran it) and
-runs ``deepsdf_trunk_plain`` for a CPU tensor.  Its wrappers:
+runs ``deepsdf_trunk_plain`` for a CPU tensor.  K7 multiplies on the tensor
+cores in 3xTF32 (``ops/tf32.py``): the wrapper splits the hidden weights
+into their TF32 halves once per call, K-major ``[out, in]``; the kernel
+keeps activations point-major, each as its two halves.  Its wrappers:
 
 - ``npm_sdf``: the NPM identity SDF over points;
 - ``deformation``: eval-mode offsets of a ``DeformationConfig`` field
@@ -28,12 +31,16 @@ from nphm_tpu_torch.models.deepsdf import DeepSDFConfig
 from nphm_tpu_torch.models.deformation import DeformationConfig, conditioning
 from nphm_tpu_torch.models.mlp import positional_encoding, softplus_beta
 from nphm_tpu_torch.ops import _build
+from nphm_tpu_torch.ops.tf32 import split_tf32
 
 SQRT2 = 1.4142135623730951
-# Activation scratch of one point chunk: two [hidden, chunk] fp32 buffers
-# (the ping-pong of layer inputs and outputs) stay within 2 GiB, i.e.
-# 262144 points a chunk at hidden 1024 and 524288 at hidden 512.
+# Activation scratch of one point chunk: the ping-pong of layer inputs and
+# outputs, each a [chunk, hidden] fp32 buffer per TF32 half (four in all),
+# stays within 2 GiB, i.e. 131072 points a chunk at hidden 1024 and 262144
+# at hidden 512.
 SCRATCH_BYTES = 1 << 31
+# Leading dims of every matrix the kernel reads by TMA: rows of 16 bytes.
+LD_ALIGN = 4
 
 
 def prepare_trunk_operands(params, cfg: DeepSDFConfig, cond):
@@ -93,24 +100,30 @@ def deepsdf_trunk_plain(params, cfg: DeepSDFConfig, xyz, cond=None):
     return z
 
 
-def chunk_points(hmax: int, tile: int) -> int:
-    """Points per chunk: the two activation buffers within SCRATCH_BYTES."""
-    return max(tile, SCRATCH_BYTES // (2 * 4 * hmax) // tile * tile)
+def chunk_points(ldh: int, tile: int) -> int:
+    """Points per chunk: the four [chunk, ldh] activation buffers within
+    SCRATCH_BYTES."""
+    return max(tile, SCRATCH_BYTES // (4 * 4 * ldh) // tile * tile)
 
 
-def _kernel_layers(layers, tile: int):
-    """Kernel layouts: hidden weights transposed to [in, out] with zero
-    columns up to a tile multiple; point weights [out, ds]; the head as is."""
+def _kernel_layers(layers):
+    """Kernel layouts: hidden weights K-major [out, in] with zero columns up
+    to a multiple of LD_ALIGN, split into TF32 halves ``wb`` + ``ws``; point
+    weights [out, ds]; the head [out, in] as is.  A K that is not a multiple
+    of the kernel's 32-wide slice needs no padding beyond that: TMA reads
+    zeros past the tensor map's K extent, for activations and weights alike."""
     ops = []
     for i, lay in enumerate(layers):
         n_out = lay["b"].shape[0]
-        op = {"b": lay["b"].contiguous(), "n_out": n_out, "K": 0, "wt": None, "wp": None}
+        op = {"b": lay["b"].contiguous(), "n_out": n_out, "K": 0, "ldw": 0,
+              "wb": None, "ws": None, "wp": None}
         if "w" in lay:
             op["K"] = lay["w"].shape[1]
             if i == len(layers) - 1:
                 op["w"] = lay["w"].contiguous()
             else:
-                op["wt"] = _build.padded(lay["w"].T, _build.round_up(n_out, tile))
+                op["ldw"] = _build.round_up(op["K"], LD_ALIGN)
+                op["wb"], op["ws"] = split_tf32(_build.padded(lay["w"], op["ldw"]))
         if "wp" in lay:
             op["wp"] = lay["wp"].contiguous()
         ops.append(op)
@@ -134,40 +147,42 @@ def deepsdf_trunk(params, cfg: DeepSDFConfig, xyz, cond=None):
         raise ValueError(f"K7's head takes at most {_build.MAX_HEAD} outputs")
     lib = _build.lib()
     tile = lib.nphm_trunk_tile()
-    ops = _kernel_layers(prepare_trunk_operands(params, cfg, cond), tile)
+    ops = _kernel_layers(prepare_trunk_operands(params, cfg, cond))
     ds = cfg.d_in_spatial
     dev = xyz.device
     n = xyz.shape[0]
-    hmax = max(op["n_out"] for op in ops[:-1])
-    m = min(chunk_points(hmax, tile), _build.round_up(max(n, 1), tile))
+    ldh = _build.round_up(max(op["n_out"] for op in ops[:-1]), LD_ALIGN)
+    m = min(chunk_points(ldh, tile), _build.round_up(max(n, 1), tile))
     pe = positional_encoding(xyz.to(torch.float32), cfg.num_freq_bands)
-    bufs = [torch.empty(hmax * m, device=dev) for _ in range(2)]
-    pe_t = torch.empty(ds * m, device=dev)
-    _build.require_cuda_f32(pe_t, *(t for op in ops for t in
-                                    (op["b"], op["wt"], op["wp"], op.get("w"))
-                                    if t is not None))
+    # [half][points][features]: the TF32 halves of a layer's input or output
+    bufs = [torch.empty((2, m, ldh), device=dev) for _ in range(2)]
+    pe_c = torch.empty((m, ds), device=dev)
+    _build.require_cuda_f32(pe_c, *bufs, *(t for op in ops for t in
+                                          (op["b"], op["wb"], op["ws"], op["wp"],
+                                           op.get("w")) if t is not None))
     out = torch.empty((n, cfg.out_dim), device=dev)
     stream = _build.stream_ptr(dev)
     L = len(ops)
     for s in range(0, n, m):
         c = min(m, n - s)
         P = _build.round_up(c, tile)
-        pt = pe_t[: ds * P].view(ds, P)
-        pt[:, :c] = pe[s : s + c].T
-        pt[:, c:] = 0.0
+        pe_c[:c] = pe[s : s + c]
+        pe_c[c:P] = 0.0
         for i, op in enumerate(ops[:-1]):
-            x = bufs[(i + 1) % 2]
+            x, o = bufs[(i + 1) % 2], bufs[i % 2]
             rc = lib.nphm_trunk_layer(
-                _ptr(op["wt"]), 0 if op["wt"] is None else op["wt"].shape[1], op["K"],
-                x.data_ptr(), _ptr(op["wp"]), ds if op["wp"] is not None else 0,
-                pt.data_ptr(), op["b"].data_ptr(), bufs[i % 2].data_ptr(),
+                _ptr(op["wb"]), _ptr(op["ws"]), op["ldw"], op["K"],
+                x[0].data_ptr(), x[1].data_ptr(), ldh,
+                _ptr(op["wp"]), ds if op["wp"] is not None else 0, pe_c.data_ptr(),
+                op["b"].data_ptr(), o[0].data_ptr(), o[1].data_ptr(), ldh,
                 op["n_out"], P, float(cfg.beta), stream,
             )
             _build.check(rc, f"nphm_trunk_layer (layer {i})")
-        head = ops[-1]
+        head, last = ops[-1], bufs[(L - 2) % 2]
         rc = lib.nphm_trunk_head(
-            head["w"].data_ptr(), head["b"].data_ptr(), bufs[(L - 2) % 2].data_ptr(),
-            head["K"], out[s:].data_ptr(), cfg.out_dim, P, c, stream,
+            head["w"].data_ptr(), head["b"].data_ptr(), last[0].data_ptr(),
+            last[1].data_ptr(), ldh, head["K"], out[s:].data_ptr(), cfg.out_dim, c,
+            stream,
         )
         _build.check(rc, "nphm_trunk_head")
     deepsdf_trunk.launches += 1

@@ -108,3 +108,58 @@ def test_culled_tiles_write_zero(pair):
     F = ff.member_f(td.cfg, layers, coords, active, 128, 1)
     assert ff.member_f.launches == before  # CPU tensors: the plain version
     assert torch.all(F[0, 128:] == 0) and torch.all(F[0, :128] != 0)
+
+
+@pytest.mark.parametrize("k,n", [(200, 101), (101, 200), (200, 200), (200, 3)])
+def test_3xtf32_split_holds_fp32_accuracy_at_k4_shapes(k, n):
+    """K4's products in plain PyTorch at its 64-point tile and the NPHM
+    widths (forward and reverse hidden products, d(coords) through the
+    3-wide point weights), with K4's in-register split (the small half
+    truncated by the tensor core): 3xTF32 within 1e-5 of the product's
+    magnitude against float64; one TF32 pass misses that bound."""
+    from nphm_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
+
+    rng = np.random.default_rng(k * 1000 + n)
+    a = np.log1p(np.exp(2.0 * rng.normal(size=(64, k)))).astype(np.float32)
+    b = (rng.uniform(-1, 1, size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(ref).max()
+    a_t, b_t = torch.tensor(a), torch.tensor(b)
+    err3 = np.abs(matmul_3xtf32(a_t, b_t, small="trunc").numpy() - ref).max()
+    err1 = np.abs(matmul_tf32(a_t, b_t).numpy() - ref).max()
+    assert err3 <= 1e-5 * scale
+    assert err1 > 1e-5 * scale
+
+
+def test_k4_weight_layouts(pair):
+    """K4's operands: both K-major orientations of each hidden layer with
+    leading dims rounded to the MMA's K step and zero columns past the
+    width, layer 0's point weights [A, H0, 3], and the width limit
+    mirrored from csrc/tc_tile.cuh."""
+    import os
+    import re
+
+    _jd, _jp, td, tp = pair
+    cfg = td.cfg
+    lat = torch.zeros((2, td.lat_dim))
+    layers, _ = ff.prepare_train_operands(tp, cfg, lat)
+    tr, keep, hmax, _hsum = ff._fit_trunk(cfg, layers, 2, 128)
+    A = cfg.n_members
+    for i in range(1, len(layers) - 1):
+        n_out, n_in = tr.n_out[i], tr.n_in[i]
+        assert tr.ldw[i] % ff.K_STEP == 0 and tr.ldwt[i] % ff.K_STEP == 0
+        assert n_out <= tr.ldw[i] < n_out + ff.K_STEP
+        assert n_in <= tr.ldwt[i] < n_in + ff.K_STEP
+        assert tr.w_ms[i] == n_in * tr.ldw[i] and tr.wt_ms[i] == n_out * tr.ldwt[i]
+    wd = layers[1]["w"]  # [A, out, in]
+    wt, w = keep[2], keep[3]  # after layer 0's (wp, bias): layer 1's wt, then w
+    assert wt.shape == (A, wd.shape[1], tr.ldwt[1]) and w.shape == (A, wd.shape[2], tr.ldw[1])
+    torch.testing.assert_close(wt[:, :, : wd.shape[2]], wd, atol=0, rtol=0)
+    torch.testing.assert_close(w[:, :, : wd.shape[1]], wd.transpose(1, 2), atol=0, rtol=0)
+    assert float(wt[:, :, wd.shape[2]:].abs().sum()) == 0.0
+    assert float(w[:, :, wd.shape[1]:].abs().sum()) == 0.0
+    assert tr.w[0] == keep[0].data_ptr() and keep[0].shape == (A, hmax, 3)  # [A, H0, 3]
+    src = open(os.path.join(os.path.dirname(ff.__file__), "..", "csrc", "tc_tile.cuh")).read()
+    n_groups = int(re.search(r"constexpr int kGroups = (\d+);", src).group(1))
+    n_tiles = int(re.search(r"constexpr int kNT = (\d+);", src).group(1))
+    assert n_groups * n_tiles * 8 == ff.MAX_WIDTH  # kMaxN: n8-tile groups x tiles

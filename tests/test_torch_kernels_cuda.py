@@ -89,9 +89,22 @@ def test_k2_tiny_widths(device):
         assert int(k["iters"]) == int(p["iters"])
 
 
-def test_k3_k4_tiny_widths(device):
-    shape, params, _e, _pe, gen = tiny_models(device)
-    xyz = (torch.randn((3, 700, 3), generator=gen) * 0.3).to(device)
+def tiny_shape(device, hidden):
+    rng = np.random.default_rng(0)
+    anchors = (rng.normal(size=(39, 3)) * 0.3).astype(np.float32)
+    shape = make_nphm_decoder(NPHMConfig(**dict(TINY, hidden_dim=hidden)), anchors)
+    gen = torch.Generator().manual_seed(0)
+    return shape, shape.init(gen, device), gen
+
+
+@pytest.mark.parametrize("hidden,n_pts", [(16, 700), (72, 1000), (200, 700)])
+def test_k3_k4_tiny_widths(device, hidden, n_pts):
+    """K3/K4 through apply_nphm_fit vs the plain version: hidden widths that
+    are not multiples of K4's 16-wide K slice or 8-wide MMA tiles, and rows
+    of points that are not multiples of its 64-point tile (padded inside
+    the 512-point cull tile)."""
+    shape, params, gen = tiny_shape(device, hidden)
+    xyz = (torch.randn((3, n_pts, 3), generator=gen) * 0.3).to(device)
     lat = (torch.randn((3, shape.lat_dim), generator=gen) * 0.1).to(device)
     out = {}
     for name, fn in (("kernel", ff.member_f), ("plain", ff.member_f_plain)):
@@ -135,30 +148,36 @@ def test_k5_k6_tiny_widths(device, cull_eps):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
 
-@pytest.mark.parametrize("kw,scratch", [
-    (dict(lat_dim=32, hidden_dim=64, n_layers=4), None),
+@pytest.mark.parametrize("kw,scratch,n", [
+    (dict(lat_dim=32, hidden_dim=64, n_layers=4), None, 1000),
     (dict(lat_dim=16, hidden_dim=200, n_layers=8, num_freq_bands=2, out_dim=3),
-     2 * 4 * 200 * 256),
-    (dict(lat_dim=0, hidden_dim=32, n_layers=4, out_dim=2, beta=0.0), None),
+     4 * 4 * 200 * 256, 1000),
+    (dict(lat_dim=0, hidden_dim=32, n_layers=4, out_dim=2, beta=0.0), None, 1000),
+    (dict(lat_dim=24, hidden_dim=200, n_layers=6, out_dim=1), None, 77),
+    (dict(lat_dim=8, hidden_dim=72, n_layers=8, num_freq_bands=1, out_dim=4),
+     4 * 4 * 72 * 384, 1000),
+    (dict(lat_dim=40, hidden_dim=300, n_layers=5, out_dim=2), None, 333),
 ])
-def test_k7_tiny_widths(device, monkeypatch, kw, scratch):
+def test_k7_tiny_widths(device, monkeypatch, kw, scratch, n):
     """K7 vs its plain version: conditioned and unconditioned trunks, a
-    positional encoding, widths that are not tile multiples (the skip
-    layer's input), 1-3 outputs, ReLU, and point counts that are not tile
-    multiples, in one chunk or (a scratch of 256 points) several."""
+    positional encoding, hidden widths that are not multiples of the
+    128-output tile or the 32-wide K slice (200, 72, 300, and the skip
+    layer's input), 1-4 outputs, ReLU, and point counts that are not
+    multiples of the 128-point tile, in one chunk or (a scratch of a few
+    hundred points) several."""
     if scratch is not None:
         monkeypatch.setattr(trunk, "SCRATCH_BYTES", scratch)
     cfg = DeepSDFConfig(**kw)
     gen = torch.Generator().manual_seed(0)
     params = make_npm_decoder(cfg).init(gen, device)
-    xyz = (torch.randn((1000, 3), generator=gen) * 0.4).to(device)
+    xyz = (torch.randn((n, 3), generator=gen) * 0.4).to(device)
     cond = (torch.randn(cfg.lat_dim, generator=gen) * 0.1).to(device) if cfg.lat_dim else None
     before = trunk.deepsdf_trunk.launches
     out = trunk.deepsdf_trunk(params, cfg, xyz, cond)
     torch.cuda.synchronize()
     assert trunk.deepsdf_trunk.launches == before + 1
     ref = trunk.deepsdf_trunk_plain(params, cfg, xyz, cond)
-    assert out.shape == ref.shape == (1000, cfg.out_dim)
+    assert out.shape == ref.shape == (n, cfg.out_dim)
     torch.testing.assert_close(out, ref, atol=1e-4 * float(ref.abs().max()), rtol=0)
 
 

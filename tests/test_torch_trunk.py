@@ -120,17 +120,64 @@ def test_trunk_plain_matches_decoder_and_operand_fold():
 
 
 def test_chunking_and_kernel_layouts():
-    """Chunk sizes keep the two activation buffers within SCRATCH_BYTES; the
-    kernel layout pads transposed hidden weights to the tile with zeros."""
-    assert trunk.chunk_points(1024, 128) == 262144
-    assert trunk.chunk_points(512, 128) == 524288
-    assert 2 * 4 * 1024 * trunk.chunk_points(1024, 128) <= trunk.SCRATCH_BYTES
+    """Chunk sizes keep the four activation buffers (two layers, two TF32
+    halves each) within SCRATCH_BYTES; the kernel layout keeps hidden
+    weights K-major [out, in], zero-padded to 16-byte rows and split into
+    TF32 halves that sum back to the weights."""
+    assert trunk.chunk_points(1024, 128) == 131072
+    assert trunk.chunk_points(512, 128) == 262144
+    assert 4 * 4 * 1024 * trunk.chunk_points(1024, 128) <= trunk.SCRATCH_BYTES
+    assert trunk.chunk_points(200, 128) % 128 == 0
     _jd, _jp, cfg, tp = npm_pair(lat_dim=8, hidden_dim=40, n_layers=4, out_dim=3)
-    ops = trunk._kernel_layers(trunk.prepare_trunk_operands(tp, cfg, torch.zeros(8)), 128)
-    assert ops[0]["K"] == 0 and ops[0]["wt"] is None and ops[0]["wp"].shape == (40, 3)
+    layers = trunk.prepare_trunk_operands(tp, cfg, torch.zeros(8))
+    ops = trunk._kernel_layers(layers)
+    assert ops[0]["K"] == 0 and ops[0]["wb"] is None and ops[0]["wp"].shape == (40, 3)
     _shapes, skip = cfg.layer_shapes
-    n_out, n_in = ops[1]["n_out"], ops[1]["K"]
-    assert ops[1]["wt"].shape == (n_in, 128)
-    assert float(ops[1]["wt"][:, n_out:].abs().sum()) == 0.0
+    for i in range(1, len(ops) - 1):
+        n_out, K, ldw = ops[i]["n_out"], ops[i]["K"], ops[i]["ldw"]
+        assert (n_out, K) == tuple(layers[i]["w"].shape)
+        assert ldw % trunk.LD_ALIGN == 0 and K <= ldw < K + trunk.LD_ALIGN
+        wb, ws = ops[i]["wb"], ops[i]["ws"]
+        assert wb.shape == ws.shape == (n_out, ldw) and wb.is_contiguous()
+        assert float(wb[:, K:].abs().sum()) == 0.0 and float(ws[:, K:].abs().sum()) == 0.0
+        for half in (wb, ws):  # TF32 values: the 13 low mantissa bits are clear
+            assert int((half.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+        w = layers[i]["w"]
+        torch.testing.assert_close(wb[:, :K] + ws[:, :K], w, atol=0,
+                                   rtol=2.0**-20)
+    assert ops[skip]["K"] % trunk.LD_ALIGN != 0  # 29 hidden inputs, padded to 32
     assert ops[skip]["wp"].shape == (ops[skip]["n_out"], 3)
-    assert ops[-1]["w"].shape == (3, 40) and ops[-1]["wt"] is None
+    assert ops[-1]["w"].shape == (3, 40) and ops[-1]["wb"] is None
+
+
+def test_tf32_round_is_nearest_ties_away():
+    """``tf32_round`` is cvt.rna.tf32.f32: nearest TF32 value, ties away
+    from zero; the small half carries the rest to ~2^-22."""
+    from nphm_tpu_torch.ops.tf32 import split_tf32, tf32_round
+
+    u = 2.0**-10  # one TF32 unit at 1.0
+    x = torch.tensor([1 + u / 2, -(1 + u / 2), 1 + u / 4, 1 + 3 * u / 4, 3.0, 0.0])
+    assert tf32_round(x).tolist() == [1 + u, -(1 + u), 1.0, 1 + u, 3.0, 0.0]
+    v = torch.tensor(np.random.default_rng(5).normal(size=10000).astype(np.float32))
+    big, small = split_tf32(v)
+    assert float(((big - v).abs() / v.abs()).max()) <= 2.0**-11
+    assert float(((big + small - v).abs() / v.abs()).max()) <= 2.0**-21
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 1024, 128), (256, 509, 128), (256, 309, 128)])
+def test_3xtf32_split_holds_fp32_accuracy_at_k7_shapes(m, k, n):
+    """K7's products in plain PyTorch: 3xTF32 (big*big + big*small +
+    small*big, fp32 sums) stays within 1e-5 of the product's magnitude
+    against a float64 product at the NPM trunk's K (1024, and the skip
+    layer's 509 and 309 hidden inputs); one TF32 pass misses that bound."""
+    from nphm_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
+
+    rng = np.random.default_rng(k)
+    a = np.log1p(np.exp(2.0 * rng.normal(size=(m, k)))).astype(np.float32)  # softplus
+    b = (rng.uniform(-1, 1, size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(ref).max()
+    err3 = np.abs(matmul_3xtf32(torch.tensor(a), torch.tensor(b)).numpy() - ref).max()
+    err1 = np.abs(matmul_tf32(torch.tensor(a), torch.tensor(b)).numpy() - ref).max()
+    assert err3 <= 1e-5 * scale
+    assert err1 > 1e-5 * scale
