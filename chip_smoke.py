@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 
 1. Device and build: require CUDA, print the card's name and power limit,
    build every kernel from ``nphm_tpu_torch/csrc`` with nvcc (the SASS of
-   K4's and K7's kernels must hold tensor-core instructions), and the host
-   marching library from ``csrc`` (so phase 4 times marching, not its build).
+   K3's, K4's, K5's and K7's kernels must hold tensor-core instructions),
+   and the host marching library from ``csrc`` (so phase 4 times
+   marching, not its build).
 2. Models at production dims: the NPHM ensemble of ``configs/nphm.yaml``
    and the compress-mode deformation field of ``configs/nphm_def.yaml``,
    and the NPM family of ``configs/npm.yaml`` / ``configs/npm_def.yaml``
@@ -19,11 +20,11 @@ Phases, in order; any failure exits non-zero:
    paths' shapes, with its tolerance, both timed with CUDA events, and its
    bound (the least time the card could take for the same work) computed
    from the inputs of the timed run: fp32 operations for the SIMT kernels,
-   3xTF32 tensor-core operations for K4 and K7.  Each is also timed against
-   the PyTorch calls cuBLAS would run for its products (``library_ms``):
-   one ``torch.addmm`` per layer for K7, one ``torch.baddbmm`` per layer
-   and pass over the member axis for K1 and K3-K6 (K2, an iterative
-   search, has none).
+   3xTF32 tensor-core operations for K3, K4, K5 and K7.  Each is also
+   timed against the PyTorch calls cuBLAS would run for its products
+   (``library_ms``): one ``torch.addmm`` per layer for K7, one
+   ``torch.baddbmm`` per layer and pass over the member axis for K1 and
+   K3-K6 (K2, an iterative search, has none).
 4. The fit-and-extract path through the port's entry points: ``fit_joint``
    on synthetic single-view observations, ``extract_mesh`` at res 256,
    ``deform_mesh_batch`` over the fitted expressions and one PLY export.
@@ -91,14 +92,16 @@ TOL_TRAIN_TERMS = 1e-4  # loss terms, relative
 TOL_K7 = 1e-4
 
 # Card peaks for the bound (published H100 SXM figures at 700 W, dense):
-# fp32 outside the tensor cores (K1-K3, K5, K6: fp32 SIMT), TF32 on the
-# tensor cores (K4, K7: 3xTF32, three TF32 products per fp32 product), HBM3.
+# fp32 outside the tensor cores (K1, K2, K6: fp32 SIMT), TF32 on the
+# tensor cores (K3-K5, K7: 3xTF32, three TF32 products per fp32 product), HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_S = 3.35e12
 # Kernels whose products run as 3xTF32 on the tensor cores, and the kernel
 # function (mangled-name fragment) whose SASS must hold HMMA/HGMMA.
-TENSOR_CORE_KERNELS = {"fit_bwd": "fit_bwd_kernel", "deepsdf_trunk": "trunk_layer_kernel"}
+TENSOR_CORE_KERNELS = {"fit_fwd": "fit_fwd_kernel", "fit_bwd": "fit_bwd_kernel",
+                       "train_fwd": "train_fwd_kernel",
+                       "deepsdf_trunk": "trunk_layer_kernel"}
 
 KERNELS = {
     "ensemble_sdf": ("nphm_tpu_torch/csrc/ensemble_sdf.cu",
@@ -522,15 +525,15 @@ def check_k3_k4(shape, params, gen, device, rows):
     plain4 = cuda_ms(lambda: torch.autograd.grad(Fp, ins, dF, retain_graph=True), 5)
     pairs = live_lanes(active, tile, B, N)
     wb = weight_bytes(params["ensemble"], cfg)
-    b3 = bound(2.0 * nphm_fmas(cfg) * pairs, pairs * 16 + wb)
+    flops3 = 2.0 * nphm_fmas(cfg) * pairs
+    b3 = bound(flops3, pairs * 16 + wb, tf32x3=True)
     flops4 = 4.0 * nphm_fmas(cfg) * pairs
     b4 = bound(flops4, pairs * 28 + wb, tf32x3=True)
     M = B * Np
     lib3 = baddbmm_chain_ms(cfg, A, M, "f", device, 10)
     lib4 = baddbmm_chain_ms(cfg, A, M, "fr", device, 10)
     log(f"[K3] M=5x1024: kernel {ms3:.3f} ms, plain {plain3:.3f} ms, baddbmm chain "
-        f"{lib3:.3f} ms; {pairs} live (point, member) pairs, bound {b3['bound_ms']:.3f} ms "
-        f"({b3['bound_by']})")
+        f"{lib3:.3f} ms; {pairs} live (point, member) pairs, {bound_note(flops3, b3)}")
     log(f"[K4] M=5x1024: kernel {ms4:.3f} ms, plain backward {plain4:.3f} ms, baddbmm "
         f"forward + reverse chains {lib4:.3f} ms; {bound_note(flops4, b4)}")
     rows["fit_fwd"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3, library_ms=lib3, **b3)
@@ -631,10 +634,11 @@ def check_k5_k6(shape, params, gen, device, rows):
             plain6 = cuda_ms(lambda: torch.autograd.grad(phi_p, ins, retain_graph=True), 3)
             pairs = live_lanes(active, tile, B, N)
             wb = weight_bytes(params["ensemble"], cfg)
-            b5 = bound(2.0 * 2 * nphm_fmas(cfg) * pairs, pairs * 28 + wb)
+            flops5 = 2.0 * 2 * nphm_fmas(cfg) * pairs
+            b5 = bound(flops5, pairs * 28 + wb, tf32x3=True)
             b6 = bound(2.0 * 6 * nphm_fmas(cfg) * pairs, pairs * 40 + 2 * wb)
             log(f"[K5] M={B}x{Np}: kernel {ms5:.3f} ms, plain {plain5:.3f} ms; {pairs} "
-                f"(point, member) pairs, bound {b5['bound_ms']:.3f} ms ({b5['bound_by']})")
+                f"(point, member) pairs, {bound_note(flops5, b5)}")
             log(f"[K6] M={B}x{Np}: kernel {ms6:.3f} ms, plain double backward "
                 f"{plain6:.3f} ms; bound {b6['bound_ms']:.3f} ms ({b6['bound_by']})")
         del Fp, Gp, phi_p, gp

@@ -11,7 +11,8 @@
 // - warp-level mma.sync m16n8k8 .tf32 with operands split in registers
 //   (split_mma), and mm64, a block-level product over a 64-row tile held in
 //   shared memory with the K-major B operand staged by TMA through a
-//   three-stage swizzled ring, fragments loaded with ldmatrix (K4);
+//   three-stage swizzled ring, fragments loaded with ldmatrix (K3, K4 and
+//   K5, field_tile.cuh);
 // - warpgroup-level wgmma m64n128k8 .tf32 reading 128-byte-swizzled K-major
 //   operands that TMA (cp.async.bulk.tensor) stages, signalled through
 //   mbarriers (K7).

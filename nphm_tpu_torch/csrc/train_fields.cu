@@ -4,12 +4,16 @@
 // and ::_bwd_impl (body _make_bwd_kernel), the two halves of the custom VJP
 // _member_fields behind apply_nphm_train_pallas.
 //
-// K5: one block per (member, tile of kLanes points) runs the primal sweep
-// with the latent folded into per-(member, row) biases, keeps every hidden
+// K5: one block per (member, 64-point tile) runs the primal sweep with the
+// latent folded into per-(member, row) biases, keeps every hidden
 // activation in shared memory, writes the raw SDF F (head without its
 // bias), then runs one reverse sweep seeded by the head weights with the
-// cotangent overwriting each activation in place (K4's structure), and
-// writes G = dF/dcoords.
+// cotangent overwriting each activation in place, and writes G =
+// dF/dcoords: K4's body with dF = 1 and no bias partials
+// (field_tile.cuh, mode kTrainFwd, on the tensor cores).  Its first design
+// (32-point blocks of 8 warps, fp32 SIMT products reading weights from L2):
+// 75.57 ms at the training batch, 32 x 2048 points (NVIDIA H100 80GB HBM3,
+// 700.00 W).
 //
 // K6 is four steps per chunk of members, one block per (member, lane tile)
 // in the first two:
@@ -34,16 +38,17 @@
 // No float atomics anywhere: every sum has a fixed order, so results are
 // deterministic run to run.
 //
-// Bound on this card: fp32 FMA throughput.  K5 does ~2x the primal FMAs
-// (81.8k per point and member at production width), K6 ~6x.  Design:
-// activations stay in shared memory one or two layers at a time (K6's
+// Bounds on this card: K5 tensor-core operations, ~2x the primal
+// multiply-adds (81.8k per point and member at production width) as 3xTF32
+// at 495 TFLOP/s of TF32; K6 fp32 FMA throughput, ~6x.  K6's design:
+// activations stay in shared memory one or two layers at a time (its
 // passes hold four [H][32] buffers, ~101 KB at H = 200, so two blocks fit
 // an SM; the reverse pass reads each weight matrix once for both of its
 // products); the activations the reverse sweep needs travel
 // through the scratch the lane contraction reads anyway (~0.5 GB per member
 // at the production batch, processed in member chunks); weights are read
 // from L2.
-#include "mlp_tile.cuh"
+#include "field_tile.cuh"
 
 // Host mirror: nphm_tpu_torch/ops/train_fields.py::_Grads.  Every array is
 // indexed by the global member.  (Outside the anonymous namespace: the C
@@ -58,6 +63,8 @@ struct TrainGrads {
 
 namespace {
 
+namespace field = nphm::field;
+
 constexpr int kLanes = 32;
 constexpr int kSplitK = 16;
 constexpr int kGemmTile = 64;
@@ -71,81 +78,17 @@ __device__ __forceinline__ void load_lanes(const float* src, int m, int n_ch,
       dst[c * kLanes + t] = src[((int64_t)m * n_ch + c) * M + p0 + t];
 }
 
-__global__ void __launch_bounds__(nphm::kThreads)
-train_fwd_kernel(nphm::Trunk tr, const float* __restrict__ coords,
-                 const int* __restrict__ active, float* __restrict__ F,
-                 float* __restrict__ G, int64_t M, int n_members,
-                 int cull_tile, int hsum) {
-  constexpr int T = kLanes;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int L = (int)tr.n_layers;
-  const int skip = (int)tr.skip;
-  const float beta = (float)tr.beta;
-  const int m = blockIdx.y;
-  const int64_t p0 = (int64_t)blockIdx.x * T;
-  const int t = threadIdx.x;
-  if (active[(p0 / cull_tile) * n_members + m] == 0) {
-    if (t < T) {
-      F[(int64_t)m * M + p0 + t] = 0.f;
-      for (int c = 0; c < 3; ++c) G[((int64_t)m * 3 + c) * M + p0 + t] = 0.f;
-    }
-    return;
-  }
-  float* hs[nphm::kMaxLayers];
-  float* cur = smem;
-  for (int i = 0; i < L - 1; ++i) {
-    hs[i] = cur;
-    cur += tr.n_out[i] * T;
-  }
-  float* xs = smem + hsum * T;
-  float* dg = xs + 3 * T;
-  float* head = dg + 3 * T;
-  float* part = head + nphm::kMaxHead * T;
-  int* rows = reinterpret_cast<int*>(part + nphm::kWarps * nphm::kMaxHead * T);
-
-  load_lanes(coords, m, 3, M, p0, xs);
-  if (t < T) rows[t] = (int)((p0 + t) / tr.row_len);
-  __syncthreads();
-  nphm::trunk_forward<T, 8, 4>(tr, m, xs, rows, hs, head, part, true);
-  if (t < T) F[(int64_t)m * M + p0 + t] = head[t];
-
-  // seed: d_{L-2} = wlast * softplus'(z_{L-2}), in place
-  {
-    const float* wl = tr.w[L - 1] + m * tr.w_ms[L - 1];
-    const int H = (int)tr.n_out[L - 2];
-    float* h = hs[L - 2];
-    for (int it = t; it < H * T; it += blockDim.x)
-      h[it] = wl[it / T] * nphm::softplus_grad(h[it], beta);
-    for (int it = t; it < 3 * T; it += blockDim.x) dg[it] = 0.f;
-    __syncthreads();
-  }
-  for (int i = L - 2; i >= 0; --i) {
-    const int H = (int)tr.n_out[i];
-    float* d = hs[i];
-    if (i == skip || i == 0) {
-      const float* wp = (i == 0) ? tr.w[0] + m * tr.w_ms[0] : tr.wp + m * tr.wp_ms;
-      for (int it = t; it < 3 * T; it += blockDim.x) {
-        const int c = it / T;
-        const int l = it - c * T;
-        float s = 0.f;
-        for (int o = 0; o < H; ++o) s = fmaf(wp[o * 3 + c], d[o * T + l], s);
-        dg[it] += s;
-      }
-    }
-    if (i > 0) {
-      const float* Wt = tr.wt[i] + m * tr.wt_ms[i];
-      float* prev = hs[i - 1];
-      nphm::tile_mm<T, 8, 4>(Wt, (int)tr.ldwt[i], H, (int)tr.n_in[i], d,
-                             [&](int j, int l, float acc) {
-                               const int k = j * T + l;
-                               prev[k] = acc * nphm::softplus_grad(prev[k], beta);
-                             });
-    }
-    __syncthreads();
-  }
-  if (t < T)
-    for (int c = 0; c < 3; ++c) G[((int64_t)m * 3 + c) * M + p0 + t] = dg[c * T + t];
+// K5 is field_tile.cuh's body in mode kTrainFwd (grid and shared memory
+// there): 3xTF32 mma.sync over 64-point tiles of 16 warps, weights staged
+// by TMA, the head product and the seed in one pass.
+template <int KS>
+__global__ void __launch_bounds__(field::kThreads, 1)
+train_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
+                 const float* __restrict__ coords, const int* __restrict__ active,
+                 float* __restrict__ F, float* __restrict__ G, int64_t M, int n_members,
+                 int cull_tile, int act_floats, int stage) {
+  field::tile<KS, field::kTrainFwd>(tr, maps, coords, nullptr, active, F, G, nullptr,
+                                    nullptr, M, n_members, cull_tile, act_floats, stage);
 }
 
 // Sum over one block's lanes of feature o of a [H][kLanes] buffer.  Lanes
@@ -534,12 +477,6 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
   out[idx] = s;
 }
 
-int fwd_smem_bytes(int hsum) {
-  constexpr int T = kLanes;
-  return (int)sizeof(float) * (hsum * T + 6 * T + nphm::kMaxHead * T +
-                               nphm::kWarps * nphm::kMaxHead * T + T);
-}
-
 int bwd_fwd_smem_bytes(int hmax) {
   constexpr int T = kLanes;
   return (int)sizeof(float) * (4 * hmax * T + 6 * T + T);
@@ -554,22 +491,25 @@ unsigned n_grid(int64_t n) { return (unsigned)((n + 255) / 256); }
 
 }  // namespace
 
+extern "C" int nphm_train_fwd_lanes_per_block() { return field::kRows; }
 extern "C" int nphm_train_lanes_per_block() { return kLanes; }
 extern "C" int nphm_train_split_k() { return kSplitK; }
 
 // coords: [A][3][M]; active: [M / cull_tile][A] -> F [A][M], G [A][3][M].
+// M and cull_tile are multiples of 64; every hidden product is at most
+// tc::kMaxN wide.
 extern "C" int nphm_train_fwd(const nphm::Trunk* tr, const float* coords,
                               const int* active, float* F, float* G, int64_t M,
-                              int n_members, int cull_tile, int hsum,
-                              void* stream) {
-  const int smem = fwd_smem_bytes(hsum);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(M / kLanes), (unsigned)n_members);
-  train_fwd_kernel<<<grid, nphm::kThreads, smem, (cudaStream_t)stream>>>(
-      *tr, coords, active, F, G, M, n_members, cull_tile, hsum);
-  return (int)cudaGetLastError();
+                              int n_members, int cull_tile, void* stream) {
+  if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
+    return (int)cudaErrorInvalidValue;
+  field::Maps maps = {};
+  field::Launch ln;
+  const int rc = field::setup(tr, n_members, true, &maps, &ln);
+  if (rc != 0) return rc;
+  return field::launch(train_fwd_kernel<16>, train_fwd_kernel<8>, ln, n_members, M,
+                       stream, *tr, maps, coords, active, F, G, M, n_members, cull_tile,
+                       ln.act_floats, ln.stage);
 }
 
 // One chunk of members [m0, m0 + n_chunk) of the backward: + dF [A][M],

@@ -4,11 +4,11 @@ Every source compiles with its own ``nvcc`` process, all started together,
 and the objects link into one shared library with a plain C interface, at
 first use, into ``nphm_tpu_torch/_build/`` (git-ignored), and again whenever
 a source is newer than the library.  No library beyond the CUDA runtime is
-linked: K7's TMA descriptors reach the driver through the runtime's
-entry-point query.  The library is loaded
-with ``ctypes``: every pointer and the stream travel as ``c_void_p``, every
-entry point returns ``cudaGetLastError()`` and ``check`` raises on a non-zero
-code.  Nothing is downloaded; the only inputs are the sources in the package.
+linked: the TMA descriptors of K3-K5 and K7 reach the driver through the
+runtime's entry-point query.  The library is loaded with ``ctypes``: every
+pointer and the stream travel as ``c_void_p``, every entry point returns
+``cudaGetLastError()`` and ``check`` raises on a non-zero code.  Nothing is
+downloaded; the only inputs are the sources in the package.
 """
 
 from __future__ import annotations
@@ -78,14 +78,14 @@ _SIGNATURES = {
         _i64, _i32, _f32, _f32, _f32, _i32, _vp,
     ],
     "nphm_fit_fwd": [
-        ctypes.POINTER(Trunk), _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp,
+        ctypes.POINTER(Trunk), _vp, _vp, _vp, _i64, _i32, _i32, _vp,
     ],
     "nphm_fit_bwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
         _i32, _i32, _i32, _vp,
     ],
     "nphm_train_fwd": [
-        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp,
+        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp,
     ],
     "nphm_train_bwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
@@ -99,7 +99,7 @@ _SIGNATURES = {
     "nphm_ensemble_points_per_block": [],
     "nphm_search_lanes_per_block": [],
     "nphm_fit_lanes_per_block": [],
-    "nphm_fit_bwd_lanes_per_block": [],
+    "nphm_train_fwd_lanes_per_block": [],
     "nphm_train_lanes_per_block": [],
     "nphm_train_split_k": [],
     "nphm_trunk_tile": [],

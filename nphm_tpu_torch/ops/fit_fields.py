@@ -9,9 +9,10 @@ member-local coordinates [A, 3, M]:
 
 - K3 computes ``F`` with the latent folded into per-(member, row) biases;
 - K4 takes F's cotangent and returns d(coords) and the per-(member, row)
-  cotangents of the two folded biases; weight cotangents are ``None``.  Its
-  products run on the tensor cores in 3xTF32 (``ops/tf32.py``) over the
-  K-major weights below, staged in K slices through shared memory.
+  cotangents of the two folded biases; weight cotangents are ``None``.
+Both run one block per (member, 64-point tile), their products on the
+tensor cores in 3xTF32 (``ops/tf32.py``) over the K-major weights below,
+staged in K slices through shared memory (``csrc/field_tile.cuh``).
 
 Symmetric sharing and the mirror sign are expanded outside (torch autograd
 maps the bias and coordinate cotangents back to the latent), and so are the
@@ -46,7 +47,8 @@ from nphm_tpu_torch.ops import _build
 SQRT2 = 1.4142135623730951
 DEFAULT_TILE = 512  # cull-tile size (points sharing one member predicate)
 K_STEP = 8  # the MMA's K step: weight rows are padded to a multiple of it
-MAX_WIDTH = 256  # csrc/tc_tile.cuh kMaxN: K4's widest product
+MAX_WIDTH = 256  # csrc/tc_tile.cuh kMaxN: the widest product of K3-K5
+FIT_LANES = 64  # points per K3/K4 block: csrc/tc_tile.cuh kRows
 CULL_EPS_TRAIN = 0.0
 
 
@@ -144,7 +146,7 @@ def _fit_trunk(cfg: NPHMConfig, layers, n_rows: int, row_len: int):
     Hidden layers carry both K-major orientations: ``wt`` [A, out, ldwt]
     for forward products over the inputs, ``w`` [A, in, ldw] for reverse
     products over the outputs, their leading dims rounded to ``K_STEP``
-    with zero columns.  K4 stages them in K slices and reads zeros past the
+    with zero columns.  K3-K5 stage them in K slices and read zeros past the
     width rounded to ``K_STEP``, so no wider padding is needed."""
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
@@ -200,14 +202,14 @@ class _MemberF(torch.autograd.Function):
         lib = _build.lib()
         A, _, M = coords.shape
         row_len = M // n_rows
-        tr, keep, hmax, _hsum = _fit_trunk(cfg, layers, n_rows, row_len)
+        tr, keep, _hmax, _hsum = _fit_trunk(cfg, layers, n_rows, row_len)
         coords_c = coords.detach().contiguous()
         _build.require_cuda_f32(coords_c, *keep)
         _build.require_mask(active, (M // tile, A), coords.device)
         F = torch.empty((A, M), device=coords.device)
         rc = lib.nphm_fit_fwd(
             ctypes.byref(tr), coords_c.data_ptr(), active.data_ptr(), F.data_ptr(),
-            M, A, tile, hmax, _build.stream_ptr(coords.device),
+            M, A, tile, _build.stream_ptr(coords.device),
         )
         _build.check(rc, "nphm_fit_fwd")
         member_f.launches += 1
@@ -221,7 +223,7 @@ class _MemberF(torch.autograd.Function):
         tr, keep, active, tile, n_rows = ctx.fit
         lib = _build.lib()
         A, _, M = coords.shape
-        n_blk = M // lib.nphm_fit_bwd_lanes_per_block()
+        n_blk = M // FIT_LANES
         H0, HS = tr.n_out[0], tr.n_out[tr.skip]
         dev = coords.device
         dF = dF.to(torch.float32).contiguous()
@@ -242,17 +244,23 @@ class _MemberF(torch.autograd.Function):
         return d_bias0, d_bias_s, dcoords, None, None, None, None, None
 
 
+def check_widths(layers):
+    """Raise unless every hidden product fits the tensor-core tile (K3-K5)."""
+    if max(max(lay["w"].shape[1:]) for lay in layers[1:-1]) > MAX_WIDTH:
+        raise ValueError(f"K3-K5 take hidden layers at most {MAX_WIDTH} wide")
+
+
 def member_f(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: int):
     """F [A, M] per-member raw SDF; first-order gradient w.r.t. the folded
     biases and coords only (valid under frozen decoder weights)."""
     if not coords.is_cuda:
         return member_f_plain(cfg, layers, coords, active, tile, n_rows)
-    lib = _build.lib()
-    if tile % lib.nphm_fit_lanes_per_block() or tile % lib.nphm_fit_bwd_lanes_per_block():
-        raise ValueError("tile must be a multiple of the kernels' lanes per block")
+    if tile % FIT_LANES:
+        raise ValueError(f"tile must be a multiple of K3/K4's {FIT_LANES} points a block")
+    check_widths(layers)
+    if _build.lib().nphm_fit_lanes_per_block() != FIT_LANES:
+        raise RuntimeError("K3/K4's block size disagrees with ops.fit_fields.FIT_LANES")
     _, skip_in = cfg.layer_shapes
-    if max(max(lay["w"].shape[1:]) for lay in layers[1:-1]) > MAX_WIDTH:
-        raise ValueError(f"K4 takes hidden layers at most {MAX_WIDTH} wide")
     return _MemberF.apply(layers[0]["b"], layers[skip_in]["b"], coords, cfg,
                           layers, active.contiguous(), tile, n_rows)
 

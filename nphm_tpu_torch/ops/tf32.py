@@ -1,4 +1,4 @@
-"""The 3xTF32 split that K4 and K7 run on the tensor cores, in plain PyTorch.
+"""The 3xTF32 split that K3-K5 and K7 run on the tensor cores, in plain PyTorch.
 
 A TF32 tensor-core product keeps 10 explicit mantissa bits of each operand
 (~1e-3 relative over a sum of 1024 terms), too coarse for the kernels' 1e-4
@@ -8,7 +8,7 @@ keeps ~21 bits (the dropped small*small term is ~2^-22 of the product).
 
 ``tf32_round`` is the kernels' ``cvt.rna.tf32.f32`` (round to nearest, ties
 away from zero), so K7's wrapper uses ``split_tf32`` to prepare its weight
-halves on the device.  K4 splits in registers and leaves the small half's
+halves on the device.  K3-K5 split in registers and leave the small half's
 rounding to the tensor core, which truncates (``matmul_3xtf32(small=
 "trunc")``).  ``matmul_3xtf32`` emulates the kernels' products: a
 product of two TF32 values is exact in fp32, so an fp32 matmul of the halves
@@ -46,7 +46,7 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, small: str = "round") -> tor
 
     small="round": both halves rounded to TF32 (K7, whose halves are stored);
     small="trunc": big rounded, the remainder passed whole and truncated by
-    the tensor core (K4's in-register split, ``tc_tile.cuh::split_mma``)."""
+    the tensor core (K3-K5's in-register split, ``tc_tile.cuh::split_mma``)."""
     if small not in ("round", "trunc"):
         raise ValueError(small)
     halves = []

@@ -10,7 +10,8 @@ coordinates [A, 3, M], with the latent folded into per-(member, row)
 biases (``fit_fields.prepare_train_operands``):
 
 - K5 (forward) runs the primal sweep and one reverse sweep seeded by the
-  head weights, giving F and G;
+  head weights, giving F and G: one block per (member, 64-point tile), its
+  products on the tensor cores in 3xTF32 (K4's body, ``csrc/field_tile.cuh``);
 - K6 (backward, the custom VJP) takes the cotangents (dF, dG), recomputes
   the primal, runs the tangent forward seeded by dG and the dual reverse
   sweep with the softplus'' cross terms, and returns d(coords) and the
@@ -41,6 +42,7 @@ from nphm_tpu_torch.ops.fit_fields import (
     DEFAULT_TILE,
     _fit_trunk,
     active_mask,
+    check_widths,
     member_f_plain,
     morton_codes,
     prepare_train_operands,
@@ -50,6 +52,8 @@ from nphm_tpu_torch.ops.fit_fields import (
 # hidden layer, ~0.5 GB per member at the production batch) is processed
 # in member chunks that fit this budget.
 SCRATCH_BYTES = 4 << 30
+FWD_LANES = 64  # points per K5 block: csrc/tc_tile.cuh kRows
+BWD_LANES = 32  # points per block of K6's two passes: csrc/train_fields.cu kLanes
 
 
 def _flat(cfg: NPHMConfig, layers):
@@ -128,7 +132,7 @@ class _MemberFields(torch.autograd.Function):
         G = torch.empty((A, 3, M), device=coords.device)
         rc = lib.nphm_train_fwd(
             ctypes.byref(tr), coords_c.data_ptr(), active.data_ptr(), F.data_ptr(),
-            G.data_ptr(), M, A, tile, hsum, _build.stream_ptr(coords.device),
+            G.data_ptr(), M, A, tile, _build.stream_ptr(coords.device),
         )
         _build.check(rc, "nphm_train_fwd")
         member_fields.launches += 1
@@ -152,7 +156,7 @@ class _MemberFields(torch.autograd.Function):
 
         n_out = [tr.n_out[i] for i in range(L)]
         n_in = [tr.n_in[i] for i in range(L)]
-        n_blk = M // lib.nphm_train_lanes_per_block()
+        n_blk = M // BWD_LANES
         split = lib.nphm_train_split_k()
         n_part = hsum + 3 * n_out[0] + 3 * n_out[skip] + n_out[L - 2]
         scr_rows = n_out[L - 2] + sum(n_out[i] + n_in[i] for i in range(1, L - 1))
@@ -196,9 +200,14 @@ def member_fields(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: in
     gradient, differentiable twice (K5/K6 on CUDA tensors)."""
     if not coords.is_cuda:
         return member_fields_plain(cfg, layers, coords, active, tile, n_rows)
+    if tile % FWD_LANES or tile % BWD_LANES:
+        raise ValueError(f"tile must be a multiple of K5's {FWD_LANES} and K6's {BWD_LANES} "
+                         "points a block")
+    check_widths(layers)
     lib = _build.lib()
-    if tile % lib.nphm_train_lanes_per_block():
-        raise ValueError("tile must be a multiple of the kernel's lanes per block")
+    if (lib.nphm_train_fwd_lanes_per_block(), lib.nphm_train_lanes_per_block()) != (
+            FWD_LANES, BWD_LANES):
+        raise RuntimeError("K5/K6's block sizes disagree with ops.train_fields")
     return _MemberFields.apply(cfg, active.contiguous(), tile, n_rows, coords,
                                *_flat(cfg, layers))
 

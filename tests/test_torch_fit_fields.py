@@ -110,17 +110,31 @@ def test_culled_tiles_write_zero(pair):
     assert torch.all(F[0, 128:] == 0) and torch.all(F[0, :128] != 0)
 
 
-@pytest.mark.parametrize("k,n", [(200, 101), (101, 200), (200, 200), (200, 3)])
-def test_3xtf32_split_holds_fp32_accuracy_at_k4_shapes(k, n):
-    """K4's products in plain PyTorch at its 64-point tile and the NPHM
-    widths (forward and reverse hidden products, d(coords) through the
-    3-wide point weights), with K4's in-register split (the small half
-    truncated by the tensor core): 3xTF32 within 1e-5 of the product's
-    magnitude against float64; one TF32 pass misses that bound."""
+# Products of K3, K4 and K5 over one 64-point tile at the NPHM widths, by
+# the kind of the A operand: "act" softplus activations (the forward
+# products of all three, and d(coords) through the 3-wide point weights),
+# "cot" signed cotangents (the reverse products of K4 and K5; K5's start
+# from wlast * softplus', K4's from wlast * dF * softplus').
+TILE_PRODUCTS = [
+    ("act", 200, 101), ("act", 101, 200), ("act", 200, 200), ("act", 200, 3),
+    ("cot", 200, 200), ("cot", 200, 101), ("cot", 101, 200),
+]
+
+
+@pytest.mark.parametrize("kind,k,n", TILE_PRODUCTS)
+def test_3xtf32_split_holds_fp32_accuracy_at_k3_k4_k5_shapes(kind, k, n):
+    """K3's, K4's and K5's products in plain PyTorch at their 64-point tile,
+    with the in-register split (the small half truncated by the tensor
+    core): 3xTF32 within 1e-5 of the product's magnitude against float64;
+    one TF32 pass misses that bound."""
     from nphm_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
 
-    rng = np.random.default_rng(k * 1000 + n)
-    a = np.log1p(np.exp(2.0 * rng.normal(size=(64, k)))).astype(np.float32)
+    rng = np.random.default_rng(k * 1000 + n + (7 if kind == "cot" else 0))
+    if kind == "act":
+        a = np.log1p(np.exp(2.0 * rng.normal(size=(64, k)))).astype(np.float32)
+    else:
+        a = (rng.normal(size=(64, k)) * rng.uniform(0, 1, size=(64, k)) / np.sqrt(k))
+        a = a.astype(np.float32)
     b = (rng.uniform(-1, 1, size=(k, n)) / np.sqrt(k)).astype(np.float32)
     ref = a.astype(np.float64) @ b.astype(np.float64)
     scale = np.abs(ref).max()
@@ -131,8 +145,29 @@ def test_3xtf32_split_holds_fp32_accuracy_at_k4_shapes(k, n):
     assert err1 > 1e-5 * scale
 
 
+def test_head_dot_fixed_order_at_k3_k5_tile():
+    """K3's and K5's head product F[t] = sum_o h[t][o] wlast[o] in
+    field_tile.cuh's order (fp32 FMAs, lane j summing o = j, j + 32, ...,
+    then a butterfly over the 32 lanes) at the 64-point tile and width 200:
+    within 1e-6 of the products' magnitude against float64, as close as
+    the plain version's own fp32 sum."""
+    rng = np.random.default_rng(5)
+    h = np.log1p(np.exp(2.0 * rng.normal(size=(64, 200)))).astype(np.float32)
+    w = (np.sqrt(np.pi / 200) + 1e-5 * rng.normal(size=200)).astype(np.float32)
+    lanes = np.zeros((64, 32), np.float32)
+    for o in range(200):  # fmaf: the product is exact in float64, one rounding
+        lanes[:, o % 32] = (h[:, o].astype(np.float64) * w[o] + lanes[:, o % 32]).astype(
+            np.float32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ off]
+    ref = h.astype(np.float64) @ w.astype(np.float64)
+    scale = (np.abs(h).astype(np.float64) @ np.abs(w).astype(np.float64)).max()
+    assert np.abs(lanes[:, 0] - ref).max() <= 1e-6 * scale
+    assert np.abs((torch.tensor(h) @ torch.tensor(w)).numpy() - ref).max() <= 1e-6 * scale
+
+
 def test_k4_weight_layouts(pair):
-    """K4's operands: both K-major orientations of each hidden layer with
+    """K3-K5's operands: both K-major orientations of each hidden layer with
     leading dims rounded to the MMA's K step and zero columns past the
     width, layer 0's point weights [A, H0, 3], and the width limit
     mirrored from csrc/tc_tile.cuh."""

@@ -23,6 +23,7 @@ from nphm_tpu_torch.models import (
     make_nphm_decoder,
     make_npm_decoder,
 )
+from nphm_tpu_torch.models.ensemble import mirror_scale, predict_anchors
 from nphm_tpu_torch.ops import ensemble as ens
 from nphm_tpu_torch.ops import fit_fields as ff
 from nphm_tpu_torch.ops import search as srch
@@ -118,14 +119,18 @@ def test_k3_k4_tiny_widths(device, hidden, n_pts):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
 
+@pytest.mark.parametrize("hidden,n_pts", [(16, 700), (72, 1000), (200, 700)])
 @pytest.mark.parametrize("cull_eps", [0.0, 1e-10])
-def test_k5_k6_tiny_widths(device, cull_eps):
+def test_k5_k6_tiny_widths(device, hidden, n_pts, cull_eps):
     """apply_nphm_train through K5/K6 vs its plain version: outputs and the
-    gradient of a loss over (sdf, grads) w.r.t. params, lat and xyz."""
-    shape, params, _e, _pe, gen = tiny_models(device)
-    xyz = (torch.randn((3, 700, 3), generator=gen) * 0.3).to(device)
+    gradient of a loss over (sdf, grads) w.r.t. params, lat and xyz, at
+    hidden widths that are not multiples of K5's 16-wide K slice or 8-wide
+    MMA tiles, and rows of points that are not multiples of its 64-point
+    tile (padded inside the 512-point cull tile)."""
+    shape, params, gen = tiny_shape(device, hidden)
+    xyz = (torch.randn((3, n_pts, 3), generator=gen) * 0.3).to(device)
     lat = (torch.randn((3, shape.lat_dim), generator=gen) * 0.1).to(device)
-    tgt = torch.randn((3, 700, 3), generator=gen).to(device)
+    tgt = torch.randn((3, n_pts, 3), generator=gen).to(device)
     out = {}
     for name, fn in (("kernel", trf.member_fields), ("plain", trf.member_fields_plain)):
         p = {"ensemble": [{k: v.clone().requires_grad_(True) for k, v in lay.items()}
@@ -146,6 +151,35 @@ def test_k5_k6_tiny_widths(device, cull_eps):
         out[name] = (sdf.detach(), g.detach()) + tuple(grads)
     for a, b in zip(out["kernel"], out["plain"]):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
+
+
+def test_k5_culled_pairs_write_zero(device):
+    """K5 at cull_eps 1e-10 on Morton-sorted points: every culled (member,
+    cull tile) pair gets exactly zero F and G, and the live ones match the
+    plain version."""
+    shape, params, gen = tiny_shape(device, 72)
+    cfg, B, tile = shape.cfg, 3, 512
+    xyz = (torch.randn((B, 1000, 3), generator=gen) * 0.3).to(device)
+    perm = torch.argsort(ff.morton_codes(xyz), dim=1, stable=True)
+    xyz = torch.gather(xyz, 1, perm[..., None].expand(B, 1000, 3))
+    xyz = torch.cat([xyz, xyz[:, -1:].expand(B, 24, 3)], dim=1)
+    lat = (torch.randn((B, shape.lat_dim), generator=gen) * 0.1).to(device)
+    with torch.no_grad():
+        anchors = predict_anchors(params, cfg, lat)
+        centers = torch.cat([anchors, torch.zeros_like(anchors[:, :1])], dim=1)
+        coords = (xyz[:, :, None] - centers[:, None]) * mirror_scale(cfg, device)
+        coords = coords.permute(2, 3, 0, 1).reshape(cfg.n_members, 3, -1).contiguous()
+        layers, _ = ff.prepare_train_operands(params, cfg, lat)
+        active = ff.active_mask(cfg, coords, tile, 1e-10)
+        F, G = trf.member_fields(cfg, layers, coords, active, tile, B)
+    assert 0 < int(active.sum()) < active.numel()  # culling fires
+    culled = (active.T == 0).repeat_interleave(tile, dim=1)  # [A, M]
+    assert torch.all(F[culled] == 0)
+    assert torch.all(G.permute(1, 0, 2)[:, culled] == 0)
+    Fp, Gp = (t.detach() for t in trf.member_fields_plain(cfg, layers, coords, active,
+                                                           tile, B))
+    torch.testing.assert_close(F, Fp, atol=1e-4 * float(Fp.abs().max()), rtol=0)
+    torch.testing.assert_close(G, Gp, atol=1e-4 * float(Gp.abs().max()), rtol=0)
 
 
 @pytest.mark.parametrize("kw,scratch,n", [

@@ -15,6 +15,7 @@ seeds; JAX runs its Pallas kernels in interpret mode.
 - ``fit_joint`` with ``fused_shape_fields="train"`` (the fit through the
   training field) vs ``"off"`` on the CPU, at the fit tolerances of
   ``test_torch_slice.py``.
+- The wrappers' block sizes and width limit against the CUDA sources.
 """
 
 import numpy as np
@@ -201,3 +202,48 @@ def test_fit_through_training_field_matches_plain_fit(models):
     np.testing.assert_allclose(ls, rls, rtol=1e-3, atol=5e-4)
     np.testing.assert_allclose(le, rle, rtol=1e-3, atol=5e-4)
     np.testing.assert_allclose(h["loss"], rh["loss"], rtol=1e-3, atol=1e-5)
+
+
+def test_lanes_per_block_match_csrc():
+    """The points a block that the wrappers check tiles against are the
+    sources' own: K3, K4 and K5 run tc::kRows-point blocks
+    (csrc/field_tile.cuh, reported by nphm_fit_lanes_per_block and
+    nphm_train_fwd_lanes_per_block), K6's two passes kLanes-point blocks
+    (csrc/train_fields.cu, nphm_train_lanes_per_block)."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(ff.__file__), "..", "csrc")
+
+    def read(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+
+    rows = int(re.search(r"constexpr int kRows = (\d+);", read("tc_tile.cuh")).group(1))
+    field = read("field_tile.cuh")
+    assert re.search(r"constexpr int kRows = tc::kRows;", field)
+    assert "dim3 grid((unsigned)n_members, (unsigned)(M / kRows));" in field
+    assert "nphm_fit_lanes_per_block() { return field::kRows; }" in read("fit_fields.cu")
+    train = read("train_fields.cu")
+    assert "nphm_train_fwd_lanes_per_block() { return field::kRows; }" in train
+    assert "nphm_train_lanes_per_block() { return kLanes; }" in train
+    lanes = int(re.search(r"constexpr int kLanes = (\d+);", train).group(1))
+    assert ff.FIT_LANES == tf.FWD_LANES == rows == 64
+    assert tf.BWD_LANES == lanes == 32
+    assert ff.DEFAULT_TILE % rows == 0 and ff.DEFAULT_TILE % lanes == 0
+
+
+def test_tensor_core_width_limit(models):
+    """K3-K5 refuse a hidden product wider than the mm64 tile (tc::kMaxN =
+    256) with a ValueError before any launch; 256 is taken."""
+    _jd, _jp, td, tp = models
+    layers, _ = ff.prepare_train_operands(tp, td.cfg, torch.zeros((1, td.cfg.lat_dim)))
+    ff.check_widths(layers)
+    for width, ok in ((256, True), (257, False)):
+        wide = [dict(lay) for lay in layers]
+        wide[1]["w"] = torch.zeros((td.cfg.n_members, width, 8))
+        if ok:
+            ff.check_widths(wide)
+        else:
+            with pytest.raises(ValueError, match="at most 256 wide"):
+                ff.check_widths(wide)

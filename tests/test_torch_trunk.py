@@ -3,7 +3,10 @@ trunk kernel (``ops/pallas_mlp.py``, Pallas in interpret mode), on the CPU.
 
 Same weights (the JAX ``Decoder.init`` bridged with ``from_numpy_pytree``)
 and the same numpy inputs; the bound is ``tests/test_pallas_mlp.py``'s own,
-atol 3e-6 (fp32, only summation order differs).
+atol 3e-6 (fp32, only summation order differs).  A failed comparison
+reports the largest difference, its point, and both sides' distance to a
+float64 evaluation of the same trunk, so that it says which side moved
+(rounding alone keeps both within ~3e-7 of it).
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ from nphm_tpu.ops.pallas_mlp import (
     npm_sdf_pallas,
 )
 from nphm_tpu_torch.models import DeepSDFConfig, DeformationConfig
+from nphm_tpu_torch.models.mlp import positional_encoding, softplus_beta
 from nphm_tpu_torch.ops import trunk
 from nphm_tpu_torch.utils.params import from_numpy_pytree
 
@@ -35,6 +39,45 @@ MINI, MAXI = (-0.55, -0.5, -0.95), (0.55, 0.75, 0.4)
 
 def bridge(tree):
     return from_numpy_pytree(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
+
+
+def trunk_f64(params, cfg, xyz, cond):
+    """The plain trunk in float64: the rounding-free reference of a report."""
+    p64 = from_numpy_pytree(params, device="cpu", dtype=torch.float64)
+    layers = trunk.prepare_trunk_operands(
+        p64, cfg, None if cond is None else torch.tensor(cond, dtype=torch.float64))
+    pe = positional_encoding(torch.tensor(xyz, dtype=torch.float64), cfg.num_freq_bands)
+    _shapes, skip = cfg.layer_shapes
+    h = None
+    for i, lay in enumerate(layers):
+        if i == 0:
+            z = pe @ lay["wp"].T + lay["b"]
+        elif i == skip:
+            z = h @ lay["w"].T + pe @ lay["wp"].T + lay["b"]
+        else:
+            z = h @ lay["w"].T + lay["b"]
+        if i < len(layers) - 1:
+            h = softplus_beta(z, cfg.beta) if cfg.beta > 0 else torch.relu(z)
+    return z.numpy()
+
+
+def assert_matches(out, ref, params, cfg, xyz, cond):
+    """assert_allclose(out, ref, atol=ATOL), reporting on failure the
+    largest |out - ref|, its index and point, and |out - f64|, |ref - f64|."""
+    out, ref = np.asarray(out), np.asarray(ref)
+    d = np.abs(out - ref)
+    if not np.all(d <= ATOL + 1e-7 * np.abs(ref)):
+        r64 = trunk_f64(params, cfg, xyz, cond).reshape(out.shape)
+        i = tuple(int(k) for k in np.unravel_index(int(d.argmax()), d.shape))
+        row = i[0]
+        msg = (f"max |port - JAX| {d[i]:.3e} at index {i}, point {xyz[row].tolist()}: "
+               f"port {out[i]!r}, JAX {ref[i]!r}, float64 {r64[i]!r}; over the whole "
+               f"output max |port - f64| {np.abs(out - r64).max():.3e}, max |JAX - f64| "
+               f"{np.abs(ref - r64).max():.3e}; {int((d > ATOL).sum())} of {d.size} "
+               f"entries over atol {ATOL:g}")
+    else:
+        msg = ""
+    np.testing.assert_allclose(out, ref, atol=ATOL, err_msg=msg)
 
 
 def npm_pair(**kw):
@@ -52,7 +95,7 @@ def test_npm_sdf_matches_pallas(freq):
     ref = npm_sdf_pallas(jp, jd.cfg, jnp.asarray(xyz), jnp.asarray(lat), interpret=True)
     out = trunk.npm_sdf(tp, cfg, torch.tensor(xyz), torch.tensor(lat))
     assert out.shape == (1700,)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    assert_matches(out.numpy(), ref, tp, cfg, xyz, lat)
 
 
 def test_npm_grid_sdf_matches_pallas():
@@ -92,7 +135,7 @@ def test_unconditioned_trunk_matches_pallas(out_dim, beta):
     ref = deepsdf_trunk_pallas(jp, jd.cfg, jnp.asarray(xyz), None, interpret=True)
     out = trunk.deepsdf_trunk(tp, cfg, torch.tensor(xyz), None)
     assert out.shape == (500, out_dim)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    assert_matches(out.numpy(), ref, tp, cfg, xyz, None)
 
 
 def test_trunk_plain_matches_decoder_and_operand_fold():
