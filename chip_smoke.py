@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
 
 1. Device and build: require CUDA, print the card's name and power limit,
    build every kernel from ``nphm_tpu_torch/csrc`` with nvcc (the SASS of
-   K3's, K4's, K5's and K7's kernels must hold tensor-core instructions),
+   the product kernels of K3-K7 must hold tensor-core instructions),
    and the host marching library from ``csrc`` (so phase 4 times
    marching, not its build).
 2. Models at production dims: the NPHM ensemble of ``configs/nphm.yaml``
@@ -20,7 +20,7 @@ Phases, in order; any failure exits non-zero:
    paths' shapes, with its tolerance, both timed with CUDA events, and its
    bound (the least time the card could take for the same work) computed
    from the inputs of the timed run: fp32 operations for the SIMT kernels,
-   3xTF32 tensor-core operations for K3, K4, K5 and K7.  Each is also
+   3xTF32 tensor-core operations for K3-K7.  Each is also
    timed against the PyTorch calls cuBLAS would run for its products
    (``library_ms``): one ``torch.addmm`` per layer for K7, one
    ``torch.baddbmm`` per layer and pass over the member axis for K1 and
@@ -92,16 +92,19 @@ TOL_TRAIN_TERMS = 1e-4  # loss terms, relative
 TOL_K7 = 1e-4
 
 # Card peaks for the bound (published H100 SXM figures at 700 W, dense):
-# fp32 outside the tensor cores (K1, K2, K6: fp32 SIMT), TF32 on the
-# tensor cores (K3-K5, K7: 3xTF32, three TF32 products per fp32 product), HBM3.
+# fp32 outside the tensor cores (K1, K2: fp32 SIMT), TF32 on the tensor
+# cores (K3-K7: 3xTF32, three TF32 products per fp32 product), HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_S = 3.35e12
 # Kernels whose products run as 3xTF32 on the tensor cores, and the kernel
-# function (mangled-name fragment) whose SASS must hold HMMA/HGMMA.
-TENSOR_CORE_KERNELS = {"fit_fwd": "fit_fwd_kernel", "fit_bwd": "fit_bwd_kernel",
-                       "train_fwd": "train_fwd_kernel",
-                       "deepsdf_trunk": "trunk_layer_kernel"}
+# functions (mangled-name fragments) whose SASS must hold HMMA/HGMMA: each
+# of K6's product kernels (its fixed-order sums run no product).
+TENSOR_CORE_KERNELS = {"fit_fwd": ("fit_fwd_kernel",), "fit_bwd": ("fit_bwd_kernel",),
+                       "train_fwd": ("train_fwd_kernel",),
+                       "train_bwd": ("train_bwd_fwd_kernel", "train_bwd_rev_kernel",
+                                     "lane_contract"),
+                       "deepsdf_trunk": ("trunk_layer_kernel",)}
 
 KERNELS = {
     "ensemble_sdf": ("nphm_tpu_torch/csrc/ensemble_sdf.cu",
@@ -229,12 +232,13 @@ def device_and_build():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
     counts = _build.sass_mma_counts()
-    for name, fn in TENSOR_CORE_KERNELS.items():
-        n = {k: v for k, v in counts.items() if fn in k}
-        log(f"[sass] {name}: tensor-core instructions (HGMMA/HMMA) per kernel "
-            f"{json.dumps(n)}")
-        expect(bool(n) and all(v > 0 for v in n.values()),
-               f"{name}'s SASS holds no tensor-core instruction")
+    for name, fns in TENSOR_CORE_KERNELS.items():
+        for fn in fns:
+            n = {k: v for k, v in counts.items() if fn in k}
+            log(f"[sass] {name}: tensor-core instructions (HGMMA/HMMA) per kernel "
+                f"{json.dumps(n)}")
+            expect(bool(n) and all(v > 0 for v in n.values()),
+                   f"{name}'s SASS holds no tensor-core instruction in {fn}")
     from nphm_tpu_torch.ops.native import get_lib
 
     t0 = time.perf_counter()
@@ -612,6 +616,10 @@ def check_k5_k6(shape, params, gen, device, rows):
         phi_k = (Fk * dF).sum() + (Gk * dG).sum()
         phi_p = (Fp * dF).sum() + (Gp * dG).sum()
         gk = torch.autograd.grad(phi_k, ins, retain_graph=True)
+        gk2 = torch.autograd.grad(phi_k, ins, retain_graph=True)
+        expect(all(torch.equal(a, b) for a, b in zip(gk, gk2)),
+               "two K6 calls on the same inputs differ (its sums must have a fixed order)")
+        del gk2
         gp = torch.autograd.grad(phi_p, ins, retain_graph=True)
         names = [f"op{i}{list(t.shape)}" for i, t in enumerate(flat)] + ["d_coords"]
         worst = (0.0, "")
@@ -625,7 +633,7 @@ def check_k5_k6(shape, params, gen, device, rows):
             e6 = max(e6, err)
             worst = max(worst, (rel, name))
         log(f"[K6] cull_eps={cull_eps:g}: {len(names)} gradients, worst relative error "
-            f"{worst[0]:.3e} ({worst[1]}) (tol {TOL_K6:g})")
+            f"{worst[0]:.3e} ({worst[1]}) (tol {TOL_K6:g}); two calls bit-identical")
         if cull_eps == 0.0:
             with torch.no_grad():
                 ms5 = cuda_ms(lambda: member_fields(cfg, layers, coords, active, tile, B), 5)
@@ -636,11 +644,15 @@ def check_k5_k6(shape, params, gen, device, rows):
             wb = weight_bytes(params["ensemble"], cfg)
             flops5 = 2.0 * 2 * nphm_fmas(cfg) * pairs
             b5 = bound(flops5, pairs * 28 + wb, tf32x3=True)
-            b6 = bound(2.0 * 6 * nphm_fmas(cfg) * pairs, pairs * 40 + 2 * wb)
+            flops6 = 2.0 * 6 * nphm_fmas(cfg) * pairs
+            b6 = bound(flops6, pairs * 40 + 2 * wb, tf32x3=True)
+            scr6 = A * k6_scratch_bytes(cfg, B * Np)
             log(f"[K5] M={B}x{Np}: kernel {ms5:.3f} ms, plain {plain5:.3f} ms; {pairs} "
                 f"(point, member) pairs, {bound_note(flops5, b5)}")
             log(f"[K6] M={B}x{Np}: kernel {ms6:.3f} ms, plain double backward "
-                f"{plain6:.3f} ms; bound {b6['bound_ms']:.3f} ms ({b6['bound_by']})")
+                f"{plain6:.3f} ms; {bound_note(flops6, b6)}; its scratch moves "
+                f"{scr6 / 1e9:.2f} GB ({scr6 / PEAK_HBM_BYTES_S * 1e3:.3f} ms at "
+                f"{PEAK_HBM_BYTES_S / 1e12:g} TB/s)")
         del Fp, Gp, phi_p, gp
     log(f"[K5/K6] peak device memory of the checks at B={B}: "
         f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
@@ -653,6 +665,17 @@ def check_k5_k6(shape, params, gen, device, rows):
         f"gradients {lib6:.3f} ms (K6's)")
     rows["train_fwd"] = dict(max_abs_err=e5, ms=ms5, plain_ms=plain5, library_ms=lib5, **b5)
     rows["train_bwd"] = dict(max_abs_err=e6, ms=ms6, plain_ms=plain6, library_ms=lib6, **b6)
+
+
+def k6_scratch_bytes(cfg, M: int) -> int:
+    """Bytes K6's scratch moves for one member over M lanes: its first pass
+    writes the [h | q] rows of every hidden layer, the second reads them and
+    writes the [zbar | pbar] rows of every hidden product, the contraction
+    reads all of them; each row holds 2M floats."""
+    shapes, _ = cfg.layer_shapes
+    outs = [n_out for _, n_out in shapes[:-1]]
+    hq, zp = sum(outs), sum(outs[1:])
+    return 4 * 2 * M * (2 * hq + zp + (hq + zp))
 
 
 def baddbmm_chain_ms(cfg, n_members: int, M: int, passes: str, device, reps: int) -> float:

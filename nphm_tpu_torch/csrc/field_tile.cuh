@@ -127,6 +127,30 @@ __device__ __forceinline__ void head_pass(float* h, int ld, int H,
   }
 }
 
+// The TMA ring of a block: kRingStages stages of `stage` floats from `base`
+// rounded up to 1 KB (the swizzle's period), then its full and empty
+// mbarriers.  init_ring (thread 0) arms them; the caller synchronises the
+// block before the first product.
+__device__ __forceinline__ tc::Ring make_ring(float* base, int stage) {
+  tc::Ring ring;
+  ring.buf = base + ((1024u - (tc::smem_u32(base) & 1023u)) & 1023u) / sizeof(float);
+  ring.stage = stage;
+  ring.full = reinterpret_cast<uint64_t*>(ring.buf + tc::kRingStages * stage);
+  ring.empty = ring.full + tc::kRingStages;
+  ring.slices = ring.issued = 0;
+  return ring;
+}
+
+__device__ __forceinline__ void init_ring(const tc::Ring& ring) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < tc::kRingStages; ++s) {
+      tc::mbar_init(&ring.full[s], 1);
+      tc::mbar_init(&ring.empty[s], tc::kMmaWarps);
+    }
+    tc::mbar_fence_init();
+  }
+}
+
 // Zero columns [w, round8(w)) of a [64][ld] activation: the products read
 // activation columns up to the next multiple of 8.
 __device__ __forceinline__ void zero_pad(float* h, int ld, int w) {
@@ -199,13 +223,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   float* dg = xs + 3 * T;
   float* dfs = dg + 3 * T;
   int* rows = reinterpret_cast<int*>(dfs + T);
-  tc::Ring ring;
-  ring.buf = dfs + 2 * T;
-  ring.buf += ((1024u - (tc::smem_u32(ring.buf) & 1023u)) & 1023u) / sizeof(float);
-  ring.stage = stage;
-  ring.full = reinterpret_cast<uint64_t*>(ring.buf + tc::kRingStages * stage);
-  ring.empty = ring.full + tc::kRingStages;
-  ring.slices = ring.issued = 0;
+  tc::Ring ring = make_ring(dfs + 2 * T, stage);
   // the block's products in order: forward i = 1..L-2, then (reverse
   // modes) reverse i = L-2..1
   auto fwd = [&](int i) {
@@ -225,13 +243,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
     if (MODE == kFitBwd) dfs[t] = dF[m * M + p0 + t];
     rows[t] = (int)((p0 + t) / tr.row_len);
   }
-  if (t == 0) {
-    for (int s = 0; s < tc::kRingStages; ++s) {
-      tc::mbar_init(&ring.full[s], 1);
-      tc::mbar_init(&ring.empty[s], tc::kMmaWarps);
-    }
-    tc::mbar_fence_init();
-  }
+  init_ring(ring);
   __syncthreads();
 
   // forward: layer 0 from the 3 point inputs (a thread per output column
@@ -361,11 +373,15 @@ struct Launch {
 };
 
 // Size a launch over trunk *tr and encode its weights' tensor maps: the
-// forward maps, and the reverse ones when `reverse` (K4, K5).  Returns 0,
-// a runtime error code, or make_map's code for a refused descriptor.  The
-// weights' leading dims ldw/ldwt are multiples of 8 with zero columns past
-// the width, and every product is at most tc::kMaxN wide.
-inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launch* ln) {
+// forward maps, and the reverse ones when `reverse` (K4-K6).  The
+// activations take every layer's tile (reverse) or two of the widest, or,
+// when act_bufs > 0, act_bufs of the widest (K6); point_floats floats of
+// per-point values follow them, then the ring.  Returns 0, a runtime error
+// code, or make_map's code for a refused descriptor.  The weights' leading
+// dims ldw/ldwt are multiples of 8 with zero columns past the width, and
+// every product is at most tc::kMaxN wide.
+inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launch* ln,
+                 int act_bufs = 0, int point_floats = 8 * kRows) {
   const int L = (int)tr->n_layers;
   int act_floats = 0, widest = 0, nmax = 8;
   for (int i = 0; i < L - 1; ++i) {
@@ -377,14 +393,17 @@ inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launc
       nmax = tr->n_in[i] > nmax ? (int)tr->n_in[i] : nmax;
     }
   }
-  if (!reverse) act_floats = 2 * widest;
+  if (act_bufs > 0)
+    act_floats = act_bufs * widest;
+  else if (!reverse)
+    act_floats = 2 * widest;
   if (nmax > tc::kMaxN) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const int fixed = (int)sizeof(float) * (act_floats + 8 * kRows) + 1024 +
+  const int fixed = (int)sizeof(float) * (act_floats + point_floats) + 1024 +
                     16 * tc::kRingStages;
   const int smem16 =
       fixed + (int)sizeof(float) * tc::kRingStages * tc::stage_floats<16>(nmax);

@@ -21,15 +21,18 @@
 //  - Vertices are deduplicated on GLOBAL grid-edge keys, shared across cubes
 //    and across blocks — the sparse path welds block seams for free and
 //    yields the same watertight topology as the dense path.
-//  - Dense path parallelized over z-slabs, sparse path over blocks, with
-//    per-thread buffers merged at the end.
+//  - Dense path parallelized over a fixed number of z-bands, sparse path
+//    over blocks, each with its own buffer, merged in band / block order;
+//    every shared edge's crossing is computed from the same endpoint, so
+//    the output is bit-identical run to run, on any core count, and across
+//    the dense, window and blocks entries (up to vertex order).
 //
 // Convention: emits the boundary of {field > iso}.  The Python wrapper
 // mirrors the reference pipeline (negated SDF logits at iso 0, see
 // reference utils/reconstruction.py:22-37) and rescales vertices to world
 // coordinates.
 
-#include <atomic>
+#include <algorithm>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -192,9 +195,12 @@ static void march_cells(const Grid& g, int x0, int x1, int y0, int y1,
             if (v[T[k]] > iso) inside[n_in++] = k;
           if (n_in == 0 || n_in == 4) continue;
 
-          // crossing point on tet edge (a_local, b_local)
+          // crossing point on tet edge (a_local, b_local), interpolated
+          // from the endpoint with the lower global key: every tet sharing
+          // the edge computes the same bits, whichever corner it separates
           auto cut = [&](int a, int b, V3& q, int64_t& key) {
             int ga = T[a], gb = T[b];
+            if (gk[gb] < gk[ga]) std::swap(ga, gb);
             float va = v[ga], vb = v[gb];
             float tt = (iso - va) / (vb - va);
             if (tt < 0.f) tt = 0.f;
@@ -202,9 +208,7 @@ static void march_cells(const Grid& g, int x0, int x1, int y0, int y1,
             q = {p[ga].x + tt * (p[gb].x - p[ga].x),
                  p[ga].y + tt * (p[gb].y - p[ga].y),
                  p[ga].z + tt * (p[gb].z - p[ga].z)};
-            int64_t lo = gk[ga] < gk[gb] ? gk[ga] : gk[gb];
-            int64_t hi = gk[ga] < gk[gb] ? gk[gb] : gk[ga];
-            key = lo * (int64_t)g.rx * g.ry * g.rz + hi;
+            key = gk[ga] * (int64_t)g.rx * g.ry * g.rz + gk[gb];
           };
 
           // centroid of inside corners (for winding)
@@ -302,9 +306,14 @@ struct FlatMap {
 static int merge_chunks(std::vector<Chunk>& chunks, float** out_verts,
                         int64_t* n_verts, int32_t** out_faces,
                         int64_t* n_faces, int64_t** out_keys = nullptr) {
-  size_t tot_tris = 0;
-  for (auto& ch : chunks) tot_tris += ch.tris.size() / 3;
-  FlatMap vmap(tot_tris);
+  // every emitted vertex may carry a distinct key: size the table from
+  // their count (a hard bound), so it can never fill and probe forever
+  size_t tot_tris = 0, tot_keys = 0;
+  for (auto& ch : chunks) {
+    tot_tris += ch.tris.size() / 3;
+    tot_keys += ch.vkeys.size();
+  }
+  FlatMap vmap(tot_keys);
 
   std::vector<float> verts;
   verts.reserve(tot_tris * 2);
@@ -385,26 +394,45 @@ bool clamp_owned_cells(const Grid& g, int& cx, int& cy, int& cz) {
   return cx > 0 && cy > 0 && cz > 0;
 }
 
-// March [0,cx)x[0,cy)x[0,cz) split into one z-band per hardware thread.
-// Shared thread-sizing for the dense and window entries (the sparse entry
-// parallelizes over blocks instead).
+// Worker threads: one per hardware thread, at most `n_jobs`.
+int n_workers(int64_t n_jobs) {
+  const unsigned hw = std::thread::hardware_concurrency();
+  int64_t n = hw ? (int64_t)hw : 4;
+  if (n > n_jobs) n = n_jobs;
+  return n < 1 ? 1 : (int)n;
+}
+
+// Run job(j) for j in [0, n_jobs) on n_workers threads, thread i taking the
+// static range of jobs [i * per, (i + 1) * per): each job writes only its
+// own output, so the result never depends on the thread count or timing.
+template <class Job>
+void run_static(int64_t n_jobs, Job job) {
+  const int n_threads = n_workers(n_jobs);
+  const int64_t per = (n_jobs + n_threads - 1) / n_threads;
+  std::vector<std::thread> threads;
+  for (int i = 0; i < n_threads; ++i)
+    threads.emplace_back([&, i] {
+      for (int64_t j = i * per; j < n_jobs && j < (i + 1) * per; ++j) job(j);
+    });
+  for (auto& t : threads) t.join();
+}
+
+// z-bands of the dense and window entries: a fixed count (not one per
+// hardware thread), merged in band order, so the vertex and face order is
+// the same on every host.
+constexpr int kBands = 16;
+
+// March [0,cx)x[0,cy)x[0,cz) as min(kBands, cz) z-bands, one chunk each.
 void march_threaded(const Grid& g, int cx, int cy, int cz,
                     std::vector<Chunk>& chunks) {
-  unsigned hw = std::thread::hardware_concurrency();
-  int n_threads = hw ? (int)hw : 4;
-  if (n_threads > cz) n_threads = cz;
-  if (n_threads < 1) n_threads = 1;
-  chunks.resize(n_threads);
-  std::vector<std::thread> threads;
-  int per = (cz + n_threads - 1) / n_threads;
-  for (int i = 0; i < n_threads; ++i) {
-    int z0 = i * per;
-    int z1 = z0 + per < cz ? z0 + per : cz;
-    if (z0 >= z1) continue;
-    threads.emplace_back(march_cells, std::cref(g), 0, cx, 0, cy, z0, z1,
-                         std::ref(chunks[i]));
-  }
-  for (auto& t : threads) t.join();
+  const int n_bands = cz < kBands ? cz : kBands;
+  const int per = (cz + n_bands - 1) / n_bands;
+  chunks.assign(n_bands, Chunk{});
+  run_static(n_bands, [&](int64_t i) {
+    const int z0 = (int)i * per;
+    const int z1 = z0 + per < cz ? z0 + per : cz;
+    if (z0 < z1) march_cells(g, 0, cx, 0, cy, z0, z1, chunks[i]);
+  });
 }
 
 }  // namespace
@@ -464,30 +492,18 @@ int nphm_marching_tets_blocks(const float* blocks, const int32_t* offsets,
                               int64_t rx, int64_t ry, int64_t rz, float iso,
                               float** out_verts, int64_t* n_verts,
                               int32_t** out_faces, int64_t* n_faces) {
-  unsigned hw = std::thread::hardware_concurrency();
-  int n_threads = hw ? (int)hw : 4;
-  if ((int64_t)n_threads > n_blocks) n_threads = (int)(n_blocks ? n_blocks : 1);
-
   const int lx = bsx + 1, ly = bsy + 1, lz = bsz + 1;
   const int64_t block_sz = (int64_t)lx * ly * lz;
 
-  std::vector<Chunk> chunks(n_threads);
-  std::atomic<int64_t> next(0);
-  auto worker = [&](int ti) {
-    for (;;) {
-      int64_t b = next.fetch_add(1);
-      if (b >= n_blocks) break;
-      Grid g{blocks + b * block_sz, lx, ly, lz,
-             offsets[3 * b], offsets[3 * b + 1], offsets[3 * b + 2],
-             rx, ry, rz, iso};
-      int cx = bsx, cy = bsy, cz = bsz;
-      if (!clamp_owned_cells(g, cx, cy, cz)) continue;
-      march_cells(g, 0, cx, 0, cy, 0, cz, chunks[ti]);
-    }
-  };
-  std::vector<std::thread> threads;
-  for (int i = 0; i < n_threads; ++i) threads.emplace_back(worker, i);
-  for (auto& t : threads) t.join();
+  // one chunk per block, merged in block order: deterministic output
+  std::vector<Chunk> chunks(n_blocks > 0 ? n_blocks : 1);
+  run_static(n_blocks, [&](int64_t b) {
+    Grid g{blocks + b * block_sz, lx, ly, lz,
+           offsets[3 * b], offsets[3 * b + 1], offsets[3 * b + 2],
+           rx, ry, rz, iso};
+    int cx = bsx, cy = bsy, cz = bsz;
+    if (clamp_owned_cells(g, cx, cy, cz)) march_cells(g, 0, cx, 0, cy, 0, cz, chunks[b]);
+  });
   return merge_chunks(chunks, out_verts, n_verts, out_faces, n_faces);
 }
 

@@ -11,8 +11,9 @@
 // - warp-level mma.sync m16n8k8 .tf32 with operands split in registers
 //   (split_mma), and mm64, a block-level product over a 64-row tile held in
 //   shared memory with the K-major B operand staged by TMA through a
-//   three-stage swizzled ring, fragments loaded with ldmatrix (K3, K4 and
-//   K5, field_tile.cuh);
+//   three-stage swizzled ring, fragments loaded with ldmatrix (K3-K5,
+//   field_tile.cuh, and K6's two passes; K6's lane contraction streams
+//   both operands through a ring of its own, train_fields.cu);
 // - warpgroup-level wgmma m64n128k8 .tf32 reading 128-byte-swizzled K-major
 //   operands that TMA (cp.async.bulk.tensor) stages, signalled through
 //   mbarriers (K7).
@@ -59,9 +60,9 @@ __device__ __forceinline__ void split_mma(float x, uint32_t& big, uint32_t& smal
 }
 
 // Softplus(beta) and its derivative through the activation h = softplus(z)
-// with the fast exp/log intrinsics: within ~1e-7 of mlp_tile.cuh's
-// softplus_beta / softplus_grad (absolute, over the outputs of a layer),
-// far inside the kernels' 1e-4 gates.
+// (1 - e^{-beta h}) with the fast exp/log intrinsics: within ~1e-7 of
+// mlp_tile.cuh's softplus_beta and of 1 - expf(-beta h) (absolute, over the
+// outputs of a layer), far inside the kernels' 1e-4 gates.
 __device__ __forceinline__ float softplus_fast(float x, float beta, float inv_beta) {
   const float bx = beta * x;
   if (bx > 20.f) return x;
@@ -231,10 +232,12 @@ __host__ __device__ __forceinline__ int stage_floats(int n) {
 
 // Float offset of the 16-byte chunk holding (n, c..c+3), c a multiple of 4,
 // in a [rows][KS] slice that TMA wrote with the KS * 4-byte swizzle: the
-// chunk index is XORed with address bits 7.. (64B: two bits, 32B: one), so
-// the eight rows an ldmatrix phase reads fall in distinct banks.
+// chunk index is XORed with address bits 7.. (128B: three bits, 64B: two,
+// 32B: one), so the eight rows an ldmatrix phase reads fall in distinct
+// banks.
 template <int KS>
 __device__ __forceinline__ int swz(int n, int c) {
+  if (KS == 32) return n * 32 + ((((c >> 2) ^ n) & 7) << 2);
   if (KS == 16) return n * 16 + ((((c >> 2) ^ (n >> 1)) & 3) << 2);
   return n * 8 + ((((c >> 2) ^ (n >> 2)) & 1) << 2);
 }
@@ -406,7 +409,8 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 
   // the epilogue: gather, then compute and store (fragment element e of
   // tile (j, mt) is row t + 8 * (e >> 1), column n + (e & 1))
-  float aux[NJ > 0 ? NJ : 1][kMT][4];
+  using Aux = decltype(pre(0, 0));
+  Aux aux[NJ > 0 ? NJ : 1][kMT][4];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -415,7 +419,7 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
       for (int e = 0; e < 4; ++e) {
         const int n = (grp + kGroups * j) * 8 + 2 * tig + (e & 1);
         const int t = m_base + mt * 16 + gid + 8 * (e >> 1);
-        aux[j][mt][e] = n < N ? pre(t, n) : 0.f;
+        aux[j][mt][e] = n < N ? pre(t, n) : Aux{};
       }
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -431,7 +435,8 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 
 // For t < 64, n < N: epi(t, n, sum_k A[t * lda + k] * B[n][k], pre(t, n)),
 // with 3xTF32 mma.sync.  pre runs for every output before any epi, so its
-// loads are not held behind epi's stores.  A: [64][lda] in shared memory,
+// loads are not held behind epi's stores; it may return any value type
+// (K6's reverse pass gathers two floats).  A: [64][lda] in shared memory,
 // 16-byte aligned, columns [K, K rounded up to 8) zero, lda = act_ld(K or
 // wider).  B (`b`): rows past N in a box are multiplied but never stored,
 // columns past the map's extent read as zeros.  The K slices stream through

@@ -15,8 +15,9 @@
 // 75.57 ms at the training batch, 32 x 2048 points (NVIDIA H100 80GB HBM3,
 // 700.00 W).
 //
-// K6 is four steps per chunk of members, one block per (member, lane tile)
-// in the first two:
+// K6 is four steps per chunk of members, one block of 16 warps per
+// (member, 64-point tile) in the first two, every product on the tensor
+// cores in 3xTF32 (tc_tile.cuh):
 //  - train_bwd_fwd_kernel recomputes the primal h_i and runs the tangent
 //    forward seeded by dG (p_i, kept as q_i = softplus'(z_i) p_i), writing
 //    the per-lane rows [h_i | q_i] of every hidden layer to a scratch;
@@ -33,21 +34,26 @@
 //    write zeros.
 //  - sum_block_partials adds each row's (row biases) or each member's
 //    blocks in a fixed order.
-//  - lane_contract (split-K over the lanes, fixed split) and sum_splits
-//    give dW_i = sum over lanes of zbar_i h_{i-1}^T + pbar_i q_{i-1}^T.
+//  - lane_contract (a fixed split of the lanes) and sum_splits give dW_i =
+//    sum over lanes of zbar_i h_{i-1}^T + pbar_i q_{i-1}^T.
 // No float atomics anywhere: every sum has a fixed order, so results are
-// deterministic run to run.
+// bit-identical run to run.
 //
-// Bounds on this card: K5 tensor-core operations, ~2x the primal
-// multiply-adds (81.8k per point and member at production width) as 3xTF32
-// at 495 TFLOP/s of TF32; K6 fp32 FMA throughput, ~6x.  K6's design:
-// activations stay in shared memory one or two layers at a time (its
-// passes hold four [H][32] buffers, ~101 KB at H = 200, so two blocks fit
-// an SM; the reverse pass reads each weight matrix once for both of its
-// products); the activations the reverse sweep needs travel
-// through the scratch the lane contraction reads anyway (~0.5 GB per member
-// at the production batch, processed in member chunks); weights are read
-// from L2.
+// Bounds on this card: K5 ~2x and K6 ~6x the primal multiply-adds (81.8k
+// per point and member at production width) as 3xTF32 at 495 TFLOP/s of
+// TF32; K6's scratch also moves ~1.6 GB a member at the training batch
+// (1202 rows of 2 x 65536 lanes written, read back and contracted).  K6's
+// design: its passes are field_tile.cuh's parts (mm64 fed by the TMA weight
+// ring, the block-wide bias/softplus pass, fixed-order shuffle trees) over
+// three rotating [64][act_ld(hmax)] activation buffers (four would not fit
+// beside the ring): each hidden layer runs its two products on the same
+// weights, and the reverse epilogues gather what they need of h and q from
+// the scratch through mm64's pre hook.  The scratch is feature-major, so
+// both operands of the contraction are K-major; its blocks own 64 rows by
+// all columns of an output, so each scratch row is read from device memory
+// about once.  Its first design (32-point SIMT blocks reading weights from
+// L2, 64x64 SIMT contraction tiles): 186.44 ms at the training batch, 32 x
+// 2048 points (NVIDIA H100 80GB HBM3, 700.00 W).
 #include "field_tile.cuh"
 
 // Host mirror: nphm_tpu_torch/ops/train_fields.py::_Grads.  Every array is
@@ -64,19 +70,13 @@ struct TrainGrads {
 namespace {
 
 namespace field = nphm::field;
+namespace tc = nphm::tc;
 
-constexpr int kLanes = 32;
-constexpr int kSplitK = 16;
-constexpr int kGemmTile = 64;
-constexpr int kGemmK = 16;
-
-__device__ __forceinline__ void load_lanes(const float* src, int m, int n_ch,
-                                           int64_t M, int64_t p0, float* dst) {
-  const int t = threadIdx.x;
-  if (t < kLanes)
-    for (int c = 0; c < n_ch; ++c)
-      dst[c * kLanes + t] = src[((int64_t)m * n_ch + c) * M + p0 + t];
-}
+constexpr int kSplitK = 32;       // lane splits of the contraction (fixed order)
+constexpr int kPointFloats = 12 * field::kRows;  // per-point values of K6's passes
+constexpr int kCtrSlice = 32;     // lanes per ring slice of the contraction
+constexpr int kCtrStages = 4;     // its TMA ring depth
+constexpr int kCtrRows = tc::kRows;  // output rows a contraction block owns
 
 // K5 is field_tile.cuh's body in mode kTrainFwd (grid and shared memory
 // there): 3xTF32 mma.sync over 64-point tiles of 16 warps, weights staged
@@ -91,26 +91,18 @@ train_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                                     nullptr, M, n_members, cull_tile, act_floats, stage);
 }
 
-// Sum over one block's lanes of feature o of a [H][kLanes] buffer.  Lanes
-// start at a per-feature offset so the threads of a warp hit distinct banks.
-__device__ __forceinline__ float lane_sum(const float* x, int o) {
-  float s = 0.f;
-#pragma unroll 8
-  for (int j = 0; j < kLanes; ++j) s += x[o * kLanes + ((j + o) & (kLanes - 1))];
-  return s;
-}
-
 // Scratch rows of one chunk member, each of length 2M (lanes [0, M) then
 // [M, 2M)): for every hidden product i (0 < i < L-1) its n_out rows
 // [zbar_i | pbar_i] then its n_in rows [h_{i-1} | q_{i-1}]; after them the
-// n_out rows [h_{L-2} | q_{L-2}] of the last hidden layer.
+// n_out rows [h_{L-2} | q_{L-2}] of the last hidden layer.  Feature-major,
+// so the contraction reads both of its operands K-major (lanes contiguous).
 struct ScratchRows {
   int64_t zp[nphm::kMaxLayers];  // first [zbar_i | pbar_i] row of product i
   int64_t hq[nphm::kMaxLayers];  // first [h_i | q_i] row of hidden layer i
   int64_t total;
 };
 
-__device__ __forceinline__ ScratchRows scratch_rows(const nphm::Trunk& tr) {
+__host__ __device__ __forceinline__ ScratchRows scratch_rows(const nphm::Trunk& tr) {
   ScratchRows s;
   const int L = (int)tr.n_layers;
   int64_t r = 0;
@@ -124,137 +116,240 @@ __device__ __forceinline__ ScratchRows scratch_rows(const nphm::Trunk& tr) {
   return s;
 }
 
-// K6, first pass: recompute the primal h_i and run the tangent forward
-// p_i seeded by dG, keeping q_i = softplus'(z_i) p_i; write [h_i | q_i] of
-// every hidden layer to the scratch.  Shared memory holds two layers of h
-// and q (ping-pong).  Culled (member, cull tile) pairs write zero rows.
-__global__ void __launch_bounds__(nphm::kThreads, 2)
-train_bwd_fwd_kernel(nphm::Trunk tr, const float* __restrict__ coords,
-                     const float* __restrict__ dG, const int* __restrict__ active,
-                     float* __restrict__ scr, int64_t M, int n_members,
-                     int cull_tile, int hmax, int m0, int64_t scr_ms) {
-  constexpr int T = kLanes;
+// The [64][ld] point-major tile x (width H) to scratch rows R[o * M2 + off
+// + t], transposed on store: warp w takes features w, w + 16, ..., its
+// lanes points t and t + 32, so each store is 128 contiguous bytes.
+__device__ __forceinline__ void store_rows(const float* x, int ld, int H,
+                                           float* __restrict__ R, int64_t M2, int64_t off) {
+  const int lane = threadIdx.x & 31;
+  for (int o = threadIdx.x >> 5; o < H; o += tc::kMmaWarps) {
+    float* r = R + o * M2 + off;
+    r[lane] = x[lane * ld + o];
+    r[lane + 32] = x[(lane + 32) * ld + o];
+  }
+}
+
+// Zero both halves of H scratch rows over the tile's 64 lanes (culled pairs).
+__device__ __forceinline__ void zero_rows(float* __restrict__ R, int H, int64_t M,
+                                          int64_t p0) {
+  constexpr int T = field::kRows;
+  for (int it = threadIdx.x; it < H * 2 * T; it += blockDim.x) {
+    const int k = it / (2 * T);
+    const int rem = it - k * 2 * T;
+    const int half = rem / T;
+    R[k * 2 * M + half * M + p0 + (rem - half * T)] = 0.f;
+  }
+}
+
+// dst[o * 3 + c] = sum over the tile's 64 points t of z[t][o] xs[c][t] +
+// p[t][o] vs[c][t] (a point-weight gradient): warp per column, its lanes
+// points t and t + 32, each sum closed by a fixed-order shuffle tree.
+__device__ __forceinline__ void point_wgrad(const float* z, const float* p, int ld, int H,
+                                            const float* xs, const float* vs,
+                                            float* __restrict__ dst) {
+  constexpr int T = field::kRows;
+  const int lane = threadIdx.x & 31;
+  for (int o = threadIdx.x >> 5; o < H; o += tc::kMmaWarps) {
+    float s[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = lane + 32 * h;
+      const float zv = z[t * ld + o], pv = p[t * ld + o];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s[c] = fmaf(pv, vs[c * T + t], fmaf(zv, xs[c * T + t], s[c]));
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = field::warp_sum(s[c]);
+      if (lane == 0) dst[o * 3 + c] = v;
+    }
+  }
+}
+
+// K6, first pass, one block per (chunk member, 64-point tile): recompute
+// the primal h_i and run the tangent forward p_i seeded by dG, keeping q_i
+// = softplus'(z_i) p_i, and write [h_i | q_i] of every hidden layer to the
+// scratch.  Each hidden layer runs two 3xTF32 products on the same staged
+// weights: z_i = W_i h_{i-1} (bias, point term and softplus in a block-wide
+// pass) and p_i = W_i q_{i-1} (point term and softplus'(z_i), read through
+// mm64's pre hook, in the epilogue).  Three [64][act_ld(hmax)] buffers
+// rotate: h_i goes to the free one, q_i to the one h_{i-1} vacated.
+// Culled (member, cull tile) pairs write zero rows.
+template <int KS>
+__global__ void __launch_bounds__(field::kThreads, 1)
+train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
+                     const float* __restrict__ coords, const float* __restrict__ dG,
+                     const int* __restrict__ active, float* __restrict__ scr, int64_t M,
+                     int n_members, int cull_tile, int buf_floats, int stage, int m0,
+                     int64_t scr_ms) {
+  constexpr int T = field::kRows;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
   const int skip = (int)tr.skip;
   const float beta = (float)tr.beta;
-  const int c_m = blockIdx.y;
+  const float inv_beta = 1.f / beta;
+  const int c_m = blockIdx.x;
   const int m = m0 + c_m;
-  const int64_t p0 = (int64_t)blockIdx.x * T;
+  const int64_t p0 = (int64_t)blockIdx.y * T;
   const int64_t M2 = 2 * M;
   const int t = threadIdx.x;
   float* sc = scr + (int64_t)c_m * scr_ms;
   const ScratchRows sr = scratch_rows(tr);
 
   if (active[(p0 / cull_tile) * n_members + m] == 0) {
-    for (int i = 0; i < L - 1; ++i) {
-      float* R = sc + sr.hq[i] * M2;
-      for (int it = t; it < (int)tr.n_out[i] * 2 * T; it += blockDim.x) {
-        const int k = it / (2 * T);
-        const int rem = it - k * 2 * T;
-        const int half = rem / T;
-        R[k * M2 + half * M + p0 + (rem - half * T)] = 0.f;
-      }
-    }
+    for (int i = 0; i < L - 1; ++i) zero_rows(sc + sr.hq[i] * M2, (int)tr.n_out[i], M, p0);
     return;
   }
 
-  float* hb[2] = {smem, smem + hmax * T};
-  float* qb[2] = {smem + 2 * hmax * T, smem + 3 * hmax * T};
-  float* xs = smem + 4 * hmax * T;
+  float* xs = smem + 3 * buf_floats;
   float* vs = xs + 3 * T;
   int* rows = reinterpret_cast<int*>(vs + 3 * T);
-  load_lanes(coords, m, 3, M, p0, xs);
-  load_lanes(dG, m, 3, M, p0, vs);
-  if (t < T) rows[t] = (int)((p0 + t) / tr.row_len);
+  tc::Ring ring = field::make_ring(smem + 3 * buf_floats + kPointFloats, stage);
+  if (t < T) {
+    for (int c = 0; c < 3; ++c) {
+      xs[c * T + t] = coords[((int64_t)m * 3 + c) * M + p0 + t];
+      vs[c * T + t] = dG[((int64_t)m * 3 + c) * M + p0 + t];
+    }
+    rows[t] = (int)((p0 + t) / tr.row_len);
+  }
+  field::init_ring(ring);
   __syncthreads();
+  auto fwd = [&](int i) {
+    return tc::Operand{&maps.fwd[i - 1], m * (int)tr.n_out[i], (int)tr.n_in[i],
+                       (int)tr.n_out[i]};
+  };
 
-  for (int i = 0; i < L - 1; ++i) {
-    const int H = (int)tr.n_out[i];
-    float* h = hb[i & 1];
-    float* q = qb[i & 1];
-    const float* b = tr.b[i] + m * tr.b_ms[i];
-    const int64_t brs = tr.b_rs[i];
-    if (i == 0) {
-      const float* w = tr.w[0] + m * tr.w_ms[0];
-      for (int it = t; it < H * T; it += blockDim.x) {
-        const int o = it / T;
-        const int l = it - o * T;
-        float z = w[o * 3] * xs[l];
-        z = fmaf(w[o * 3 + 1], xs[T + l], z);
-        z = fmaf(w[o * 3 + 2], xs[2 * T + l], z);
-        const float hv = nphm::softplus_beta(z + b[rows[l] * brs + o], beta);
-        float p = w[o * 3] * vs[l];
-        p = fmaf(w[o * 3 + 1], vs[T + l], p);
-        p = fmaf(w[o * 3 + 2], vs[2 * T + l], p);
-        h[it] = hv;
-        q[it] = nphm::softplus_grad(hv, beta) * p;
+  // buffer offsets: h_{i-1}, q_{i-1}, free
+  int hb = 0, qb = buf_floats, fb = 2 * buf_floats;
+  {
+    const int H = (int)tr.n_out[0];
+    const int ld = tc::act_ld(H);
+    const float* __restrict__ w = tr.w[0] + m * tr.w_ms[0];
+    const float* __restrict__ b = tr.b[0] + m * tr.b_ms[0];
+    const int64_t brs = tr.b_rs[0];
+    float* h = smem + hb;
+    float* q = smem + qb;
+    for (int it = t; it < H * 4; it += blockDim.x) {
+      const int o = it % H;
+      const int l0 = (it / H) * 16;
+      const float w0 = w[o * 3], w1 = w[o * 3 + 1], w2 = w[o * 3 + 2];
+#pragma unroll 4
+      for (int l = l0; l < l0 + 16; ++l) {
+        float z = w0 * xs[l];
+        z = fmaf(w1, xs[T + l], z);
+        z = fmaf(w2, xs[2 * T + l], z);
+        const float hv = tc::softplus_fast(z + __ldg(b + rows[l] * brs + o), beta, inv_beta);
+        float p = w0 * vs[l];
+        p = fmaf(w1, vs[T + l], p);
+        p = fmaf(w2, vs[2 * T + l], p);
+        h[l * ld + o] = hv;
+        q[l * ld + o] = tc::softplus_grad_fast(hv, beta) * p;
       }
-      __syncthreads();
-    } else {
-      const float* W = tr.w[i] + m * tr.w_ms[i];
-      const float* wp = (i == skip) ? tr.wp + m * tr.wp_ms : nullptr;
-      nphm::tile_mm<T, 8, 4>(W, (int)tr.ldw[i], (int)tr.n_in[i], H, hb[(i - 1) & 1],
-                             [&](int o, int l, float acc) {
-                               if (wp) {
-                                 float p = wp[o * 3] * xs[l];
-                                 p = fmaf(wp[o * 3 + 1], xs[T + l], p);
-                                 p = fmaf(wp[o * 3 + 2], xs[2 * T + l], p);
-                                 acc = acc + p;
-                               }
-                               h[o * T + l] =
-                                   nphm::softplus_beta(acc + b[rows[l] * brs + o], beta);
-                             });
-      __syncthreads();
-      nphm::tile_mm<T, 8, 4>(W, (int)tr.ldw[i], (int)tr.n_in[i], H, qb[(i - 1) & 1],
-                             [&](int o, int l, float acc) {
-                               if (wp) {
-                                 acc = fmaf(wp[o * 3], vs[l], acc);
-                                 acc = fmaf(wp[o * 3 + 1], vs[T + l], acc);
-                                 acc = fmaf(wp[o * 3 + 2], vs[2 * T + l], acc);
-                               }
-                               const int k = o * T + l;
-                               q[k] = nphm::softplus_grad(h[k], beta) * acc;
-                             });
-      __syncthreads();
     }
+    field::zero_pad(h, ld, H);
+    field::zero_pad(q, ld, H);
+    __syncthreads();
+    float* R = sc + sr.hq[0] * M2;
+    store_rows(h, ld, H, R, M2, p0);
+    store_rows(q, ld, H, R, M2, M + p0);
+  }
+
+  for (int i = 1; i < L - 1; ++i) {
+    const int H = (int)tr.n_out[i];
+    const int ld = tc::act_ld(H);
+    const int ldp = tc::act_ld((int)tr.n_out[i - 1]);
+    float* h = smem + fb;    // h_i
+    float* hq = smem + hb;   // h_{i-1}, then q_i
+    const float* qp = smem + qb;  // q_{i-1}
+    const tc::Operand op = fwd(i);
+    const float* __restrict__ wp = i == skip ? tr.wp + m * tr.wp_ms : nullptr;
+    tc::mm64<KS>(hq, ldp, op, &op, ring, [&](int, int) { return 0.f; },
+                 [&](int l, int o, float acc, float) { h[l * ld + o] = acc; });
+    __syncthreads();
+    {
+      const float* __restrict__ b = tr.b[i] + m * tr.b_ms[i];
+      const int64_t brs = tr.b_rs[i];
+      for (int it = t; it < H * 4; it += blockDim.x) {
+        const int o = it % H;
+        const int l0 = (it / H) * 16;
+        float w0 = 0.f, w1 = 0.f, w2 = 0.f;
+        if (wp != nullptr) {
+          w0 = wp[o * 3];
+          w1 = wp[o * 3 + 1];
+          w2 = wp[o * 3 + 2];
+        }
+#pragma unroll 4
+        for (int l = l0; l < l0 + 16; ++l) {
+          float z = h[l * ld + o] + __ldg(b + rows[l] * brs + o);
+          z = fmaf(w0, xs[l], z);
+          z = fmaf(w1, xs[T + l], z);
+          z = fmaf(w2, xs[2 * T + l], z);
+          h[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
+        }
+      }
+      field::zero_pad(h, ld, H);
+      field::zero_pad(hq, ld, H);
+    }
+    __syncthreads();
+    const tc::Operand next = i + 1 < L - 1 ? fwd(i + 1) : tc::Operand{};
+    tc::mm64<KS>(qp, ldp, op, i + 1 < L - 1 ? &next : nullptr, ring,
+                 [&](int l, int o) { return tc::softplus_grad_fast(h[l * ld + o], beta); },
+                 [&](int l, int o, float acc, float g) {
+                   if (wp != nullptr) {
+                     acc = fmaf(__ldg(wp + o * 3), vs[l], acc);
+                     acc = fmaf(__ldg(wp + o * 3 + 1), vs[T + l], acc);
+                     acc = fmaf(__ldg(wp + o * 3 + 2), vs[2 * T + l], acc);
+                   }
+                   hq[l * ld + o] = g * acc;
+                 });
+    __syncthreads();
     float* R = sc + sr.hq[i] * M2;
-    for (int it = t; it < H * T; it += blockDim.x) {
-      const int k = it / T;
-      const int l = it - k * T;
-      R[k * M2 + p0 + l] = h[it];
-      R[k * M2 + M + p0 + l] = q[it];
-    }
+    store_rows(h, ld, H, R, M2, p0);
+    store_rows(hq, ld, H, R, M2, M + p0);
+    const int old_q = qb;
+    qb = hb;
+    hb = fb;
+    fb = old_q;
   }
 }
 
-// K6, second pass: the dual reverse sweep, reading h_i and q_i back from
-// the scratch.  Shared memory holds four [H][T] buffers: (zbar, pbar) of
-// the current layer and of the next one down, swapping roles each layer.  Writes d(coords), the
-// per-block partials and the [zbar_i | pbar_i] rows of every hidden
-// product; culled pairs write zeros.
-__global__ void __launch_bounds__(nphm::kThreads, 2)
-train_bwd_rev_kernel(nphm::Trunk tr, const float* __restrict__ coords,
-                     const float* __restrict__ dF, const float* __restrict__ dG,
-                     const int* __restrict__ active, float* __restrict__ dcoords,
-                     float* __restrict__ part, float* __restrict__ scr, int64_t M,
-                     int n_members, int cull_tile, int hsum, int hmax, int m0,
-                     int n_part, int64_t scr_ms) {
-  constexpr int T = kLanes;
+// K6, second pass, one block per (chunk member, 64-point tile): the dual
+// reverse sweep of phi = <dF, F> + <dG, G>, reading h_i and q_i back:
+//     zbar_i = ubar_i softplus'(z_i) + vbar_i beta e^{-beta h_i} q_i
+//     pbar_i = vbar_i softplus'(z_i)
+//     ubar_{i-1} = W_i^T zbar_i,  vbar_{i-1} = W_i^T pbar_i
+// Each hidden product i runs two 3xTF32 products on the staged W_i^T: vbar
+// first, stored raw in the free buffer, then ubar, whose epilogue gathers
+// h_{i-1} and q_{i-1} from the scratch once (mm64's pre hook) and writes
+// zbar_{i-1} over vbar and pbar_{i-1} into pbar_i's vacated buffer.  The seeds and
+// the head-weight partials read the last layer's scratch rows in one
+// warp-per-column pass; bias partials (tc::colsum64), point-weight partials
+// (point_wgrad) and d(coords) (field::point_grad) close with fixed-order
+// shuffle trees.  Writes d(coords), per-block partials and the [zbar_i |
+// pbar_i] rows of every hidden product; culled pairs write zeros.
+template <int KS>
+__global__ void __launch_bounds__(field::kThreads, 1)
+train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
+                     const float* __restrict__ coords, const float* __restrict__ dF,
+                     const float* __restrict__ dG, const int* __restrict__ active,
+                     float* __restrict__ dcoords, float* __restrict__ part,
+                     float* __restrict__ scr, int64_t M, int n_members, int cull_tile,
+                     int hsum, int buf_floats, int stage, int m0, int n_part, int64_t scr_ms) {
+  constexpr int T = field::kRows;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
   const int skip = (int)tr.skip;
   const float beta = (float)tr.beta;
-  const int c_m = blockIdx.y;
+  const int c_m = blockIdx.x;
   const int m = m0 + c_m;
-  const int64_t blk = blockIdx.x;
-  const int64_t n_blk = gridDim.x;
+  const int64_t blk = blockIdx.y;
   const int64_t p0 = blk * T;
   const int64_t M2 = 2 * M;
   const int t = threadIdx.x;
-  float* pb = part + ((int64_t)c_m * n_blk + blk) * n_part;
+  const int lane = t & 31;
+  float* pb = part + ((int64_t)c_m * gridDim.y + blk) * n_part;
   float* sc = scr + (int64_t)c_m * scr_ms;
   const ScratchRows sr = scratch_rows(tr);
   int boff[nphm::kMaxLayers];  // per-block partial offset of layer i's bias
@@ -275,192 +370,256 @@ train_bwd_rev_kernel(nphm::Trunk tr, const float* __restrict__ coords,
     if (t < T)
       for (int c = 0; c < 3; ++c) dcoords[((int64_t)m * 3 + c) * M + p0 + t] = 0.f;
     for (int o = t; o < n_part; o += blockDim.x) pb[o] = 0.f;
-    for (int i = 1; i < L - 1; ++i) {
-      float* R = sc + sr.zp[i] * M2;
-      for (int it = t; it < (int)tr.n_out[i] * 2 * T; it += blockDim.x) {
-        const int k = it / (2 * T);
-        const int rem = it - k * 2 * T;
-        const int half = rem / T;
-        R[k * M2 + half * M + p0 + (rem - half * T)] = 0.f;
-      }
-    }
+    for (int i = 1; i < L - 1; ++i) zero_rows(sc + sr.zp[i] * M2, (int)tr.n_out[i], M, p0);
     return;
   }
 
-  float* zb = smem;                 // zbar_i
-  float* pbuf = smem + hmax * T;    // pbar_i
-  float* zn = smem + 2 * hmax * T;  // zbar_{i-1}
-  float* pn = smem + 3 * hmax * T;  // pbar_{i-1}
-  float* xs = smem + 4 * hmax * T;
+  float* xs = smem + 3 * buf_floats;
   float* vs = xs + 3 * T;
-  float* us = vs + 3 * T;
-  float* dg = us + T;
-  load_lanes(coords, m, 3, M, p0, xs);
-  load_lanes(dG, m, 3, M, p0, vs);
-  load_lanes(dF, m, 1, M, p0, us);
-  for (int it = t; it < 3 * T; it += blockDim.x) dg[it] = 0.f;
+  float* dg = vs + 3 * T;
+  float* dfs = dg + 3 * T;
+  tc::Ring ring = field::make_ring(smem + 3 * buf_floats + kPointFloats, stage);
+  if (t < T) {
+    for (int c = 0; c < 3; ++c) {
+      xs[c * T + t] = coords[((int64_t)m * 3 + c) * M + p0 + t];
+      vs[c * T + t] = dG[((int64_t)m * 3 + c) * M + p0 + t];
+      dg[c * T + t] = 0.f;
+    }
+    dfs[t] = dF[(int64_t)m * M + p0 + t];
+  }
+  field::init_ring(ring);
+  __syncthreads();
+  auto rev = [&](int i) {
+    return tc::Operand{&maps.rev[i - 1], m * (int)tr.n_in[i], (int)tr.n_out[i],
+                       (int)tr.n_in[i]};
+  };
 
-  // seeds of the last hidden layer: ubar = wlast * dF, vbar = wlast; the
-  // head-weight gradient sums h * dF + q over the block's lanes
+  // buffer offsets: zbar_i, pbar_i, free
+  int zo = 0, po = buf_floats, fo = 2 * buf_floats;
+  // seeds of the last hidden layer (ubar = wlast dF, vbar = wlast) and the
+  // head-weight partial sum over the tile of h dF + q: warp per column
   {
-    const int Lh = L - 2;
-    const int H = (int)tr.n_out[Lh];
-    const float* wl = tr.w[L - 1] + m * tr.w_ms[L - 1];
-    const float* R = sc + sr.hq[Lh] * M2;
-    for (int it = t; it < H * T; it += blockDim.x) {
-      const int k = it / T;
-      const int l = it - k * T;
-      zn[it] = R[k * M2 + p0 + l];
-      zb[it] = R[k * M2 + M + p0 + l];
-    }
-    __syncthreads();
-    for (int o = t; o < H; o += blockDim.x) {
+    const int H = (int)tr.n_out[L - 2];
+    const int ld = tc::act_ld(H);
+    const float* __restrict__ wl = tr.w[L - 1] + m * tr.w_ms[L - 1];
+    const float* R = sc + sr.hq[L - 2] * M2;
+    float* z = smem + zo;
+    float* p = smem + po;
+    for (int o = t >> 5; o < H; o += tc::kMmaWarps) {
+      const float w = __ldg(wl + o);
       float s = 0.f;
-      for (int j = 0; j < T; ++j) {
-        const int l = (j + o) & (T - 1);
-        s = fmaf(zn[o * T + l], us[l], s);
-        s += zb[o * T + l];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int l = lane + 32 * h;
+        const float hv = R[o * M2 + p0 + l];
+        const float qv = R[o * M2 + M + p0 + l];
+        s = fmaf(hv, dfs[l], s) + qv;
+        const float e = __expf(-beta * hv);
+        z[l * ld + o] = w * dfs[l] * (1.f - e) + w * beta * e * qv;
+        p[l * ld + o] = w * (1.f - e);
       }
-      pb[off_wlast + o] = s;
+      s = field::warp_sum(s);
+      if (lane == 0) pb[off_wlast + o] = s;
     }
-    __syncthreads();
-    for (int it = t; it < H * T; it += blockDim.x) {
-      const int o = it / T;
-      const int l = it - o * T;
-      const float e = expf(-beta * zn[it]);
-      const float sp = 1.f - e;
-      const float qv = zb[it];
-      zb[it] = wl[o] * us[l] * sp + wl[o] * beta * e * qv;
-      pbuf[it] = wl[o] * sp;
-    }
+    field::zero_pad(z, ld, H);
+    field::zero_pad(p, ld, H);
     __syncthreads();
   }
 
   for (int i = L - 2; i >= 0; --i) {
     const int H = (int)tr.n_out[i];
-    for (int o = t; o < H; o += blockDim.x) pb[boff[i] + o] = lane_sum(zb, o);
+    const int ld = tc::act_ld(H);
+    float* z = smem + zo;
+    float* p = smem + po;
+    tc::colsum64(z, ld, H, pb + boff[i]);
     if (i == 0 || i == skip) {
-      const float* wp = (i == 0) ? tr.w[0] + m * tr.w_ms[0] : tr.wp + m * tr.wp_ms;
-      float* dst = pb + (i == 0 ? off_wp0 : off_wps);
-      for (int it = t; it < 3 * H; it += blockDim.x) {
-        const int o = it / 3;
-        const int c = it - o * 3;
-        float s = 0.f;
-        for (int j = 0; j < T; ++j) {
-          const int l = (j + o) & (T - 1);
-          s = fmaf(zb[o * T + l], xs[c * T + l], s);
-          s = fmaf(pbuf[o * T + l], vs[c * T + l], s);
-        }
-        dst[it] = s;
-      }
-      for (int it = t; it < 3 * T; it += blockDim.x) {
-        const int c = it / T;
-        const int l = it - c * T;
-        float s = 0.f;
-        for (int o = 0; o < H; ++o) s = fmaf(wp[o * 3 + c], zb[o * T + l], s);
-        dg[it] += s;
-      }
+      point_wgrad(z, p, ld, H, xs, vs, pb + (i == 0 ? off_wp0 : off_wps));
+      field::point_grad(z, ld, H, i == 0 ? tr.w[0] + m * tr.w_ms[0] : tr.wp + m * tr.wp_ms,
+                        dg);
     }
     if (i > 0) {
+      float* R = sc + sr.zp[i] * M2;
+      store_rows(z, ld, H, R, M2, p0);
+      store_rows(p, ld, H, R, M2, M + p0);
       const int Hin = (int)tr.n_in[i];
-      float* Ar = sc + sr.zp[i] * M2;
+      const int ldv = tc::act_ld(Hin);
       const float* Hr = sc + sr.hq[i - 1] * M2;  // [h_{i-1} | q_{i-1}]
-      for (int it = t; it < H * T; it += blockDim.x) {
-        const int o = it / T;
-        const int l = it - o * T;
-        Ar[o * M2 + p0 + l] = zb[it];
-        Ar[o * M2 + M + p0 + l] = pbuf[it];
-      }
-      // ubar_{i-1} = W^T zbar_i and vbar_{i-1} = W^T pbar_i through one read
-      const float* Wt = tr.wt[i] + m * tr.wt_ms[i];
-      nphm::tile_mm2<T, 8, 4>(Wt, (int)tr.ldwt[i], H, Hin, zb, pbuf,
-                              [&](int j, int l, float ub, float vb) {
-                                const int k = j * T + l;
-                                const float hv = Hr[j * M2 + p0 + l];
-                                const float qv = Hr[j * M2 + M + p0 + l];
-                                const float e = expf(-beta * hv);
-                                const float sp = 1.f - e;
-                                zn[k] = ub * sp + vb * beta * e * qv;
-                                pn[k] = vb * sp;
-                              });
-      float* z_old = zb;
-      float* p_old = pbuf;
-      zb = zn;
-      pbuf = pn;
-      zn = z_old;
-      pn = p_old;
+      float* u = smem + fo;  // vbar_{i-1}, then zbar_{i-1}
+      const tc::Operand op = rev(i);
+      field::zero_pad(u, ldv, Hin);
+      tc::mm64<KS>(p, ld, op, &op, ring, [&](int, int) { return 0.f; },
+                   [&](int l, int k, float acc, float) { u[l * ldv + k] = acc; });
+      __syncthreads();
+      field::zero_pad(p, ldv, Hin);  // pbar_i's buffer now takes pbar_{i-1}
+      const tc::Operand next = i > 1 ? rev(i - 1) : tc::Operand{};
+      tc::mm64<KS>(z, ld, op, i > 1 ? &next : nullptr, ring,
+                   [&](int l, int k) {
+                     return make_float2(Hr[k * M2 + p0 + l], Hr[k * M2 + M + p0 + l]);
+                   },
+                   [&](int l, int k, float acc, float2 hq) {
+                     const float e = __expf(-beta * hq.x);
+                     const float vb = u[l * ldv + k];
+                     u[l * ldv + k] = acc * (1.f - e) + vb * beta * e * hq.y;
+                     p[l * ldv + k] = vb * (1.f - e);
+                   });
+      const int old_z = zo;
+      zo = fo;
+      fo = old_z;
     }
     __syncthreads();
   }
   if (t < T)
-    for (int c = 0; c < 3; ++c)
-      dcoords[((int64_t)m * 3 + c) * M + p0 + t] = dg[c * T + t];
+    for (int c = 0; c < 3; ++c) dcoords[((int64_t)m * 3 + c) * M + p0 + t] = dg[c * T + t];
 }
 
-// K6's lane contraction: part[c][s][r][k] = sum over lanes j of split s of
-// A[c][r][j] * B[c][k][j] (rows of length K, lanes contiguous).  One block
-// owns a 64x64 output tile of one split; each thread a 4x4 register tile.
-__global__ void __launch_bounds__(256)
-lane_contract(const float* __restrict__ A, const float* __restrict__ B,
-              float* __restrict__ part, int64_t K, int R, int C, int64_t ms) {
-  __shared__ float As[kGemmK][kGemmTile + 4];
-  __shared__ float Bs[kGemmK][kGemmTile + 4];
-  const int tiles_c = (C + kGemmTile - 1) / kGemmTile;
-  const int r0 = (blockIdx.x / tiles_c) * kGemmTile;
-  const int c0 = (blockIdx.x % tiles_c) * kGemmTile;
+// Floats of one contraction ring stage: a [64][kCtrSlice] slice of the A
+// rows, then a [round8(C)][kCtrSlice] slice of the B rows, rounded up to 1 KB.
+__host__ __device__ __forceinline__ int ctr_stage_floats(int C) {
+  return (kCtrRows * kCtrSlice + ((C + 7) & ~7) * kCtrSlice + 255) & ~255;
+}
+
+// One warp's share of a contraction block: its NJ n8 tiles (grp + 8j) of
+// the C columns over the m16 tiles of its 32 rows, as tc::mm64_warp, with
+// both operands streamed through the ring.
+template <int NJ>
+__device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUtensorMap* mb,
+                                              int row_a, int row_b, int C, int sl0, int n_sl,
+                                              float* buf, int stage, uint64_t* full,
+                                              uint64_t* empty, float* __restrict__ out,
+                                              int r0, int R) {
+  const int warp = threadIdx.x >> 5;
+  const int grp = warp >> 1;
+  const int m_base = (warp & 1) * 32;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const uint32_t bytes = (uint32_t)(kCtrRows + ((C + 7) & ~7)) * kCtrSlice * 4;
+  float acc[NJ > 0 ? NJ : 1][tc::kMT][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int mt = 0; mt < tc::kMT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
+
+  int issued = 0;
+  for (int s = 0; s < n_sl; ++s) {
+    if (threadIdx.x == tc::kProducer) {
+      const int target = s + kCtrStages < n_sl ? s + kCtrStages : n_sl;
+      for (; issued < target; ++issued) {
+        const int st = issued % kCtrStages;
+        if (issued >= kCtrStages) tc::mbar_wait(&empty[st], (issued / kCtrStages - 1) & 1);
+        float* dst = buf + st * stage;
+        tc::mbar_expect_tx(&full[st], bytes);
+        tc::tma_load_2d(dst, ma, &full[st], (sl0 + issued) * kCtrSlice, row_a);
+        tc::tma_load_2d(dst + kCtrRows * kCtrSlice, mb, &full[st], (sl0 + issued) * kCtrSlice,
+                        row_b);
+      }
+    }
+    const int st = s % kCtrStages;
+    tc::mbar_wait(&full[st], (s / kCtrStages) & 1);
+    const float* a = buf + st * stage;
+    const float* b = a + kCtrRows * kCtrSlice;
+    if constexpr (NJ > 0) {
+#pragma unroll
+      for (int kh = 0; kh < kCtrSlice; kh += 16) {
+        // B fragments of 16 lanes: bf[j][2 * (kk / 8) + {0, 1}]
+        uint32_t bf[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          tc::ldsm_x4(bf[j], b + tc::swz<kCtrSlice>((grp + tc::kGroups * j) * 8 + (lane & 7),
+                                                    kh + ((lane >> 3) << 2)));
+#pragma unroll
+        for (int kk = 0; kk < 16; kk += 8) {
+          uint32_t ab[tc::kMT][4], as[tc::kMT][4], bb[NJ][2], bs[NJ][2];
+#pragma unroll
+          for (int mt = 0; mt < tc::kMT; ++mt) {
+            uint32_t r[4];
+            tc::ldsm_x4(r, a + tc::swz<kCtrSlice>(m_base + mt * 16 + (lane & 15),
+                                                  kh + kk + ((lane >> 4) << 2)));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tc::split_mma(r[e], ab[mt][e], as[mt][e]);
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            tc::split_mma(bf[j][kk / 4], bb[j][0], bs[j][0]);
+            tc::split_mma(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int mt = 0; mt < tc::kMT; ++mt) tc::mma_tf32(acc[j][mt], as[mt], bb[j]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int mt = 0; mt < tc::kMT; ++mt) tc::mma_tf32(acc[j][mt], ab[mt], bs[j]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int mt = 0; mt < tc::kMT; ++mt) tc::mma_tf32(acc[j][mt], ab[mt], bb[j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(&empty[st]);
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int mt = 0; mt < tc::kMT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = (grp + tc::kGroups * j) * 8 + 2 * tig + (e & 1);
+        const int r = r0 + m_base + mt * 16 + gid + 8 * (e >> 1);
+        if (n < C && r < R) out[(int64_t)r * C + n] = acc[j][mt][e];
+      }
+}
+
+// K6's lane contraction on the tensor cores: part[c][s][r][k] = sum over
+// the lanes of split s of S[c][row_a + r][j] * S[c][row_b + k][j], for r <
+// R, k < C, with S the scratch of chunk member c ([scr_rows][2M], both
+// operands K-major: lanes contiguous).  One block per (64 output rows,
+// split, member): it owns all C columns (up to tc::kMaxN), so each B row is
+// read from device memory about once and re-read from L2 by the block's
+// neighbours over the other row tiles (row tiles fastest in the grid).
+// Both operands stream by TMA (128-byte swizzle) through a kCtrStages
+// ring, 3xTF32 mma.sync as mm64; the splits' partials are summed in a
+// fixed order by sum_splits.
+__global__ void __launch_bounds__(field::kThreads, 1)
+lane_contract(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+              float* __restrict__ part, int scr_rows, int row_a, int row_b, int R, int C,
+              int n_sl_total, int stage) {
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  float* buf = base + ((1024u - (tc::smem_u32(base) & 1023u)) & 1023u) / sizeof(float);
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf + kCtrStages * stage);
+  uint64_t* empty = full + kCtrStages;
+  const int r0 = blockIdx.x * kCtrRows;
   const int s = blockIdx.y;
   const int c = blockIdx.z;
-  const int64_t seg = K / kSplitK;
-  const int64_t k_begin = s * seg;
-  const float* a = A + c * ms;
-  const float* b = B + c * ms;
-  const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
-  const int lrow = t / 4;
-  const int lk = (t % 4) * 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int64_t k0 = k_begin; k0 < k_begin + seg; k0 += kGemmK) {
-    float4 va = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 vb = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + lrow < R)
-      va = *reinterpret_cast<const float4*>(a + (int64_t)(r0 + lrow) * K + k0 + lk);
-    if (c0 + lrow < C)
-      vb = *reinterpret_cast<const float4*>(b + (int64_t)(c0 + lrow) * K + k0 + lk);
-    As[lk][lrow] = va.x; As[lk + 1][lrow] = va.y;
-    As[lk + 2][lrow] = va.z; As[lk + 3][lrow] = va.w;
-    Bs[lk][lrow] = vb.x; Bs[lk + 1][lrow] = vb.y;
-    Bs[lk + 2][lrow] = vb.z; Bs[lk + 3][lrow] = vb.w;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGemmK; ++kk) {
-      float ar[4], br[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ar[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) br[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+  const int per = (n_sl_total + kSplitK - 1) / kSplitK;
+  const int sl0 = s * per;
+  const int n_sl = sl0 < n_sl_total ? min(per, n_sl_total - sl0) : 0;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kCtrStages; ++k) {
+      tc::mbar_init(&full[k], 1);
+      tc::mbar_init(&empty[k], tc::kMmaWarps);
     }
-    __syncthreads();
+    tc::mbar_fence_init();
   }
+  __syncthreads();
   float* out = part + ((int64_t)c * kSplitK + s) * R * C;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx * 4 + j;
-      if (col < C) out[(int64_t)r * C + col] = acc[i][j];
-    }
+  const int ra = c * scr_rows + row_a + r0;
+  const int rb = c * scr_rows + row_b;
+  const int grp = threadIdx.x >> 6;
+  const int NT = (C + 7) >> 3;
+  const int nj = NT > grp ? (NT - grp + tc::kGroups - 1) / tc::kGroups : 0;
+  switch (nj) {
+    case 0: contract_warp<0>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    case 1: contract_warp<1>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    case 2: contract_warp<2>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    case 3: contract_warp<3>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    default: contract_warp<tc::kNT>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
   }
 }
 
@@ -477,22 +636,12 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
   out[idx] = s;
 }
 
-int bwd_fwd_smem_bytes(int hmax) {
-  constexpr int T = kLanes;
-  return (int)sizeof(float) * (4 * hmax * T + 6 * T + T);
-}
-
-int bwd_rev_smem_bytes(int hmax) {
-  constexpr int T = kLanes;
-  return (int)sizeof(float) * (4 * hmax * T + 10 * T);
-}
-
 unsigned n_grid(int64_t n) { return (unsigned)((n + 255) / 256); }
 
 }  // namespace
 
 extern "C" int nphm_train_fwd_lanes_per_block() { return field::kRows; }
-extern "C" int nphm_train_lanes_per_block() { return kLanes; }
+extern "C" int nphm_train_lanes_per_block() { return field::kRows; }
 extern "C" int nphm_train_split_k() { return kSplitK; }
 
 // coords: [A][3][M]; active: [M / cull_tile][A] -> F [A][M], G [A][3][M].
@@ -514,16 +663,17 @@ extern "C" int nphm_train_fwd(const nphm::Trunk* tr, const float* coords,
 
 // One chunk of members [m0, m0 + n_chunk) of the backward: + dF [A][M],
 // dG [A][3][M] -> dcoords [A][3][M] and every gradient in *g.  Scratch:
-// part [n_chunk][M / kLanes][n_part], scr [n_chunk][scr_rows][2M],
-// gsp [n_chunk][max(kSplitK * max n_out * n_in, n_rows * widest partial
-// group)] (the split-K partials, and first the per-row partial sums).
+// part [n_chunk][M / 64][n_part], scr [n_chunk][scr_rows][2M], gsp
+// [n_chunk][max(kSplitK * max n_out * n_in, n_rows * widest partial
+// group)] (the split partials, and first the per-row partial sums).  M and
+// cull_tile are multiples of 64, each row's lanes of 64; every hidden
+// product is at most tc::kMaxN wide.
 extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
                               const float* coords, const float* dF,
                               const float* dG, const int* active,
                               float* dcoords, float* part, float* scr,
                               float* gsp, int64_t M, int n_members, int n_rows,
-                              int cull_tile, int hsum, int hmax, int m0,
-                              int n_chunk, void* stream) {
+                              int cull_tile, int hsum, int m0, int n_chunk, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int L = (int)tr->n_layers;
   const int skip = (int)tr->skip;
@@ -531,30 +681,28 @@ extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
   const int HS = (int)tr->n_out[skip];
   const int Hl = (int)tr->n_out[L - 2];
   const int n_part = hsum + 3 * H0 + 3 * HS + Hl;
-  int64_t scr_rows = tr->n_out[L - 2];
-  for (int i = 1; i < L - 1; ++i) scr_rows += tr->n_out[i] + tr->n_in[i];
+  const ScratchRows sr = scratch_rows(*tr);
   const int64_t M2 = 2 * M;
-  const int64_t scr_ms = scr_rows * M2;
-  const int64_t n_blk = M / kLanes;
-  if (M2 % ((int64_t)kSplitK * kGemmK) != 0 || M % kLanes != 0 || n_blk % n_rows != 0)
+  const int64_t scr_ms = sr.total * M2;
+  const int64_t n_blk = M / field::kRows;
+  if (M % field::kRows != 0 || cull_tile % field::kRows != 0 || n_blk % n_rows != 0)
     return (int)cudaErrorInvalidValue;
 
-  const int smem_f = bwd_fwd_smem_bytes(hmax);
-  const int smem_r = bwd_rev_smem_bytes(hmax);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_bwd_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_f);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(train_bwd_rev_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_r);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)n_blk, (unsigned)n_chunk);
-  train_bwd_fwd_kernel<<<grid, nphm::kThreads, smem_f, st>>>(
-      *tr, coords, dG, active, scr, M, n_members, cull_tile, hmax, m0, scr_ms);
-  train_bwd_rev_kernel<<<grid, nphm::kThreads, smem_r, st>>>(
-      *tr, coords, dF, dG, active, dcoords, part, scr, M, n_members, cull_tile,
-      hsum, hmax, m0, n_part, scr_ms);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // the two passes: field_tile.cuh's launch sizing with three activation
+  // buffers and K6's per-point values
+  field::Maps maps = {};
+  field::Launch ln;
+  int rc = field::setup(tr, n_members, true, &maps, &ln, 3, kPointFloats);
+  if (rc != 0) return rc;
+  const int buf_floats = ln.act_floats / 3;
+  rc = field::launch(train_bwd_fwd_kernel<16>, train_bwd_fwd_kernel<8>, ln, n_chunk, M,
+                     stream, *tr, maps, coords, dG, active, scr, M, n_members, cull_tile,
+                     buf_floats, ln.stage, m0, scr_ms);
+  if (rc != 0) return rc;
+  rc = field::launch(train_bwd_rev_kernel<16>, train_bwd_rev_kernel<8>, ln, n_chunk, M,
+                     stream, *tr, maps, coords, dF, dG, active, dcoords, part, scr, M,
+                     n_members, cull_tile, hsum, buf_floats, ln.stage, m0, n_part, scr_ms);
+  if (rc != 0) return rc;
 
   // small gradients from the per-block partials: row biases sum each row's
   // blocks; the rest sum each row's blocks into gsp, then the rows
@@ -579,25 +727,34 @@ extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
   per_member(hsum, 3 * H0, g->dwp0 + (int64_t)m0 * 3 * H0);
   per_member(hsum + 3 * H0, 3 * HS, g->dwps + (int64_t)m0 * 3 * HS);
   per_member(hsum + 3 * H0 + 3 * HS, Hl, g->dwlast + (int64_t)m0 * Hl);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   // hidden weight gradients: contract the scratch over the lanes
-  int64_t r = 0;
+  int cmax = 8;
+  for (int i = 1; i < L - 1; ++i) cmax = tr->n_in[i] > cmax ? (int)tr->n_in[i] : cmax;
+  const int smem = 4 * kCtrStages * ctr_stage_floats(cmax) + 1024 + 16 * kCtrStages;
+  err = cudaFuncSetAttribute(lane_contract, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)n_chunk * sr.total;
+  const int n_sl = (int)((M2 + kCtrSlice - 1) / kCtrSlice);
+  CUtensorMap ma, mb;
+  rc = tc::make_map(&ma, scr, (int)M2, rows, (int)M2, kCtrSlice, kCtrRows);
+  if (rc != 0) return rc;
   for (int i = 1; i < L - 1; ++i) {
     const int R = (int)tr->n_out[i];
     const int C = (int)tr->n_in[i];
-    const float* A = scr + r * M2;
-    const float* B = A + (int64_t)R * M2;
-    const int tiles = ((R + kGemmTile - 1) / kGemmTile) * ((C + kGemmTile - 1) / kGemmTile);
-    lane_contract<<<dim3((unsigned)tiles, kSplitK, (unsigned)n_chunk), 256, 0, st>>>(
-        A, B, gsp, M2, R, C, scr_ms);
-    const int64_t rc = (int64_t)R * C;
-    sum_splits<<<n_grid(n_chunk * rc), 256, 0, st>>>(gsp, g->dw[i] + (int64_t)m0 * rc,
-                                                     n_chunk, rc);
+    rc = tc::make_map(&mb, scr, (int)M2, rows, (int)M2, kCtrSlice, (C + 7) & ~7);
+    if (rc != 0) return rc;
+    const dim3 grid((unsigned)((R + kCtrRows - 1) / kCtrRows), kSplitK, (unsigned)n_chunk);
+    lane_contract<<<grid, field::kThreads, smem, st>>>(ma, mb, gsp, (int)sr.total,
+                                                       (int)sr.zp[i], (int)sr.hq[i - 1], R, C,
+                                                       n_sl, ctr_stage_floats(C));
+    const int64_t rc_el = (int64_t)R * C;
+    sum_splits<<<n_grid(n_chunk * rc_el), 256, 0, st>>>(gsp, g->dw[i] + (int64_t)m0 * rc_el,
+                                                        n_chunk, rc_el);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    r += R + C;
   }
   return 0;
 }

@@ -1,7 +1,8 @@
-"""Time the fit kernels K3/K4, or the training forward K5, of two checkouts on
-one card, in turns.
+"""Time the fit kernels K3/K4, the training forward K5 or the training
+backward K6 of two checkouts on one card, in turns.
 
-    python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B [--kernels fit|train] [--order ABBA]
+    python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B [--kernels fit|train|train_bwd]
+        [--order ABBA]
 
 Each turn runs in a fresh process from one checkout: that checkout's
 ``chip_smoke.py`` builds its kernels (``device_and_build``) and the NPHM
@@ -14,7 +15,11 @@ models (``build_models``), then
   points, padded to 2048, no culling), through ``member_fields`` under
   ``no_grad``, held once against ``member_fields_plain`` and timed with
   CUDA events; no backward runs, so the turn stays far below the ~55 GiB
-  peak of ``check_k5_k6``'s plain double backward.
+  peak of ``check_k5_k6``'s plain double backward;
+- ``--kernels train_bwd``: K6 at the same shapes, one
+  ``torch.autograd.grad`` of <dF, F> + <dG, G> through ``member_fields``
+  (random dF, dG) w.r.t. every operand and the coordinates, timed with CUDA
+  events; no plain version runs.
 
 Its rows print as one ``ROWS {...}`` JSON line; the summary gives each
 checkout's mean kernel times and the ratio A / B.  Comparing two versions is
@@ -44,10 +49,12 @@ c.check_k3_k4(shape, params, gen, dev, rows)
 print("ROWS " + json.dumps(rows), flush=True)
 """
 
-_TRAIN = """
+# the training batch of check_k5_k6 (B = 32 rows x 1693 points padded to
+# 2048, no culling): coords, the folded operands and the cull mask
+_TRAIN_INPUTS = """
 from nphm_tpu_torch.models.ensemble import mirror_scale, predict_anchors
 from nphm_tpu_torch.ops.fit_fields import active_mask, prepare_train_operands
-from nphm_tpu_torch.ops.train_fields import member_fields, member_fields_plain
+from nphm_tpu_torch.ops.train_fields import _flat, _unflat, member_fields, member_fields_plain
 
 cfg, B, tile, A = shape.cfg, 32, 512, shape.cfg.n_members
 xyz = torch.tensor(c.train_batch(B, c.SEED + 4), device=dev)
@@ -62,6 +69,10 @@ with torch.no_grad():
     coords = coords.permute(2, 3, 0, 1).reshape(A, 3, B * Np).contiguous()
     layers, _ = prepare_train_operands(params, cfg, lat)
     active = active_mask(cfg, coords, tile, 0.0)
+"""
+
+_TRAIN = _TRAIN_INPUTS + """
+with torch.no_grad():
     F, G = member_fields(cfg, layers, coords, active, tile, B)
 Fp, Gp = member_fields_plain(cfg, layers, coords, active, tile, B)
 err = max(float((F - Fp).abs().max()), float((G - Gp).detach().abs().max()))
@@ -74,14 +85,28 @@ print(f"[K5] M={{B}}x{{Np}}: kernel {{ms:.3f}} ms; F, G max|err| {{err:.3e}} vs 
 print("ROWS " + json.dumps({{"train_fwd": {{"ms": ms, "max_abs_err": err}}}}), flush=True)
 """
 
-KERNELS = {"fit": (_FIT, ("fit_fwd", "fit_bwd")), "train": (_TRAIN, ("train_fwd",))}
+_TRAIN_BWD = _TRAIN_INPUTS + """
+flat = [t.detach().clone().requires_grad_(True) for t in _flat(cfg, layers)]
+coords.requires_grad_(True)
+ins = flat + [coords]
+dF = torch.randn((A, B * Np), generator=gen).to(dev)
+dG = torch.randn((A, 3, B * Np), generator=gen).to(dev)
+F, G = member_fields(cfg, _unflat(cfg, flat), coords, active, tile, B)
+phi = (F * dF).sum() + (G * dG).sum()
+ms = c.cuda_ms(lambda: torch.autograd.grad(phi, ins, retain_graph=True), 5)
+print(f"[K6] M={{B}}x{{Np}}: kernel {{ms:.3f}} ms", flush=True)
+print("ROWS " + json.dumps({{"train_bwd": {{"ms": ms}}}}), flush=True)
+"""
+
+KERNELS = {"fit": (_FIT, ("fit_fwd", "fit_bwd")), "train": (_TRAIN, ("train_fwd",)),
+           "train_bwd": (_TRAIN_BWD, ("train_bwd",))}
 
 
 def run_turn(root: str, body: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", (_HEAD + body).format(root=root)],
                           cwd=root, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[K3]", "[K4]", "[K5]")):
+        if line.startswith(("[K3]", "[K4]", "[K5]", "[K6]")):
             print(f"  {line}", flush=True)
         if line.startswith("ROWS "):
             return json.loads(line[5:])

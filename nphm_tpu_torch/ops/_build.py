@@ -4,7 +4,7 @@ Every source compiles with its own ``nvcc`` process, all started together,
 and the objects link into one shared library with a plain C interface, at
 first use, into ``nphm_tpu_torch/_build/`` (git-ignored), and again whenever
 a source is newer than the library.  No library beyond the CUDA runtime is
-linked: the TMA descriptors of K3-K5 and K7 reach the driver through the
+linked: the TMA descriptors of K3-K7 reach the driver through the
 runtime's entry-point query.  The library is loaded with ``ctypes``: every
 pointer and the stream travel as ``c_void_p``, every entry point returns
 ``cudaGetLastError()`` and ``check`` raises on a non-zero code.  Nothing is
@@ -89,7 +89,7 @@ _SIGNATURES = {
     ],
     "nphm_train_bwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-        _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
+        _i32, _i32, _i32, _i32, _i32, _i32, _vp,
     ],
     "nphm_trunk_layer": [
         _vp, _vp, _i32, _i32, _vp, _vp, _i32, _vp, _i32, _vp, _vp, _vp, _vp, _i32,

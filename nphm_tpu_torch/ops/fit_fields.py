@@ -47,7 +47,7 @@ from nphm_tpu_torch.ops import _build
 SQRT2 = 1.4142135623730951
 DEFAULT_TILE = 512  # cull-tile size (points sharing one member predicate)
 K_STEP = 8  # the MMA's K step: weight rows are padded to a multiple of it
-MAX_WIDTH = 256  # csrc/tc_tile.cuh kMaxN: the widest product of K3-K5
+MAX_WIDTH = 256  # csrc/tc_tile.cuh kMaxN: the widest product of K3-K6
 FIT_LANES = 64  # points per K3/K4 block: csrc/tc_tile.cuh kRows
 CULL_EPS_TRAIN = 0.0
 
@@ -245,9 +245,9 @@ class _MemberF(torch.autograd.Function):
 
 
 def check_widths(layers):
-    """Raise unless every hidden product fits the tensor-core tile (K3-K5)."""
+    """Raise unless every hidden product fits the tensor-core tile (K3-K6)."""
     if max(max(lay["w"].shape[1:]) for lay in layers[1:-1]) > MAX_WIDTH:
-        raise ValueError(f"K3-K5 take hidden layers at most {MAX_WIDTH} wide")
+        raise ValueError(f"K3-K6 take hidden layers at most {MAX_WIDTH} wide")
 
 
 def member_f(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: int):

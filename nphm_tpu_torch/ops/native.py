@@ -64,6 +64,42 @@ def get_lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
             ctypes.POINTER(ctypes.c_int64),
         ]
+        lib.nphm_marching_tets_window.restype = ctypes.c_int
+        lib.nphm_marching_tets_window.argtypes = [
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_float,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.nphm_marching_tets_blocks.restype = ctypes.c_int
+        lib.nphm_marching_tets_blocks.argtypes = [
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_float,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
         lib.nphm_free.restype = None
         lib.nphm_free.argtypes = [ctypes.c_void_p]
         _LIB = lib

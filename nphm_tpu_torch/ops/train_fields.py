@@ -15,9 +15,10 @@ biases (``fit_fields.prepare_train_operands``):
 - K6 (backward, the custom VJP) takes the cotangents (dF, dG), recomputes
   the primal, runs the tangent forward seeded by dG and the dual reverse
   sweep with the softplus'' cross terms, and returns d(coords) and the
-  gradient of every per-member operand.  Its lane-summed weight gradients
-  come from a second hand-written kernel that contracts per-lane
-  cotangents and inputs over the lanes in a fixed order.
+  gradient of every per-member operand: two passes over 64-point tiles on
+  K5's tensor-core parts, then a 3xTF32 tensor-core contraction of the
+  per-lane cotangents and inputs over the lanes, split in a fixed order,
+  for the hidden weight gradients.
 
 Symmetric sharing, mirroring, the head bias and the Gaussian blend stay in
 torch, where autograd provides every derivative around the boundary.
@@ -49,11 +50,11 @@ from nphm_tpu_torch.ops.fit_fields import (
 )
 
 # K6's per-lane scratch (activations, tangents and cotangents of every
-# hidden layer, ~0.5 GB per member at the production batch) is processed
+# hidden layer, ~0.63 GB per member at the production batch) is processed
 # in member chunks that fit this budget.
 SCRATCH_BYTES = 4 << 30
 FWD_LANES = 64  # points per K5 block: csrc/tc_tile.cuh kRows
-BWD_LANES = 32  # points per block of K6's two passes: csrc/train_fields.cu kLanes
+BWD_LANES = 64  # points per block of K6's two passes: csrc/tc_tile.cuh kRows
 
 
 def _flat(cfg: NPHMConfig, layers):
@@ -124,7 +125,7 @@ class _MemberFields(torch.autograd.Function):
         lib = _build.lib()
         A, _, M = coords.shape
         layers = _unflat(cfg, [t.detach() for t in flat])
-        tr, keep, hmax, hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows)
+        tr, keep, _hmax, hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows)
         coords_c = coords.detach().contiguous()
         _build.require_cuda_f32(coords_c, *keep)
         _build.require_mask(active, (M // tile, A), coords.device)
@@ -137,7 +138,7 @@ class _MemberFields(torch.autograd.Function):
         _build.check(rc, "nphm_train_fwd")
         member_fields.launches += 1
         ctx.save_for_backward(coords_c)
-        ctx.train = (cfg, tr, keep, active, tile, n_rows, hmax, hsum,
+        ctx.train = (cfg, tr, keep, active, tile, n_rows, hsum,
                      [tuple(t.shape) for t in flat])
         return F, G
 
@@ -145,7 +146,7 @@ class _MemberFields(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dF, dG):
         (coords,) = ctx.saved_tensors
-        cfg, tr, keep, active, tile, n_rows, hmax, hsum, flat_shapes = ctx.train
+        cfg, tr, keep, active, tile, n_rows, hsum, flat_shapes = ctx.train
         lib = _build.lib()
         dev = coords.device
         A, _, M = coords.shape
@@ -187,7 +188,7 @@ class _MemberFields(torch.autograd.Function):
             rc = lib.nphm_train_bwd(
                 ctypes.byref(tr), ctypes.byref(g), coords.data_ptr(), dF.data_ptr(),
                 dG.data_ptr(), active.data_ptr(), dcoords.data_ptr(), part.data_ptr(),
-                scr.data_ptr(), gsp.data_ptr(), M, A, n_rows, tile, hsum, hmax, m0,
+                scr.data_ptr(), gsp.data_ptr(), M, A, n_rows, tile, hsum, m0,
                 min(chunk, A - m0), stream,
             )
             _build.check(rc, "nphm_train_bwd")

@@ -145,6 +145,59 @@ def test_3xtf32_split_holds_fp32_accuracy_at_k3_k4_k5_shapes(kind, k, n):
     assert err1 > 1e-5 * scale
 
 
+# K6's products by the kind of their A operand: "tan" the tangent forward's
+# q_{i-1} = softplus'(z) p, "dual" the dual reverse sweep's zbar_i =
+# ubar softplus' + vbar beta e^{-beta h} q, each over a 64-point tile
+# against the layer's weights (k x n); "lane" the lane contraction of k
+# [zbar | pbar] scratch rows against n [h | q] rows over 4096 lanes (half
+# of them the h and zbar halves, half the q and pbar ones).
+K6_PRODUCTS = [
+    ("tan", 200, 101), ("tan", 101, 200), ("tan", 200, 200),
+    ("dual", 200, 200), ("dual", 200, 101), ("dual", 101, 200),
+    ("lane", 101, 200), ("lane", 200, 101), ("lane", 200, 200),
+]
+
+
+@pytest.mark.parametrize("kind,k,n", K6_PRODUCTS)
+def test_3xtf32_split_holds_fp32_accuracy_at_k6_shapes(kind, k, n):
+    """K6's products in plain PyTorch, with the in-register split of its
+    tensor-core passes and contraction (the small half truncated by the
+    tensor core): 3xTF32 within 1e-5 of the product's magnitude against
+    float64; one TF32 pass misses that bound."""
+    from nphm_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
+
+    rng = np.random.default_rng(k * 1000 + n + {"tan": 11, "dual": 13, "lane": 17}[kind])
+
+    def softplus_h(shape):
+        return np.log1p(np.exp(2.0 * rng.normal(size=shape)))
+
+    def cot(shape, fan):
+        return rng.normal(size=shape) * rng.uniform(0, 1, size=shape) / np.sqrt(fan)
+
+    if kind == "lane":
+        lanes = 4096
+        a = np.concatenate([cot((k, lanes // 2), k), cot((k, lanes // 2), k)], axis=1)
+        q = (1.0 - np.exp(-softplus_h((n, lanes // 2)))) * rng.normal(size=(n, lanes // 2))
+        b = np.concatenate([softplus_h((n, lanes // 2)), q], axis=1).T
+    else:
+        h = softplus_h((64, k))
+        e = np.exp(-h)
+        if kind == "tan":
+            a = (1.0 - e) * rng.normal(size=(64, k))
+        else:
+            q = (1.0 - e) * rng.normal(size=(64, k))
+            a = cot((64, k), k) * (1.0 - e) + cot((64, k), k) * e * q
+        b = rng.uniform(-1, 1, size=(k, n)) / np.sqrt(k)
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(ref).max()
+    a_t, b_t = torch.tensor(a), torch.tensor(np.ascontiguousarray(b))
+    err3 = np.abs(matmul_3xtf32(a_t, b_t, small="trunc").numpy() - ref).max()
+    err1 = np.abs(matmul_tf32(a_t, b_t).numpy() - ref).max()
+    assert err3 <= 1e-5 * scale
+    assert err1 > 1e-5 * scale
+
+
 def test_head_dot_fixed_order_at_k3_k5_tile():
     """K3's and K5's head product F[t] = sum_o h[t][o] wlast[o] in
     field_tile.cuh's order (fp32 FMAs, lane j summing o = j, j + 32, ...,

@@ -119,14 +119,17 @@ def test_k3_k4_tiny_widths(device, hidden, n_pts):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
 
-@pytest.mark.parametrize("hidden,n_pts", [(16, 700), (72, 1000), (200, 700)])
+@pytest.mark.parametrize("hidden,n_pts", [(16, 700), (36, 1000), (72, 1000), (200, 700),
+                                          (200, 1000)])
 @pytest.mark.parametrize("cull_eps", [0.0, 1e-10])
 def test_k5_k6_tiny_widths(device, hidden, n_pts, cull_eps):
     """apply_nphm_train through K5/K6 vs its plain version: outputs and the
     gradient of a loss over (sdf, grads) w.r.t. params, lat and xyz, at
-    hidden widths that are not multiples of K5's 16-wide K slice or 8-wide
-    MMA tiles, and rows of points that are not multiples of its 64-point
-    tile (padded inside the 512-point cull tile)."""
+    hidden widths that are not multiples of the 16-wide K slice of K5's and
+    K6's passes or of their 8-wide MMA tiles (36 and the layer before the
+    skip are not even multiples of 8), of K6's 64-row contraction tiles or
+    its 32-lane slices, and rows of points that are not multiples of the
+    64-point tile (padded inside the 512-point cull tile)."""
     shape, params, gen = tiny_shape(device, hidden)
     xyz = (torch.randn((3, n_pts, 3), generator=gen) * 0.3).to(device)
     lat = (torch.randn((3, shape.lat_dim), generator=gen) * 0.1).to(device)
@@ -151,6 +154,65 @@ def test_k5_k6_tiny_widths(device, hidden, n_pts, cull_eps):
         out[name] = (sdf.detach(), g.detach()) + tuple(grads)
     for a, b in zip(out["kernel"], out["plain"]):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
+
+
+def k6_case(device, hidden, cull_eps, B=3, n_pts=1000, tile=512):
+    """Member-fields inputs as apply_nphm_train builds them, with random
+    cotangents (dF, dG): (cfg, flat operands, coords, active, tile, B, dF, dG)."""
+    shape, params, gen = tiny_shape(device, hidden)
+    cfg = shape.cfg
+    xyz = (torch.randn((B, n_pts, 3), generator=gen) * 0.3).to(device)
+    if cull_eps > 0:
+        perm = torch.argsort(ff.morton_codes(xyz), dim=1, stable=True)
+        xyz = torch.gather(xyz, 1, perm[..., None].expand(B, n_pts, 3))
+    Np = -(-n_pts // tile) * tile
+    xyz = torch.cat([xyz, xyz[:, -1:].expand(B, Np - n_pts, 3)], dim=1)
+    lat = (torch.randn((B, shape.lat_dim), generator=gen) * 0.1).to(device)
+    with torch.no_grad():
+        anchors = predict_anchors(params, cfg, lat)
+        centers = torch.cat([anchors, torch.zeros_like(anchors[:, :1])], dim=1)
+        coords = (xyz[:, :, None] - centers[:, None]) * mirror_scale(cfg, device)
+        coords = coords.permute(2, 3, 0, 1).reshape(cfg.n_members, 3, -1).contiguous()
+        layers, _ = ff.prepare_train_operands(params, cfg, lat)
+        active = ff.active_mask(cfg, coords, tile, cull_eps)
+    flat = [t.detach().clone().requires_grad_(True) for t in trf._flat(cfg, layers)]
+    coords.requires_grad_(True)
+    dF = torch.randn(coords[:, 0].shape, generator=gen).to(device)
+    dG = torch.randn(coords.shape, generator=gen).to(device)
+    return cfg, flat, coords, active, tile, B, dF, dG
+
+
+def k6_grads(fn, cfg, flat, coords, active, tile, B, dF, dG):
+    """d(<dF, F> + <dG, G>) w.r.t. every operand and the coordinates."""
+    F, G = fn(cfg, trf._unflat(cfg, flat), coords, active, tile, B)
+    return torch.autograd.grad((F * dF).sum() + (G * dG).sum(), flat + [coords])
+
+
+def test_k6_member_chunks(device, monkeypatch):
+    """K6 with its scratch budget cut to one member a chunk (39 + 1 chunks)
+    gives the gradients of one chunk bit for bit (each member's sums have
+    the same fixed order), and both match the plain version."""
+    case = k6_case(device, 200, 1e-10)
+    whole = k6_grads(trf.member_fields, *case)
+    before = trf.member_fields.bwd_launches
+    monkeypatch.setattr(trf, "SCRATCH_BYTES", 1)
+    chunked = k6_grads(trf.member_fields, *case)
+    assert trf.member_fields.bwd_launches == before + 1
+    plain = k6_grads(trf.member_fields_plain, *case)
+    for a, b, p in zip(whole, chunked, plain):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, p, atol=1e-4 * float(p.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("cull_eps", [0.0, 1e-10])
+def test_k6_is_bit_identical_run_to_run(device, cull_eps):
+    """Two K6 calls on the same inputs give the same gradients bit for bit:
+    no float atomics, every sum in a fixed order."""
+    case = k6_case(device, 200, cull_eps, B=4)
+    first = k6_grads(trf.member_fields, *case)
+    for _ in range(2):
+        again = k6_grads(trf.member_fields, *case)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_k5_culled_pairs_write_zero(device):

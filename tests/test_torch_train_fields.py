@@ -206,10 +206,11 @@ def test_fit_through_training_field_matches_plain_fit(models):
 
 def test_lanes_per_block_match_csrc():
     """The points a block that the wrappers check tiles against are the
-    sources' own: K3, K4 and K5 run tc::kRows-point blocks
-    (csrc/field_tile.cuh, reported by nphm_fit_lanes_per_block and
-    nphm_train_fwd_lanes_per_block), K6's two passes kLanes-point blocks
-    (csrc/train_fields.cu, nphm_train_lanes_per_block)."""
+    sources' own: K3, K4, K5 and K6's two passes run tc::kRows-point blocks
+    launched by field_tile.cuh's launch over (members, M / kRows) tiles
+    (reported by nphm_fit_lanes_per_block, nphm_train_fwd_lanes_per_block
+    and nphm_train_lanes_per_block), and K6 sizes its per-block partials
+    from the same count."""
     import os
     import re
 
@@ -226,11 +227,12 @@ def test_lanes_per_block_match_csrc():
     assert "nphm_fit_lanes_per_block() { return field::kRows; }" in read("fit_fields.cu")
     train = read("train_fields.cu")
     assert "nphm_train_fwd_lanes_per_block() { return field::kRows; }" in train
-    assert "nphm_train_lanes_per_block() { return kLanes; }" in train
-    lanes = int(re.search(r"constexpr int kLanes = (\d+);", train).group(1))
-    assert ff.FIT_LANES == tf.FWD_LANES == rows == 64
-    assert tf.BWD_LANES == lanes == 32
-    assert ff.DEFAULT_TILE % rows == 0 and ff.DEFAULT_TILE % lanes == 0
+    assert "nphm_train_lanes_per_block() { return field::kRows; }" in train
+    for kernel in ("train_bwd_fwd_kernel", "train_bwd_rev_kernel"):
+        assert f"field::launch({kernel}<16>, {kernel}<8>, ln, n_chunk, M," in train
+    assert "const int64_t n_blk = M / field::kRows;" in train
+    assert ff.FIT_LANES == tf.FWD_LANES == tf.BWD_LANES == rows == 64
+    assert ff.DEFAULT_TILE % rows == 0
 
 
 def test_tensor_core_width_limit(models):
