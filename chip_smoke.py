@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
 
 1. Device and build: require CUDA, print the card's name and power limit,
    build every kernel from ``nphm_tpu_torch/csrc`` with nvcc (the SASS of
-   the product kernels of K3-K7 must hold tensor-core instructions),
+   the product kernels of K1-K7 must hold tensor-core instructions),
    and the host marching library from ``csrc`` (so phase 4 times
    marching, not its build).
 2. Models at production dims: the NPHM ensemble of ``configs/nphm.yaml``
@@ -19,12 +19,15 @@ Phases, in order; any failure exits non-zero:
 3. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with its tolerance, both timed with CUDA events, and its
    bound (the least time the card could take for the same work) computed
-   from the inputs of the timed run: fp32 operations for the SIMT kernels,
-   3xTF32 tensor-core operations for K3-K7.  Each is also
-   timed against the PyTorch calls cuBLAS would run for its products
-   (``library_ms``): one ``torch.addmm`` per layer for K7, one
-   ``torch.baddbmm`` per layer and pass over the member axis for K1 and
-   K3-K6 (K2, an iterative search, has none).
+   from the inputs of the timed run: 3xTF32 tensor-core operations (their
+   fp32 figure in the log).  Each is also timed against the PyTorch calls
+   cuBLAS would run for its products (``library_ms``): one ``torch.addmm``
+   per layer for K7, one ``torch.baddbmm`` per layer and pass over the
+   member axis for K1 and K3-K6.  K2, an iterative search, has none; the
+   log gives an ``addmm`` chain over as many trunk evaluations as its timed
+   search ran, for information.  K1 and K2 are also timed at the shapes the
+   main paths launch them at (the res-256 grid; the warm budget and a hard
+   trunk), and two calls of K1, K2 and K6 must be bit-identical.
 4. The fit-and-extract path through the port's entry points: ``fit_joint``
    on synthetic single-view observations, ``extract_mesh`` at res 256,
    ``deform_mesh_batch`` over the fitted expressions and one PLY export.
@@ -63,8 +66,9 @@ EXTRACT_RES = 256
 K7_GRID_POINTS = 1 << 20  # K7's check (a): points of the res-256 grid
 K7_MESH_POINTS = 1 << 19  # checks (b), (c): points of a warped sphere
 
-# Tolerances of kernel vs plain version (fp32 both; only summation order
-# and FMA contraction differ, amplified through 4-7 layers).
+# Tolerances of kernel vs plain version (the kernels' 3xTF32 products keep
+# ~2^-21 of each fp32 product; otherwise summation order and FMA
+# contraction differ, amplified through 4-7 layers).
 TOL_K1 = 1e-4  # SDF, absolute
 TOL_K2_X = 1e-4  # roots, absolute, lanes valid in both
 TOL_K2_J = 1e-2  # J^-1 entries, absolute, lanes valid in both (secant divides)
@@ -92,15 +96,17 @@ TOL_TRAIN_TERMS = 1e-4  # loss terms, relative
 TOL_K7 = 1e-4
 
 # Card peaks for the bound (published H100 SXM figures at 700 W, dense):
-# fp32 outside the tensor cores (K1, K2: fp32 SIMT), TF32 on the tensor
-# cores (K3-K7: 3xTF32, three TF32 products per fp32 product), HBM3.
+# TF32 on the tensor cores (K1-K7: 3xTF32, three TF32 products per fp32
+# product), fp32 outside them (the figure each bound is logged beside), HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_S = 3.35e12
 # Kernels whose products run as 3xTF32 on the tensor cores, and the kernel
 # functions (mangled-name fragments) whose SASS must hold HMMA/HGMMA: each
 # of K6's product kernels (its fixed-order sums run no product).
-TENSOR_CORE_KERNELS = {"fit_fwd": ("fit_fwd_kernel",), "fit_bwd": ("fit_bwd_kernel",),
+TENSOR_CORE_KERNELS = {"ensemble_sdf": ("ensemble_sdf_kernel",),
+                       "broyden_search": ("broyden_search_kernel",),
+                       "fit_fwd": ("fit_fwd_kernel",), "fit_bwd": ("fit_bwd_kernel",),
                        "train_fwd": ("train_fwd_kernel",),
                        "train_bwd": ("train_bwd_fwd_kernel", "train_bwd_rev_kernel",
                                      "lane_contract"),
@@ -137,13 +143,12 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def bound(flops: float, nbytes: float, tf32x3: bool = False) -> dict:
+def bound(flops: float, nbytes: float) -> dict:
     """The least time the card could take: the larger of the operations over
-    the peak of the units that run them and the bytes (each input read once,
-    each output written once) over the memory rate.  flops counts fp32
-    multiply-adds as 2; a 3xTF32 kernel runs three TF32 products for each,
-    on the tensor cores."""
-    t_ops = (3.0 * flops / PEAK_TF32_FLOPS if tf32x3 else flops / PEAK_FP32_FLOPS) * 1e3
+    the tensor cores' peak and the bytes (each input read once, each output
+    written once) over the memory rate.  flops counts fp32 multiply-adds as
+    2; a 3xTF32 kernel runs three TF32 products for each."""
+    t_ops = 3.0 * flops / PEAK_TF32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -343,6 +348,11 @@ def observations(n_obs: int, n_pts: int, seed: int):
 
 
 def check_k1(shape, params, gen, device, rows):
+    """K1 against its plain version on the 64^3 brick grid and on 256k
+    random points, culling on and off; timed on the 64^3 grid (the table's
+    row, beside its plain version and the ``baddbmm`` chain) and on the
+    res-256 extraction grid, K1's launch on the main paths (too large for
+    the plain version and the chain: not measured there)."""
     import torch
 
     from nphm_tpu_torch.ops.ensemble import (
@@ -364,6 +374,7 @@ def check_k1(shape, params, gen, device, rows):
     err = 0.0
     for eps in (CULL_EPS, 0.0):
         a = nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64, cull_eps=eps)
+        a2 = nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64, cull_eps=eps)
         b = nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64, cull_eps=eps,
                           sdf_fn=nphm_sdf_plain)
         e_grid = float((a - b).abs().max())
@@ -372,27 +383,41 @@ def check_k1(shape, params, gen, device, rows):
         e_pts = float((c - d).abs().max())
         expect(bool(torch.isfinite(a).all() and torch.isfinite(c).all()), "K1 non-finite")
         log(f"[K1] cull_eps={eps:g}: 64^3 grid max|err| {e_grid:.3e}, 256k points "
-            f"max|err| {e_pts:.3e} (tol {TOL_K1:g})")
+            f"max|err| {e_pts:.3e} (tol {TOL_K1:g}); two calls bit-identical")
         expect(e_grid <= TOL_K1 and e_pts <= TOL_K1, "K1 disagrees with its plain version")
+        expect(torch.equal(a, a2), "two K1 calls on the same inputs differ")
         err = max(err, e_grid, e_pts)
     ms = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64), 5)
     plain_ms = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64,
                                              sdf_fn=nphm_sdf_plain), 2)
-    # the timed grid's live (point, member) pairs, as the kernel culls them
-    tile, brick = grid_tile(64, DEFAULT_TILE)
-    axes = [torch.linspace(GRID_MIN[i], GRID_MAX[i], 64, device=device) for i in range(3)]
-    grid = _brick_points(axes, torch.arange(64**3, device=device), 64, brick, tile)
-    with torch.no_grad():
-        _, _, _, active = _prepare(params, cfg, grid, lat, tile, CULL_EPS)
-    pairs = int(active.sum()) * tile
-    b = bound(2.0 * nphm_fmas(cfg) * pairs,
-              64**3 * 16 + weight_bytes(params["ensemble"], cfg) // cfg.n_members * cfg.n_loc)
+    wb = weight_bytes(params["ensemble"], cfg) // cfg.n_members * cfg.n_loc
     lib_ms = baddbmm_chain_ms(cfg, cfg.n_members, 64**3, "f", device, 2)
-    log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"baddbmm chain (all members, no culling) {lib_ms:.3f} ms; {pairs} live (point, "
-        f"member) pairs, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
-    rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, **b)
+    for res in (64, EXTRACT_RES):
+        # the timed grid's live (point, member) pairs, as the kernel culls them
+        tile, brick = grid_tile(res, DEFAULT_TILE)
+        axes = [torch.linspace(GRID_MIN[i], GRID_MAX[i], res, device=device)
+                for i in range(3)]
+        grid = _brick_points(axes, torch.arange(res**3, device=device), res, brick, tile)
+        with torch.no_grad():
+            _, _, _, active = _prepare(params, cfg, grid, lat, tile, CULL_EPS)
+        del grid
+        pairs = int(active.sum()) * tile
+        flops = 2.0 * nphm_fmas(cfg) * pairs
+        b = bound(flops, res**3 * 16 + wb)
+        if res == 64:
+            log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                f"ms, baddbmm chain (all members, no culling) {lib_ms:.3f} ms; {pairs} live "
+                f"(point, member) pairs, {bound_note(flops, b)}")
+            rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, **b)
+        else:
+            ms_r = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, res),
+                           2)
+            log(f"[K1] res-{res} brick grid (the extraction's launch), cull on: kernel "
+                f"{ms_r:.3f} ms ({res**3 / ms_r / 1e3:.2f} M q/s); {pairs} live (point, "
+                f"member) pairs, {bound_note(flops, b)}; plain and baddbmm chain not "
+                f"measured at this size")
+        torch.cuda.empty_cache()
 
 
 def search_inputs(shape, params_shape, expr, params_expr, gen, device, B, N):
@@ -417,7 +442,11 @@ def check_k2(shape, params_shape, expr, params_expr, gen, device, rows):
     """K2 at the fit's shapes, cold (budget 15) then warm (budget 3), on the
     random-init trunk (an easy search: ~2 iterations) and on a copy whose
     offset head is scaled 90x (about half the lanes diverge, the rest need
-    ~9 iterations)."""
+    ~9 iterations).  Executed iterations agree within one (a lane next to
+    the 1e-6 threshold may cross it an iteration apart: fp32 products in
+    another order do the same), and two calls are bit-identical.  Timed at
+    each of the four searches; the table's row is the cold one on the
+    random-init trunk."""
     import torch
 
     from nphm_tpu_torch.ops.search import TILE, broyden_search, broyden_search_plain
@@ -429,12 +458,16 @@ def check_k2(shape, params_shape, expr, params_expr, gen, device, rows):
     base = params_expr["trunk"]
     hard = {"layers": base["layers"][:-1] + [
         {k: v * 90.0 for k, v in base["layers"][-1].items()}]}
+    shapes, skip = tcfg.layer_shapes
+    fmas = trunk_fmas(shapes, skip, tcfg.d_in_spatial, tcfg.d_in)
+    wbytes = 4 * sum(lay["w"].numel() + lay["b"].numel() for lay in base["layers"])
     err_x = 0.0
     for tag, trunk in (("random-init", base), ("offset head x90", hard)):
         warm = None
         for budget in (15, 3):
             x0, j0 = (obs, eye) if warm is None else (warm["result"], warm["j_inv"])
             k = broyden_search(trunk, tcfg, cond, obs, x0, j0, budget)
+            k2 = broyden_search(trunk, tcfg, cond, obs, x0, j0, budget)
             p = broyden_search_plain(trunk, tcfg, cond, obs, x0, j0, budget)
             both = k["valid_ids"] & p["valid_ids"]
             ex = float((k["result"] - p["result"]).abs()[both].max()) if both.any() else 0.0
@@ -445,30 +478,37 @@ def check_k2(shape, params_shape, expr, params_expr, gen, device, rows):
                 f"{B * N}; still active {int(k['active'].sum())}; iters "
                 f"{int(k['iters'])}/{int(p['iters'])}; valid-in-both max|dx| {ex:.3e} "
                 f"max|dbn| {eb:.3e} (tol {TOL_K2_X:g}) max|dJ| {ej:.3e} "
-                f"(tol {TOL_K2_J:g})")
+                f"(tol {TOL_K2_J:g}); two calls bit-identical")
             expect(bool(torch.isfinite(k["diff"]).all()), "K2 non-finite residuals")
             expect(ex <= TOL_K2_X and eb <= TOL_K2_X and ej <= TOL_K2_J,
                    "K2 disagrees with its plain version")
             expect(abs(nk - np_) <= TOL_K2_NVALID * B * N, "K2 n_valid disagrees")
+            expect(abs(int(k["iters"]) - int(p["iters"])) <= 1,
+                   "K2's iterations differ from the plain search's by more than one")
+            expect(all(torch.equal(k[key], k2[key]) for key in k),
+                   "two K2 calls on the same inputs differ")
             err_x = max(err_x, ex, eb)
+            # trunk evaluations the search ran: one per lane, plus one per
+            # lane and iteration of its tile
+            its = k["tile_iters"].cpu().tolist()
+            real = [min(TILE, B * N - t * TILE) for t in range(len(its))]
+            evals = sum(r * (1 + i) for r, i in zip(real, its))
+            ms = cuda_ms(lambda: broyden_search(trunk, tcfg, cond, obs, x0, j0, budget), 5)
+            plain_ms = cuda_ms(
+                lambda: broyden_search_plain(trunk, tcfg, cond, obs, x0, j0, budget), 3)
+            flops = 2.0 * fmas * evals
+            b = bound(flops, B * N * 4 * (15 + 14) + wbytes)
+            chain_ms = addmm_chain_ms(tcfg, evals, device, 5)
+            log(f"[K2] {tag}, budget {budget}, B=5 N=1000: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, addmm chain over as many trunk evaluations "
+                f"{chain_ms:.3f} ms (information only: no library call runs the search); "
+                f"iterations per {TILE}-lane tile mean {sum(its) / len(its):.2f} max "
+                f"{max(its)}, {evals} trunk evaluations of {fmas} FMAs, "
+                f"{bound_note(flops, b)}")
+            if tag == "random-init" and budget == 15:
+                rows["broyden_search"] = dict(ms=ms, plain_ms=plain_ms, **b)
             warm = p
-    ms = cuda_ms(lambda: broyden_search(base, tcfg, cond, obs, obs, eye, 15), 5)
-    plain_ms = cuda_ms(lambda: broyden_search_plain(base, tcfg, cond, obs, obs, eye, 15), 3)
-    # trunk evaluations the timed search ran: one per lane, plus one per
-    # lane and iteration of its tile
-    run = broyden_search(base, tcfg, cond, obs, obs, eye, 15)
-    its = run["tile_iters"].cpu().tolist()
-    real = [min(TILE, B * N - t * TILE) for t in range(len(its))]
-    evals = sum(r * (1 + i) for r, i in zip(real, its))
-    shapes, skip = tcfg.layer_shapes
-    fmas = trunk_fmas(shapes, skip, tcfg.d_in_spatial, tcfg.d_in)
-    wbytes = 4 * sum(lay["w"].numel() + lay["b"].numel() for lay in base["layers"])
-    b = bound(2.0 * fmas * evals, B * N * 4 * (15 + 14) + wbytes)
-    log(f"[K2] B=5 N=1000 budget 15: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-        f"iterations per {TILE}-lane tile mean {sum(its) / len(its):.2f} max {max(its)}, "
-        f"{evals} trunk evaluations of {fmas} FMAs, bound {b['bound_ms']:.3f} ms "
-        f"({b['bound_by']})")
-    rows["broyden_search"] = dict(max_abs_err=err_x, ms=ms, plain_ms=plain_ms, **b)
+    rows["broyden_search"]["max_abs_err"] = err_x
 
 
 def check_k3_k4(shape, params, gen, device, rows):
@@ -530,9 +570,9 @@ def check_k3_k4(shape, params, gen, device, rows):
     pairs = live_lanes(active, tile, B, N)
     wb = weight_bytes(params["ensemble"], cfg)
     flops3 = 2.0 * nphm_fmas(cfg) * pairs
-    b3 = bound(flops3, pairs * 16 + wb, tf32x3=True)
+    b3 = bound(flops3, pairs * 16 + wb)
     flops4 = 4.0 * nphm_fmas(cfg) * pairs
-    b4 = bound(flops4, pairs * 28 + wb, tf32x3=True)
+    b4 = bound(flops4, pairs * 28 + wb)
     M = B * Np
     lib3 = baddbmm_chain_ms(cfg, A, M, "f", device, 10)
     lib4 = baddbmm_chain_ms(cfg, A, M, "fr", device, 10)
@@ -643,9 +683,9 @@ def check_k5_k6(shape, params, gen, device, rows):
             pairs = live_lanes(active, tile, B, N)
             wb = weight_bytes(params["ensemble"], cfg)
             flops5 = 2.0 * 2 * nphm_fmas(cfg) * pairs
-            b5 = bound(flops5, pairs * 28 + wb, tf32x3=True)
+            b5 = bound(flops5, pairs * 28 + wb)
             flops6 = 2.0 * 6 * nphm_fmas(cfg) * pairs
-            b6 = bound(flops6, pairs * 40 + 2 * wb, tf32x3=True)
+            b6 = bound(flops6, pairs * 40 + 2 * wb)
             scr6 = A * k6_scratch_bytes(cfg, B * Np)
             log(f"[K5] M={B}x{Np}: kernel {ms5:.3f} ms, plain {plain5:.3f} ms; {pairs} "
                 f"(point, member) pairs, {bound_note(flops5, b5)}")
@@ -759,8 +799,7 @@ def trunk_bound(cfg, n: int, layers) -> dict:
     """K7's bound: its products as 3xTF32 on the tensor cores against the
     point features read, the outputs written and the folded weights."""
     wbytes = 4 * sum(t.numel() for lay in layers for t in lay.values())
-    return bound(trunk_flops(cfg, n), n * 4 * (cfg.d_in_spatial + cfg.out_dim) + wbytes,
-                 tf32x3=True)
+    return bound(trunk_flops(cfg, n), n * 4 * (cfg.d_in_spatial + cfg.out_dim) + wbytes)
 
 
 def k7_error(kernel, plain, head_bias):

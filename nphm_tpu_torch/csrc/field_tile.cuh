@@ -1,5 +1,6 @@
 // The NPHM field over one (member, 64-point tile) on the tensor cores: the
-// body that K3, K4 and K5 share (sm_90a).
+// body that K3, K4 and K5 share (sm_90a); K1 walks a tile's live members
+// through its forward parts, and K6's passes are built from them.
 //
 // One block of tc::kMmaWarps warps takes member m's trunk (conditioning
 // folded into per-(member, row) biases) over tc::kRows points in
@@ -159,6 +160,67 @@ __device__ __forceinline__ void zero_pad(float* h, int ld, int w) {
     h[(it / pad) * ld + w + it % pad] = 0.f;
 }
 
+// Layer 0 of member m over a 64-point tile from its 3 point inputs xs
+// ([3][64]): h = softplus(W0 x + b0[row]) into [64][ld], pad columns
+// zeroed.  A thread per output column and 16-row block, its rows
+// independent.
+__device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float* xs,
+                                            const int* rows, float* h, int ld) {
+  constexpr int T = kRows;
+  const int H0 = (int)tr.n_out[0];
+  const float beta = (float)tr.beta;
+  const float inv_beta = 1.f / beta;
+  const float* __restrict__ w = tr.w[0] + m * tr.w_ms[0];
+  const float* __restrict__ b = tr.b[0] + m * tr.b_ms[0];
+  const int64_t brs = tr.b_rs[0];
+  for (int it = threadIdx.x; it < H0 * 4; it += blockDim.x) {
+    const int o = it % H0;
+    const int l0 = (it / H0) * 16;
+    const float w0 = w[o * 3], w1 = w[o * 3 + 1], w2 = w[o * 3 + 2];
+#pragma unroll 4
+    for (int l = l0; l < l0 + 16; ++l) {
+      float z = w0 * xs[l];
+      z = fmaf(w1, xs[T + l], z);
+      z = fmaf(w2, xs[2 * T + l], z);
+      h[l * ld + o] = tc::softplus_fast(z + __ldg(b + rows[l] * brs + o), beta, inv_beta);
+    }
+  }
+  zero_pad(h, ld, H0);
+}
+
+// Hidden layer i of member m over the raw sums `out` ([64][ld]) in place:
+// bias, the skip layer's point term and softplus, pad columns zeroed; a
+// thread per column and 16-row block (balanced, unlike the MMA epilogue).
+__device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const float* xs,
+                                          const int* rows, float* out, int ld) {
+  constexpr int T = kRows;
+  const int H = (int)tr.n_out[i];
+  const float beta = (float)tr.beta;
+  const float inv_beta = 1.f / beta;
+  const float* __restrict__ b = tr.b[i] + m * tr.b_ms[i];
+  const int64_t brs = tr.b_rs[i];
+  const float* __restrict__ wp = i == (int)tr.skip ? tr.wp + m * tr.wp_ms : nullptr;
+  for (int it = threadIdx.x; it < H * 4; it += blockDim.x) {
+    const int o = it % H;
+    const int l0 = (it / H) * 16;
+    float w0 = 0.f, w1 = 0.f, w2 = 0.f;
+    if (wp != nullptr) {
+      w0 = wp[o * 3];
+      w1 = wp[o * 3 + 1];
+      w2 = wp[o * 3 + 2];
+    }
+#pragma unroll 4
+    for (int l = l0; l < l0 + 16; ++l) {
+      float z = out[l * ld + o] + __ldg(b + rows[l] * brs + o);
+      z = fmaf(w0, xs[l], z);
+      z = fmaf(w1, xs[T + l], z);
+      z = fmaf(w2, xs[2 * T + l], z);
+      out[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
+    }
+  }
+  zero_pad(out, ld, H);
+}
+
 // The block's work in MODE.  coords: [A][3][M]; dF: [A][M] (K4); active:
 // [M / cull_tile][A]; F: [A][M] (K3, K5); dcoords: [A][3][M] (K4; G for
 // K5); part0 / part_s: [A][M / 64][H0 or HS] (K4).  Grid (members, M / 64),
@@ -218,7 +280,6 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
       cur += T * ld[i];
     }
   }
-  const float inv_beta = 1.f / beta;
   float* xs = smem + act_floats;
   float* dg = xs + 3 * T;
   float* dfs = dg + 3 * T;
@@ -246,30 +307,9 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   init_ring(ring);
   __syncthreads();
 
-  // forward: layer 0 from the 3 point inputs (a thread per output column
-  // and 16-row block, its rows independent), then the hidden products
-  {
-    const float* __restrict__ w = tr.w[0] + m * tr.w_ms[0];
-    const float* __restrict__ b = tr.b[0] + m * tr.b_ms[0];
-    const int64_t brs = tr.b_rs[0];
-    float* h = smem + ho[0];
-    const int ld0 = ld[0];
-    for (int it = t; it < H0 * 4; it += blockDim.x) {
-      const int o = it % H0;
-      const int l0 = (it / H0) * 16;
-      const float w0 = w[o * 3], w1 = w[o * 3 + 1], w2 = w[o * 3 + 2];
-#pragma unroll 4
-      for (int l = l0; l < l0 + 16; ++l) {
-        float z = w0 * xs[l];
-        z = fmaf(w1, xs[T + l], z);
-        z = fmaf(w2, xs[2 * T + l], z);
-        h[l * ld0 + o] =
-            tc::softplus_fast(z + __ldg(b + rows[l] * brs + o), beta, inv_beta);
-      }
-    }
-    zero_pad(h, ld0, H0);
-    __syncthreads();
-  }
+  // forward: layer 0 from the 3 point inputs, then the hidden products
+  layer0_pass(tr, m, xs, rows, smem + ho[0], ld[0]);
+  __syncthreads();
   for (int i = 1; i < L - 1; ++i) {
     // each warp stores its raw sums, then the block applies bias, point
     // term and softplus in a balanced pass (a thread per column and 16-row
@@ -287,29 +327,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                  [&](int, int) { return 0.f; },
                  [&](int l, int o, float acc, float) { out[l * ldo + o] = acc; });
     __syncthreads();
-    const int H = (int)tr.n_out[i];
-    const float* __restrict__ b = tr.b[i] + m * tr.b_ms[i];
-    const int64_t brs = tr.b_rs[i];
-    const float* __restrict__ wp = i == skip ? tr.wp + m * tr.wp_ms : nullptr;
-    for (int it = t; it < H * 4; it += blockDim.x) {
-      const int o = it % H;
-      const int l0 = (it / H) * 16;
-      float w0 = 0.f, w1 = 0.f, w2 = 0.f;
-      if (wp != nullptr) {
-        w0 = wp[o * 3];
-        w1 = wp[o * 3 + 1];
-        w2 = wp[o * 3 + 2];
-      }
-#pragma unroll 4
-      for (int l = l0; l < l0 + 16; ++l) {
-        float z = out[l * ldo + o] + __ldg(b + rows[l] * brs + o);
-        z = fmaf(w0, xs[l], z);
-        z = fmaf(w1, xs[T + l], z);
-        z = fmaf(w2, xs[2 * T + l], z);
-        out[l * ldo + o] = tc::softplus_fast(z, beta, inv_beta);
-      }
-    }
-    zero_pad(out, ldo, H);
+    bias_pass(tr, i, m, xs, rows, out, ldo);
     if (kReverse) {
       float* h = smem + ho[i - 1];
       const int Hp = (int)tr.n_out[i - 1];
@@ -363,11 +381,11 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
 // ---------------------------------------------------------------------------
 
 // A launch's shared memory: the activation floats, the ring's K slice
-// width (16 where that ring fits beside the activations, else 8), the
-// floats of one ring stage, and the bytes in all.
+// width (the widest of max_ks, 16 and 8 whose ring fits beside the
+// activations), the floats of one ring stage, and the bytes in all.
 struct Launch {
   int act_floats;
-  bool wide;
+  int ks;
   int stage;
   int smem;
 };
@@ -379,9 +397,10 @@ struct Launch {
 // per-point values follow them, then the ring.  Returns 0, a runtime error
 // code, or make_map's code for a refused descriptor.  The weights' leading
 // dims ldw/ldwt are multiples of 8 with zero columns past the width, and
-// every product is at most tc::kMaxN wide.
+// every product is at most tc::kMaxN wide.  max_ks: the widest K slice the
+// caller has an instantiation for (16, or 32 for K1).
 inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launch* ln,
-                 int act_bufs = 0, int point_floats = 8 * kRows) {
+                 int act_bufs = 0, int point_floats = 8 * kRows, int max_ks = 16) {
   const int L = (int)tr->n_layers;
   int act_floats = 0, widest = 0, nmax = 8;
   for (int i = 0; i < L - 1; ++i) {
@@ -405,13 +424,17 @@ inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launc
   if (err != cudaSuccess) return (int)err;
   const int fixed = (int)sizeof(float) * (act_floats + point_floats) + 1024 +
                     16 * tc::kRingStages;
-  const int smem16 =
-      fixed + (int)sizeof(float) * tc::kRingStages * tc::stage_floats<16>(nmax);
+  auto ring_bytes = [&](int ks) {
+    return (int)sizeof(float) * tc::kRingStages *
+           (ks == 32 ? tc::stage_floats<32>(nmax)
+                     : ks == 16 ? tc::stage_floats<16>(nmax) : tc::stage_floats<8>(nmax));
+  };
   ln->act_floats = act_floats;
-  ln->wide = smem16 <= optin;
-  ln->stage = ln->wide ? tc::stage_floats<16>(nmax) : tc::stage_floats<8>(nmax);
-  ln->smem = fixed + (int)sizeof(float) * tc::kRingStages * ln->stage;
-  const int KS = ln->wide ? 16 : 8;
+  ln->ks = max_ks;
+  while (ln->ks > 8 && fixed + ring_bytes(ln->ks) > optin) ln->ks /= 2;
+  ln->stage = ring_bytes(ln->ks) / ((int)sizeof(float) * tc::kRingStages);
+  ln->smem = fixed + ring_bytes(ln->ks);
+  const int KS = ln->ks;
   for (int i = 1; i < L - 1; ++i) {
     const int n_in = (int)tr->n_in[i], n_out = (int)tr->n_out[i];
     int rc = tc::make_map(&maps->fwd[i - 1], tr->wt[i], (int)tr->ldwt[i],
@@ -429,7 +452,7 @@ inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launc
 template <class Kernel, class... Args>
 inline int launch(Kernel k16, Kernel k8, const Launch& ln, int n_members, int64_t M,
                   void* stream, Args... args) {
-  const Kernel kernel = ln.wide ? k16 : k8;
+  const Kernel kernel = ln.ks == 16 ? k16 : k8;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ln.smem);
   if (err != cudaSuccess) return (int)err;

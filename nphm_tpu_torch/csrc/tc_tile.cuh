@@ -11,9 +11,10 @@
 // - warp-level mma.sync m16n8k8 .tf32 with operands split in registers
 //   (split_mma), and mm64, a block-level product over a 64-row tile held in
 //   shared memory with the K-major B operand staged by TMA through a
-//   three-stage swizzled ring, fragments loaded with ldmatrix (K3-K5,
+//   three-stage swizzled ring, fragments loaded with ldmatrix (K1, K3-K5,
 //   field_tile.cuh, and K6's two passes; K6's lane contraction streams
-//   both operands through a ring of its own, train_fields.cu);
+//   both operands through a ring of its own, train_fields.cu; K2 runs a
+//   32-row product in place on the same parts, broyden_search.cu);
 // - warpgroup-level wgmma m64n128k8 .tf32 reading 128-byte-swizzled K-major
 //   operands that TMA (cp.async.bulk.tensor) stages, signalled through
 //   mbarriers (K7).
@@ -301,8 +302,9 @@ constexpr int kProducer = 32 * (kMmaWarps - 1);
 
 // Producer: issue ring slices up to global index `target` (exclusive) that
 // belong to `cur` (whose first slice is ring.slices) or to `next`; a stage
-// is reused once every warp has released its previous slice.
-template <int KS>
+// is reused once every warp has released its previous slice.  S: the
+// ring's depth (K2 runs a deeper ring of narrower stages).
+template <int KS, int S = kRingStages>
 __device__ __forceinline__ void ring_issue(Ring& ring, const Operand& cur,
                                            const Operand* next, uint32_t target) {
   const uint32_t n_cur = (uint32_t)n_slices<KS>(cur.K);
@@ -314,8 +316,8 @@ __device__ __forceinline__ void ring_issue(Ring& ring, const Operand& cur,
       return;
     const Operand& b = in_cur ? cur : *next;
     const int s = (int)(in_cur ? g - ring.slices : g - ring.slices - n_cur);
-    const int st = (int)(g % kRingStages);
-    if (g >= (uint32_t)kRingStages) mbar_wait(&ring.empty[st], (g / kRingStages - 1) & 1);
+    const int st = (int)(g % S);
+    if (g >= (uint32_t)S) mbar_wait(&ring.empty[st], (g / S - 1) & 1);
     mbar_expect_tx(&ring.full[st], (uint32_t)(((b.N + 7) & ~7) * KS * 4));
     tma_load_2d(ring.buf + st * ring.stage, b.map, &ring.full[st], s * KS, b.row0);
     ++ring.issued;
@@ -352,53 +354,58 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
 
+  // B fragments load KH columns of a slice at a time (one ldmatrix x4 or x2)
+  constexpr int KH = KS < 16 ? KS : 16;
   for (int s = 0; s < n_sl; ++s) {
     const uint32_t g = ring.slices + s;
     if (threadIdx.x == kProducer) ring_issue<KS>(ring, b, next, g + kRingStages);
     mbar_wait(&ring.full[g % kRingStages], (g / kRingStages) & 1);
     const float* buf = ring.buf + (g % kRingStages) * ring.stage;
-    const int k0 = s * KS;
-    // B fragments of this slice: bf[j][2 * (kk / 8) + {0, 1}]
-    uint32_t bf[NJ > 0 ? NJ : 1][KS / 4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float* bp = buf + swz<KS>((grp + kGroups * j) * 8 + b_row, b_chunk);
-      if (KS == 16) {
-        ldsm_x4(*reinterpret_cast<uint32_t(*)[4]>(&bf[j][0]), bp);
-      } else {
-        ldsm_x2(*reinterpret_cast<uint32_t(*)[2]>(&bf[j][0]), bp);
+    for (int h = 0; h < KS / KH; ++h) {
+      const int k0 = s * KS + h * KH;
+      // B fragments of these KH columns: bf[j][2 * (kk / 8) + {0, 1}]
+      uint32_t bf[NJ > 0 ? NJ : 1][KH / 4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* bp = buf + swz<KS>((grp + kGroups * j) * 8 + b_row, h * KH + b_chunk);
+        if (KH == 16) {
+          ldsm_x4(*reinterpret_cast<uint32_t(*)[4]>(&bf[j][0]), bp);
+        } else {
+          ldsm_x2(*reinterpret_cast<uint32_t(*)[2]>(&bf[j][0]), bp);
+        }
       }
-    }
-    if constexpr (NJ > 0) {
+      if constexpr (NJ > 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; kk += 8) {
-        if (k0 + kk < K8) {
-          uint32_t ab[kMT][4], as[kMT][4], bb[NJ > 0 ? NJ : 1][2], bs[NJ > 0 ? NJ : 1][2];
+        for (int kk = 0; kk < KH; kk += 8) {
+          if (k0 + kk < K8) {
+            uint32_t ab[kMT][4], as[kMT][4], bb[NJ > 0 ? NJ : 1][2], bs[NJ > 0 ? NJ : 1][2];
 #pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            uint32_t r[4];
-            ldsm_x4(r, a_lane + mt * 16 * lda + k0 + kk);
+            for (int mt = 0; mt < kMT; ++mt) {
+              uint32_t r[4];
+              ldsm_x4(r, a_lane + mt * 16 * lda + k0 + kk);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) split_mma(r[e], ab[mt][e], as[mt][e]);
+              for (int e = 0; e < 4; ++e) split_mma(r[e], ab[mt][e], as[mt][e]);
+            }
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              split_mma(bf[j][kk / 4], bb[j][0], bs[j][0]);
+              split_mma(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
+            }
+            // small*big, big*small, then big*big: each pass's MMAs independent
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], as[mt], bb[j]);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bs[j]);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bb[j]);
           }
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            split_mma(bf[j][kk / 4], bb[j][0], bs[j][0]);
-            split_mma(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
-          }
-          // small*big, big*small, then big*big: each pass's MMAs independent
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], as[mt], bb[j]);
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bs[j]);
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bb[j]);
         }
       }
     }

@@ -1,8 +1,9 @@
-"""Time the fit kernels K3/K4, the training forward K5 or the training
-backward K6 of two checkouts on one card, in turns.
+"""Time the fit kernels K3/K4, the training forward K5, the training
+backward K6, the search K2 or the ensemble grid K1 of two checkouts on one
+card, in turns.
 
-    python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B [--kernels fit|train|train_bwd]
-        [--order ABBA]
+    python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B
+        [--kernels fit|train|train_bwd|search|ensemble] [--order ABBA]
 
 Each turn runs in a fresh process from one checkout: that checkout's
 ``chip_smoke.py`` builds its kernels (``device_and_build``) and the NPHM
@@ -19,7 +20,13 @@ models (``build_models``), then
 - ``--kernels train_bwd``: K6 at the same shapes, one
   ``torch.autograd.grad`` of <dF, F> + <dG, G> through ``member_fields``
   (random dF, dG) w.r.t. every operand and the coordinates, timed with CUDA
-  events; no plain version runs.
+  events; no plain version runs;
+- ``--kernels search``: K2 at the fit's shapes (B = 5 obs x N = 1000
+  points, ``chip_smoke.search_inputs``), cold at budget 15 from the
+  observations and warm at budget 3 from the plain search's cold roots and
+  J^-1, on the random-init trunk and with its offset head scaled 90x;
+- ``--kernels ensemble``: K1 through ``nphm_grid_sdf`` on the 64^3 and the
+  res-256 brick grids (the extraction's launch), cull on.
 
 Its rows print as one ``ROWS {...}`` JSON line; the summary gives each
 checkout's mean kernel times and the ratio A / B.  Comparing two versions is
@@ -98,15 +105,51 @@ print(f"[K6] M={{B}}x{{Np}}: kernel {{ms:.3f}} ms", flush=True)
 print("ROWS " + json.dumps({{"train_bwd": {{"ms": ms}}}}), flush=True)
 """
 
+_SEARCH = """
+from nphm_tpu_torch.ops.search import broyden_search, broyden_search_plain
+
+obs, cond, eye = c.search_inputs(shape, params, _e, _pe, gen, dev, 5, 1000)
+tcfg, base = _e.cfg.trunk_cfg, _pe["trunk"]
+hard = {{"layers": base["layers"][:-1] + [
+    {{k: v * 90.0 for k, v in base["layers"][-1].items()}}]}}
+rows = {{}}
+for tag, trunk in (("search_init", base), ("search_x90", hard)):
+    cold = broyden_search_plain(trunk, tcfg, cond, obs, obs, eye, 15)
+    x0, j0 = cold["result"], cold["j_inv"]
+    ms15 = c.cuda_ms(lambda: broyden_search(trunk, tcfg, cond, obs, obs, eye, 15), 10)
+    ms3 = c.cuda_ms(lambda: broyden_search(trunk, tcfg, cond, obs, x0, j0, 3), 10)
+    print(f"[K2] {{tag}}: cold budget 15 {{ms15:.3f}} ms, warm budget 3 {{ms3:.3f}} ms",
+          flush=True)
+    rows[tag + "_15"] = {{"ms": ms15}}
+    rows[tag + "_3"] = {{"ms": ms3}}
+print("ROWS " + json.dumps(rows), flush=True)
+"""
+
+_ENSEMBLE = """
+from nphm_tpu_torch.ops.ensemble import nphm_grid_sdf
+
+lat = (torch.randn(shape.cfg.lat_dim, generator=gen) * 0.1).to(dev)
+rows = {{}}
+for res, reps in ((64, 10), (256, 3)):
+    ms = c.cuda_ms(lambda: nphm_grid_sdf(params, shape.cfg, lat, c.GRID_MIN, c.GRID_MAX,
+                                         res), reps)
+    print(f"[K1] res-{{res}} brick grid: {{ms:.3f}} ms", flush=True)
+    rows[f"ensemble_{{res}}"] = {{"ms": ms}}
+print("ROWS " + json.dumps(rows), flush=True)
+"""
+
 KERNELS = {"fit": (_FIT, ("fit_fwd", "fit_bwd")), "train": (_TRAIN, ("train_fwd",)),
-           "train_bwd": (_TRAIN_BWD, ("train_bwd",))}
+           "train_bwd": (_TRAIN_BWD, ("train_bwd",)),
+           "search": (_SEARCH, ("search_init_15", "search_init_3", "search_x90_15",
+                                "search_x90_3")),
+           "ensemble": (_ENSEMBLE, ("ensemble_64", "ensemble_256"))}
 
 
 def run_turn(root: str, body: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", (_HEAD + body).format(root=root)],
                           cwd=root, capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[K3]", "[K4]", "[K5]", "[K6]")):
+        if line.startswith(("[K1]", "[K2]", "[K3]", "[K4]", "[K5]", "[K6]")):
             print(f"  {line}", flush=True)
         if line.startswith("ROWS "):
             return json.loads(line[5:])

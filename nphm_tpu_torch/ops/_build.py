@@ -4,11 +4,11 @@ Every source compiles with its own ``nvcc`` process, all started together,
 and the objects link into one shared library with a plain C interface, at
 first use, into ``nphm_tpu_torch/_build/`` (git-ignored), and again whenever
 a source is newer than the library.  No library beyond the CUDA runtime is
-linked: the TMA descriptors of K3-K7 reach the driver through the
-runtime's entry-point query.  The library is loaded with ``ctypes``: every
-pointer and the stream travel as ``c_void_p``, every entry point returns
-``cudaGetLastError()`` and ``check`` raises on a non-zero code.  Nothing is
-downloaded; the only inputs are the sources in the package.
+linked: every kernel's TMA descriptors come from ``cuTensorMapEncodeTiled``,
+reached through the runtime's entry-point query.  The library is loaded with
+``ctypes``: every pointer and the stream travel as ``c_void_p``, every entry
+point returns ``cudaGetLastError()`` and ``check`` raises on a non-zero code.
+Nothing is downloaded; the only inputs are the sources in the package.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ NVCC_FLAGS = [
 ]
 MAX_LAYERS = 12  # csrc/mlp_tile.cuh kMaxLayers
 MAX_HEAD = 4  # csrc/mlp_tile.cuh kMaxHead
-N_WARPS = 8  # csrc/mlp_tile.cuh kWarps
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -70,12 +69,12 @@ class Trunk(ctypes.Structure):
 
 _SIGNATURES = {
     "nphm_ensemble_sdf": [
-        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32,
-        _f32, _f32, _vp,
+        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _f32, _f32,
+        _vp,
     ],
     "nphm_broyden_search": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-        _i64, _i32, _f32, _f32, _f32, _i32, _vp,
+        _i64, _i32, _f32, _f32, _f32, _vp,
     ],
     "nphm_fit_fwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _i64, _i32, _i32, _vp,

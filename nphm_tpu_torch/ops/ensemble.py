@@ -15,6 +15,13 @@ value).  Outside the kernel, in torch, as the JAX package does it:
 - ``nphm_grid_sdf`` generates dense-grid points in spatially compact bricks
   (so culling fires) and gathers the logits back to natural order.
 
+K1 walks, for each 64-point block, the live members of its cull tile from
+a compacted work list (``work_list``: the live (tile, member) pairs,
+tile-major, members ascending) and blends them in that fixed order; its
+member MLPs run on the tensor cores as 3xTF32 (``ops/tf32.py``) over
+K-major weights.  ``nphm_sdf_work_list_plain`` is that schedule in plain
+PyTorch.
+
 ``nphm_sdf`` launches K1 for a CUDA tensor and runs ``nphm_sdf_plain`` for
 a CPU tensor; ``nphm_sdf.launches`` counts kernel launches.
 """
@@ -29,10 +36,12 @@ import torch
 from nphm_tpu_torch.models.ensemble import NPHMConfig, _split_cond, predict_anchors
 from nphm_tpu_torch.models.mlp import softplus_beta
 from nphm_tpu_torch.ops import _build
+from nphm_tpu_torch.ops.fit_fields import check_widths
 
 DEFAULT_TILE = 2048  # cull-tile size: points sharing one member predicate
 CULL_EPS = 1e-10
 SQRT2 = 1.4142135623730951
+POINTS = 64  # points per K1 block: csrc/tc_tile.cuh kRows
 
 
 def prepare_ensemble_operands(params, cfg: NPHMConfig, lat):
@@ -146,8 +155,63 @@ def nphm_sdf_plain(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TIL
     return (num / (den + 1e-6))[:n]
 
 
+def work_list(active):
+    """K1's compacted schedule of a cull mask [n_tiles, K]: (offsets int32
+    [n_tiles + 1], members int32 [n_live]); tile t's live members, in
+    ascending order, are members[offsets[t]:offsets[t + 1]]."""
+    pairs = torch.nonzero(active)  # row-major: tile-major, members ascending
+    counts = active.to(torch.int64).sum(dim=1)
+    offsets = torch.zeros(active.shape[0] + 1, dtype=torch.int64, device=active.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return offsets.to(torch.int32), pairs[:, 1].to(torch.int32).contiguous()
+
+
+@torch.no_grad()
+def nphm_sdf_work_list_plain(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TILE,
+                             cull_eps: float = CULL_EPS):
+    """K1's schedule in plain PyTorch: each live (tile, member) pair of
+    ``work_list`` runs the member's MLP over the tile's points, and every
+    tile blends its live members in the list's order, starting from the
+    background member's pinned term."""
+    n = xyz.shape[0]
+    xyz, layers, anchors, active = _prepare(params, cfg, xyz, lat, tile, cull_eps)
+    _shapes, skip_in = cfg.layer_shapes
+    L = len(layers)
+    inv_var = 1.0 / cfg.blend_var
+    bg_w = float(np.exp(cfg.blend_background_dist / cfg.blend_var))
+    offsets, members = work_list(active)
+    counts = (offsets[1:] - offsets[:-1]).long()
+    pair_tile = torch.repeat_interleave(torch.arange(active.shape[0], device=xyz.device),
+                                        counts)
+    m = members.long()
+    raw = xyz.reshape(-1, tile, 3)[pair_tile] - anchors[m][:, None, :]  # [P, tile, 3]
+    h = None
+    for i, lay in enumerate(layers):
+        if i == 0:
+            z = raw @ lay["wp"][m].transpose(1, 2) + lay["b"][m][:, None, :]
+        elif i == skip_in:
+            z = (h @ lay["w"][m].transpose(1, 2) + raw @ lay["wp"][m].transpose(1, 2)
+                 + lay["b"][m][:, None, :])
+        else:
+            z = h @ lay["w"][m].transpose(1, 2) + lay["b"][m][:, None, :]
+        if i < L - 1:
+            h = softplus_beta(z, cfg.beta)
+    wz = _blend_weight(raw, inv_var) * z[..., 0]  # [P, tile]
+    w = _blend_weight(raw, inv_var)
+    num = torch.full((active.shape[0], tile), bg_w, device=xyz.device)
+    den = torch.full((active.shape[0], tile), bg_w, device=xyz.device)
+    for r in range(int(counts.max()) if counts.numel() else 0):
+        tiles = torch.nonzero(counts > r)[:, 0]  # the tiles with an r-th live member
+        pair = offsets[tiles].long() + r
+        num[tiles] = num[tiles] + wz[pair]
+        den[tiles] = den[tiles] + w[pair]
+    return (num / (den + 1e-6)).reshape(-1)[:n]
+
+
 def _ensemble_trunk(layers, cfg: NPHMConfig):
-    """Kernel-layout tensors and the ``Trunk`` descriptor for K1."""
+    """Kernel-layout tensors and the ``Trunk`` descriptor for K1: hidden
+    layers K-major (``wt`` [K, out, ldwt], ldwt = in rounded up to the
+    MMA's K step of 8, zero columns past it), the head [K, in]."""
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
     keep = []
@@ -160,14 +224,16 @@ def _ensemble_trunk(layers, cfg: NPHMConfig):
             w = lay["wp"].contiguous()
             spec = dict(n_in=3, n_out=n_out, w=w, ldw=3, w_ms=n_out * 3)
         elif i == L - 1:
-            w = lay["w"].transpose(1, 2).contiguous()  # [K, in, out]
-            spec = dict(n_in=w.shape[1], n_out=n_out, w=w, ldw=n_out,
-                        w_ms=w.shape[1] * n_out)
+            if n_out != 1:
+                raise ValueError("K1 blends a single SDF channel")
+            w = lay["w"][:, 0, :].contiguous()  # [K, in]
+            spec = dict(n_in=w.shape[1], n_out=1, w=w, ldw=1, w_ms=w.shape[1])
         else:
             n_in = lay["w"].shape[2]
-            ldw = _build.round_up(n_out, 8)
-            w = _build.padded(lay["w"].transpose(1, 2), ldw)  # [K, in, ldw]
-            spec = dict(n_in=n_in, n_out=n_out, w=w, ldw=ldw, w_ms=n_in * ldw)
+            ldwt = _build.round_up(n_in, 8)
+            w = _build.padded(lay["w"], ldwt)  # [K, out, ldwt]
+            spec = dict(n_in=n_in, n_out=n_out, w=w, ldw=ldwt, w_ms=n_out * ldwt, wt=w,
+                        ldwt=ldwt, wt_ms=n_out * ldwt)
             if i == skip_in:
                 wp_skip = lay["wp"].contiguous()
         spec.update(b=b, b_ms=n_out, b_rs=0)
@@ -178,26 +244,25 @@ def _ensemble_trunk(layers, cfg: NPHMConfig):
         wp=wp_skip, wp_ms=wp_skip.shape[1] * 3,
     )
     keep.append(wp_skip)
-    hmax = max(s["n_out"] for s in specs[:-1])
-    return tr, keep, hmax
+    return tr, keep
 
 
 def _launch_ensemble(cfg, xyz, layers, anchors, active, tile):
     lib = _build.lib()
-    per_block = lib.nphm_ensemble_points_per_block()
-    if tile % per_block:
-        raise ValueError(f"tile must be a multiple of {per_block}")
-    if cfg.out_dim != 1:
-        raise ValueError("K1 blends a single SDF channel")
-    tr, keep, hmax = _ensemble_trunk(layers, cfg)
+    if lib.nphm_ensemble_points_per_block() != POINTS:
+        raise RuntimeError("K1's block size disagrees with ops.ensemble.POINTS")
+    if tile % POINTS:
+        raise ValueError(f"tile must be a multiple of {POINTS}")
+    check_widths(layers)
+    tr, keep = _ensemble_trunk(layers, cfg)
     centers = anchors.contiguous()
-    active = active.contiguous()
     _build.require_cuda_f32(xyz, centers, *keep)
     _build.require_mask(active, (xyz.shape[0] // tile, cfg.n_loc), xyz.device)
+    offsets, members = work_list(active)
     out = torch.empty(xyz.shape[0], device=xyz.device, dtype=torch.float32)
     rc = lib.nphm_ensemble_sdf(
-        ctypes.byref(tr), xyz.data_ptr(), centers.data_ptr(), active.data_ptr(),
-        out.data_ptr(), xyz.shape[0], cfg.n_loc, tile, hmax,
+        ctypes.byref(tr), xyz.data_ptr(), centers.data_ptr(), offsets.data_ptr(),
+        members.data_ptr(), out.data_ptr(), xyz.shape[0], cfg.n_loc, tile,
         1.0 / cfg.blend_var, float(np.exp(cfg.blend_background_dist / cfg.blend_var)),
         _build.stream_ptr(xyz.device),
     )

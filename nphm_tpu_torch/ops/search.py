@@ -4,11 +4,18 @@ and its plain PyTorch version (counterpart of ``nphm_tpu/ops/pallas_search.py``)
 The whole warm search (residual init plus every good-Broyden iteration up to
 a runtime budget) runs per (obs, point) lane through the deformation trunk,
 whose row-constant conditioning is folded into per-obs biases outside the
-kernel.  Lanes are grouped in tiles of 32; a tile stops iterating once none
-of its lanes is active, which only skips no-op iterations, so the result
-equals the global ``any(active)`` loop and ``iters`` is the max over tiles.
-Padding lanes never count as active.  The search is forward only: the fit
-attaches gradients at the roots through the IFT correction.
+kernel.  Lanes are grouped in tiles of 32 (one CUDA block); a tile stops
+iterating once none of its lanes is active, which only skips no-op
+iterations, so the result equals the global ``any(active)`` loop and
+``iters`` is the max over tiles.  Padding lanes never count as active.  The
+search is forward only: the fit attaches gradients at the roots through the
+IFT correction.
+
+K2 runs the trunk's hidden products on the tensor cores as 3xTF32
+(``ops/tf32.py``): the hidden weights go over K-major (``wt`` [out, in]
+rounded to 8 columns) and stream through shared memory in 16-wide K slices
+of at most 256 outputs; a layer is at most ``MAX_WIDTH`` wide, so the NPM
+family's 8x1024 offsets trunk stays on the plain search.
 
 ``broyden_search`` launches K2 for CUDA tensors and runs
 ``broyden_search_plain`` for CPU tensors; ``broyden_search.launches``
@@ -27,7 +34,10 @@ from nphm_tpu_torch.models.mlp import softplus_beta
 from nphm_tpu_torch.ops import _build
 
 SQRT2 = 1.4142135623730951
-TILE = 32  # lanes per tile (one CUDA block)
+TILE = 32  # lanes per tile: csrc/broyden_search.cu kLanes
+MAX_WIDTH = 512  # widest non-head layer K2 takes: kMaxWidth
+K_SLICE, RING_STAGES, HALF = 16, 2, 256  # its weight ring: kKS, kStages, kHalf
+STATE_FIELDS = 28  # floats of Broyden state a lane keeps in shared memory: kFields
 MAX_SMEM_BYTES = 232448  # shared memory one block can use on an H100
 
 
@@ -171,7 +181,9 @@ def broyden_search_plain(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
 
 
 def _search_trunk(layers, tcfg: DeepSDFConfig, n_per_row: int):
-    """Kernel-layout tensors and the ``Trunk`` descriptor for K2."""
+    """Kernel-layout tensors and the ``Trunk`` descriptor for K2: hidden
+    layers K-major (``wt`` [out, ldwt], ldwt = in rounded up to the MMA's K
+    step of 8, zero columns past it), the head as [in, out]."""
     _shapes, skip_in = tcfg.layer_shapes
     L = len(layers)
     specs, keep = [], []
@@ -187,9 +199,10 @@ def _search_trunk(layers, tcfg: DeepSDFConfig, n_per_row: int):
             spec = dict(n_in=w.shape[0], n_out=w.shape[1], w=w, ldw=w.shape[1], w_ms=0)
         else:
             n_out, n_in = lay["w"].shape
-            ldw = _build.round_up(n_out, 8)
-            w = _build.padded(lay["w"].T, ldw)
-            spec = dict(n_in=n_in, n_out=n_out, w=w, ldw=ldw, w_ms=0)
+            ldwt = _build.round_up(n_in, 8)
+            w = _build.padded(lay["w"], ldwt)  # [out, ldwt]
+            spec = dict(n_in=n_in, n_out=n_out, w=w, ldw=ldwt, w_ms=0, wt=w, ldwt=ldwt,
+                        wt_ms=0)
             if i == skip_in:
                 wp_skip = lay["wp"].contiguous()
                 spec["b_rs"] = n_out
@@ -202,8 +215,7 @@ def _search_trunk(layers, tcfg: DeepSDFConfig, n_per_row: int):
         wp=wp_skip, wp_ms=0,
     )
     keep.append(wp_skip)
-    hmax = max(s["n_out"] for s in specs[:-1])
-    return tr, keep, hmax
+    return tr, keep
 
 
 @torch.no_grad()
@@ -233,7 +245,7 @@ def broyden_search(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
     P = B * N
     Pp = _build.round_up(P, TILE)
     layers = prepare_search_operands(params_trunk, tcfg, cond.to(torch.float32))
-    tr, keep, hmax = _search_trunk(layers, tcfg, N)
+    tr, keep = _search_trunk(layers, tcfg, N)
     o, x, j9 = (t.contiguous() for t in _flat(obs, xc_init, j_inv_init))
     _build.require_cuda_f32(o, x, j9, *keep)
     dev = obs.device
@@ -245,7 +257,7 @@ def broyden_search(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
     rc = lib.nphm_broyden_search(
         ctypes.byref(tr), o.data_ptr(), x.data_ptr(), j9.data_ptr(),
         xb.data_ptr(), bn.data_ptr(), jo.data_ptr(), act.data_ptr(),
-        iters.data_ptr(), Pp, P, int(n_iters), cvg_thresh, dvg_thresh, eps, hmax,
+        iters.data_ptr(), Pp, P, int(n_iters), cvg_thresh, dvg_thresh, eps,
         _build.stream_ptr(dev),
     )
     _build.check(rc, "nphm_broyden_search")
@@ -277,21 +289,31 @@ def search_fusable(decoder_expr) -> bool:
 
 
 def search_smem_bytes(tcfg: DeepSDFConfig) -> int:
-    """K2's dynamic shared memory for this trunk: a mirror of
-    ``nphm_search_smem_bytes`` (csrc/broyden_search.cu) at hmax, the widest
-    non-head layer output."""
+    """K2's dynamic shared memory for this trunk, a mirror of
+    ``search_setup`` (csrc/broyden_search.cu): the [32][act_ld(hmax)]
+    activation tile (hmax the widest non-head layer output), the lanes'
+    state, head outputs and rows, and the 1 KB-aligned weight ring and its
+    barriers."""
     shapes, _skip = tcfg.layer_shapes
-    hmax = max(n_out for _n_in, n_out in shapes[:-1])
-    T, head = TILE, _build.MAX_HEAD
-    return 4 * (2 * hmax * T + 3 * T + head * T + _build.N_WARPS * head * T + T)
+    outs = [n_out for _n_in, n_out in shapes[:-1]]
+    hmax, nmax = max(outs + [8]), max(outs[1:] + [8])
+    ld = _build.round_up(hmax, 8) + 4
+    stage = _build.round_up(_build.round_up(min(nmax, HALF), 8) * K_SLICE, 256)
+    return 4 * (TILE * ld + (STATE_FIELDS + 5) * TILE + RING_STAGES * stage) + 1024 + (
+        16 * RING_STAGES)
 
 
 def search_fits(decoder_expr) -> bool:
-    """Does K2 for this decoder fit one block's shared memory?  False for the
-    NPM family's 8x1024 offsets trunk (267,264 bytes), True for the NPHM
-    6x512 deformation trunk (136,192)."""
+    """Does K2 take this decoder's trunk?  Every non-head layer at most
+    ``MAX_WIDTH`` wide, and the shared memory within one block's: True for
+    the NPHM 6x512 deformation trunk (104,096 bytes), False for the NPM
+    family's 8x1024 offsets trunk."""
     tcfg = _trunk_of(decoder_expr)
-    return tcfg is not None and search_smem_bytes(tcfg) <= MAX_SMEM_BYTES
+    if tcfg is None:
+        return False
+    shapes, _skip = tcfg.layer_shapes
+    return (max(n_out for _n_in, n_out in shapes[:-1]) <= MAX_WIDTH
+            and search_smem_bytes(tcfg) <= MAX_SMEM_BYTES)
 
 
 @torch.no_grad()

@@ -90,3 +90,52 @@ def test_cpu_tensors_take_the_plain_version(pair):
     before = ens.nphm_sdf.launches
     ens.nphm_sdf(tp, td.cfg, torch.zeros((10, 3)), torch.tensor(lat))
     assert ens.nphm_sdf.launches == before
+
+
+@pytest.mark.parametrize("cull_eps", [0.0, ens.CULL_EPS, 1e-2])
+def test_work_list_blend_matches_plain_and_pallas(pair, cull_eps):
+    """K1's schedule in plain PyTorch (the compacted list of live (tile,
+    member) pairs, each tile's members blended in the list's order) equals
+    nphm_sdf_plain and the Pallas kernel in interpret mode, with culling
+    off, at the default eps and at 1e-2 (most pairs culled)."""
+    jd, jp, td, tp, lat = pair
+    xyz = (np.random.default_rng(3).normal(size=(3000, 3)) * 0.3).astype(np.float32)
+    xyz = xyz[np.argsort(xyz[:, 0])]  # tiles of nearby points, so culling fires
+    ref = jens.nphm_sdf_pallas(jp, jd.cfg, jnp.asarray(xyz), jnp.asarray(lat),
+                               tile=1024, cull_eps=cull_eps, interpret=True)
+    plain = ens.nphm_sdf_plain(tp, td.cfg, torch.tensor(xyz), torch.tensor(lat), tile=1024,
+                               cull_eps=cull_eps)
+    out = ens.nphm_sdf_work_list_plain(tp, td.cfg, torch.tensor(xyz), torch.tensor(lat),
+                                       tile=1024, cull_eps=cull_eps)
+    assert out.shape == (3000,)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_work_list_order():
+    """The list holds exactly the live pairs, tile-major, members
+    ascending; a tile with no live member has an empty range."""
+    active = torch.tensor([[0, 1, 1, 0], [0, 0, 0, 0], [1, 0, 0, 1], [1, 1, 1, 1]],
+                          dtype=torch.int32)
+    offsets, members = ens.work_list(active)
+    assert offsets.dtype == members.dtype == torch.int32
+    assert offsets.tolist() == [0, 2, 2, 4, 8]
+    assert members.tolist() == [1, 2, 0, 3, 0, 1, 2, 3]
+
+
+def test_points_per_block_match_csrc():
+    """ops.ensemble.POINTS is K1's block (csrc/tc_tile.cuh kRows points,
+    reported by nphm_ensemble_points_per_block), and the cull tiles of
+    ``nphm_sdf`` and ``nphm_grid_sdf`` are whole blocks."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(ens.__file__), "..", "csrc")
+    with open(os.path.join(csrc, "tc_tile.cuh")) as f:
+        rows = int(re.search(r"constexpr int kRows = (\d+);", f.read()).group(1))
+    with open(os.path.join(csrc, "ensemble_sdf.cu")) as f:
+        src = f.read()
+    assert "nphm_ensemble_points_per_block() { return field::kRows; }" in src
+    assert "kernel<<<(unsigned)(n_points / field::kRows), field::kThreads," in src
+    assert ens.POINTS == rows == 64
+    assert ens.DEFAULT_TILE % rows == 0 and ens.grid_tile(256)[0] % rows == 0

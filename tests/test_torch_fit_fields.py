@@ -112,26 +112,32 @@ def test_culled_tiles_write_zero(pair):
 
 # Products of K3, K4 and K5 over one 64-point tile at the NPHM widths, by
 # the kind of the A operand: "act" softplus activations (the forward
-# products of all three, and d(coords) through the 3-wide point weights),
-# "cot" signed cotangents (the reverse products of K4 and K5; K5's start
-# from wlast * softplus', K4's from wlast * dF * softplus').
+# products of all three and of K1, which runs K3's body, and d(coords)
+# through the 3-wide point weights), "cot" signed cotangents (the reverse
+# products of K4 and K5; K5's start from wlast * softplus', K4's from
+# wlast * dF * softplus').  Then K2's forward products through the 6x512
+# deformation trunk over its 32-lane tile ("act32": K = 512, the 277-wide
+# layer before the skip, and 515 = 512 + 3 inputs).
 TILE_PRODUCTS = [
     ("act", 200, 101), ("act", 101, 200), ("act", 200, 200), ("act", 200, 3),
     ("cot", 200, 200), ("cot", 200, 101), ("cot", 101, 200),
+    ("act32", 512, 512), ("act32", 512, 277), ("act32", 277, 512), ("act32", 515, 512),
 ]
 
 
 @pytest.mark.parametrize("kind,k,n", TILE_PRODUCTS)
 def test_3xtf32_split_holds_fp32_accuracy_at_k3_k4_k5_shapes(kind, k, n):
-    """K3's, K4's and K5's products in plain PyTorch at their 64-point tile,
-    with the in-register split (the small half truncated by the tensor
-    core): 3xTF32 within 1e-5 of the product's magnitude against float64;
-    one TF32 pass misses that bound."""
+    """K3's, K4's and K5's products (and K1's and K2's) in plain PyTorch at
+    their 64-point (K2: 32-lane) tile, with the in-register split (the
+    small half truncated by the tensor core): 3xTF32 within 1e-5 of the
+    product's magnitude against float64; one TF32 pass misses that
+    bound."""
     from nphm_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
 
     rng = np.random.default_rng(k * 1000 + n + (7 if kind == "cot" else 0))
-    if kind == "act":
-        a = np.log1p(np.exp(2.0 * rng.normal(size=(64, k)))).astype(np.float32)
+    rows = 32 if kind == "act32" else 64
+    if kind != "cot":
+        a = np.log1p(np.exp(2.0 * rng.normal(size=(rows, k)))).astype(np.float32)
     else:
         a = (rng.normal(size=(64, k)) * rng.uniform(0, 1, size=(64, k)) / np.sqrt(k))
         a = a.astype(np.float32)

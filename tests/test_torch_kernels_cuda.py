@@ -90,6 +90,106 @@ def test_k2_tiny_widths(device):
         assert int(k["iters"]) == int(p["iters"])
 
 
+def k2_case(device, hidden, n_layers, B, N, gain=1.0):
+    """A deformation trunk of the given width and depth (the tiny NPHM's
+    anchors), its offset head scaled by ``gain``, and search inputs.  Below
+    hidden 20 the latents shrink to 4 + 4, so that the layer before the
+    skip (hidden - d_in wide) keeps a positive width (5 at hidden 16)."""
+    shape, ps, _e, _pe, gen = tiny_models(device)
+    kw = dict(TINY_DEF, hidden_dim=hidden, n_layers=n_layers)
+    if hidden < 20:
+        kw.update(lat_dim_expr=4, lat_dim_id=4)
+    expr = make_deformation_decoder(DeformationConfig(**kw))
+    pe = expr.init(gen, device)
+    obs, cond, eye = smoke().search_inputs(shape, ps, expr, pe, gen, device, B, N)
+    head = pe["trunk"]["layers"][-1]
+    trunk = {"layers": pe["trunk"]["layers"][:-1] + [{k: v * gain for k, v in head.items()}]}
+    return trunk, expr.cfg.trunk_cfg, cond, obs, eye
+
+
+def assert_k2_matches(k, p, n_lanes):
+    """chip_smoke.py's K2 gates: roots and best residuals 1e-4 and J^-1
+    1e-2 on the lanes valid in both, n_valid within 0.5% of the lanes,
+    executed iterations within one (a lane next to the 1e-6 threshold may
+    cross it an iteration apart)."""
+    both = k["valid_ids"] & p["valid_ids"]
+    if both.any():
+        for key, tol in (("result", 1e-4), ("diff", 1e-4), ("j_inv", 1e-2)):
+            assert float((k[key] - p[key]).abs()[both].max()) <= tol, key
+    assert abs(int(k["valid_ids"].sum()) - int(p["valid_ids"].sum())) <= 0.005 * n_lanes
+    assert abs(int(k["iters"]) - int(p["iters"])) <= 1
+    assert bool(torch.isfinite(k["diff"]).all())
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 31), (1, 33), (1, 63), (1, 65), (5, 1000)])
+def test_k2_lane_counts(device, B, N):
+    """K2 at lane counts around its 32-lane tile (padding lanes never
+    active) and at the fit's 5 x 1000, cold and warm."""
+    trunk, tcfg, cond, obs, eye = k2_case(device, 72, 4, B, N)
+    before = srch.broyden_search.launches
+    x0, j0 = obs, eye
+    for budget in (15, 3):
+        k = srch.broyden_search(trunk, tcfg, cond, obs, x0, j0, budget)
+        p = srch.broyden_search_plain(trunk, tcfg, cond, obs, x0, j0, budget)
+        assert k["tile_iters"].shape == (-(-B * N // srch.TILE),)
+        assert_k2_matches(k, p, B * N)
+        x0, j0 = p["result"], p["j_inv"]
+    assert srch.broyden_search.launches == before + 2
+
+
+@pytest.mark.parametrize("hidden,n_layers", [(16, 4), (72, 4), (512, 6)])
+@pytest.mark.parametrize("gain", [1.0, 90.0])
+def test_k2_widths_and_hard_trunk(device, hidden, n_layers, gain):
+    """K2 at hidden widths 16 (two n8 tiles, the layer before the skip 5
+    wide), 72 (not a multiple of 16) and 512 (two 256-wide halves, the
+    layer before the skip 512 - d_in wide), on the random-init trunk and
+    with the offset head
+    scaled 90x (many lanes diverge, the rest need many iterations), budget
+    15 cold then 3 warm; two calls are bit-identical."""
+    trunk, tcfg, cond, obs, eye = k2_case(device, hidden, n_layers, 5, 1000, gain)
+    x0, j0 = obs, eye
+    for budget in (15, 3):
+        k = srch.broyden_search(trunk, tcfg, cond, obs, x0, j0, budget)
+        again = srch.broyden_search(trunk, tcfg, cond, obs, x0, j0, budget)
+        assert all(torch.equal(k[key], again[key]) for key in k)
+        p = srch.broyden_search_plain(trunk, tcfg, cond, obs, x0, j0, budget)
+        assert_k2_matches(k, p, 5000)
+        x0, j0 = p["result"], p["j_inv"]
+
+
+@pytest.mark.parametrize("hidden", [16, 72, 200])
+def test_k1_work_list_edges(device, monkeypatch, hidden):
+    """K1 over 5000 points (not a multiple of the 1024-point cull tile)
+    with a cull mask holding an all-culled tile, a tile with one live
+    member, one with the first and last, a fully live one and the real
+    mask's last tile, at hidden widths 16, 72 and 200; the kernel matches
+    the plain version and two calls are bit-identical."""
+    shape, params, gen = tiny_shape(device, hidden)
+    lat = (torch.randn(shape.lat_dim, generator=gen) * 0.1).to(device)
+    pts = (torch.rand((5000, 3), generator=gen) - 0.5).to(device)
+    real = ens.cull_mask
+
+    def mask(points, centers, var, tile, cull_eps):
+        a = real(points, centers, var, tile, cull_eps)
+        a[:4] = 0
+        a[1, 5] = 1
+        a[2, 0] = a[2, -1] = 1
+        a[3] = 1
+        return a
+
+    monkeypatch.setattr(ens, "cull_mask", mask)
+    before = ens.nphm_sdf.launches
+    out = ens.nphm_sdf(params, shape.cfg, pts, lat, tile=1024)
+    again = ens.nphm_sdf(params, shape.cfg, pts, lat, tile=1024)
+    assert ens.nphm_sdf.launches == before + 2
+    assert torch.equal(out, again)
+    ref = ens.nphm_sdf_plain(params, shape.cfg, pts, lat, tile=1024)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    bg = torch.tensor(float(np.exp(shape.cfg.blend_background_dist / shape.cfg.blend_var)),
+                      device=device)
+    assert torch.all(out[:1024] == bg / (bg + 1e-6))  # the culled tile: background only
+
+
 def tiny_shape(device, hidden):
     rng = np.random.default_rng(0)
     anchors = (rng.normal(size=(39, 3)) * 0.3).astype(np.float32)
@@ -302,9 +402,9 @@ def test_k7_posing_matches_cpu(device):
 
 
 def test_k2_refuses_npm_offsets_trunk(device):
-    """fused_search="on" with the 8x1024 NPM offsets trunk: K2 needs 267,264
-    bytes of shared memory, the launch is refused and raises (no fallback),
-    and the next launch is unaffected."""
+    """fused_search="on" with the 8x1024 NPM offsets trunk: its layers are
+    wider than K2's 512, the call is refused before any launch and raises
+    (no fallback), and the next launch is unaffected."""
     from nphm_tpu_torch.config import build_expression_decoder, load_yaml
 
     expr = build_expression_decoder(

@@ -194,17 +194,18 @@ def test_npm_extract_and_deform_match_jax(fitted):
     ("on", "cpu", True, True),
 ])
 def test_k2_shared_memory_gate(mode, device, npm, nphm):
-    """K2 needs 267,264 bytes of shared memory at the NPM offsets trunk's
-    hidden 1024 (over the card's 232,448 a block) and 136,192 at the NPHM
-    6x512 trunk: "auto" fuses only the latter; "on" always routes to K2."""
+    """K2 takes layers at most 512 wide (the NPM offsets trunk's are 1024;
+    its shared memory would be 169,632 bytes) and needs 104,096 bytes of
+    shared memory at the NPHM 6x512 trunk (the card gives a block 232,448):
+    "auto" fuses only the latter; "on" always routes to K2."""
     from nphm_tpu_torch.ops.search import search_smem_bytes
 
     npm_dec = config.build_expression_decoder(
         config.load_yaml(os.path.join(ROOT, "configs", "npm_def.yaml")), "npm")
     nphm_dec = config.build_expression_decoder(
         config.load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml")), "compress")
-    assert search_smem_bytes(npm_dec.cfg) == 267264
-    assert search_smem_bytes(nphm_dec.cfg.trunk_cfg) == 136192
+    assert search_smem_bytes(npm_dec.cfg) == 169632
+    assert search_smem_bytes(nphm_dec.cfg.trunk_cfg) == 104096
     cfg = FittingConfig(fused_search=mode)
     dev = torch.device(device)
     assert inference._use_fused_search(npm_dec, cfg, dev) is npm

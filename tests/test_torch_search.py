@@ -186,3 +186,77 @@ def test_cpu_tensors_take_the_plain_version():
     broyden_search(tp["trunk"], td.cfg.trunk_cfg, c, torch.tensor(obs),
                    torch.tensor(obs), torch.tensor(eye(obs)), 2)
     assert broyden_search.launches == before
+
+
+def _trunk_residual_3xtf32(layers, tcfg, x, obs, rows):
+    """``ops.search._trunk_residual`` with K2's arithmetic: the hidden
+    products as 3xTF32 with the in-register split (``csrc/tc_tile.cuh``
+    ``split_mma``: the small half truncated by the tensor core), layer 0,
+    the skip layer's point term and the head in fp32."""
+    from nphm_tpu_torch.models.mlp import softplus_beta
+    from nphm_tpu_torch.ops.tf32 import matmul_3xtf32
+
+    _shapes, skip_in = tcfg.layer_shapes
+    h = None
+    for i, lay in enumerate(layers[:-1]):
+        if i == 0:
+            z = x @ lay["wp"].T + lay["b"][rows]
+        else:
+            z = matmul_3xtf32(h, lay["w"].T, small="trunc")
+            z = z + x @ lay["wp"].T + lay["b"][rows] if i == skip_in else z + lay["b"]
+        h = softplus_beta(z, tcfg.beta)
+    delta = (h @ layers[-1]["w"].T + layers[-1]["b"])[:, :3]
+    return (x + delta) - obs
+
+
+@pytest.mark.parametrize("budget", [3, 15])
+@pytest.mark.parametrize("gain", [1.0, 10.0])
+def test_3xtf32_search_converges_on_the_same_lanes(monkeypatch, budget, gain):
+    """K2's tensor-core products do not stall the residuals above the 1e-6
+    convergence threshold (one TF32 or bf16 pass would): the plain search
+    with its hidden products emulated in 3xTF32 converges on the same
+    lanes as the fp32 plain search and the roots agree within 1e-5.  Each
+    tile runs the same iterations within one: a lane whose best residual
+    lands next to 1e-6 may cross it one iteration apart, and fp32 products
+    summed in reverse order, or taken in float64, move the same tiles by
+    one at gain 10 and budget 15 (2 of 44 tiles)."""
+    from nphm_tpu_torch.ops import search as srch
+
+    jd, jp, td, tp, obs, cond, anchors = setup(cond_scale=1.0, gain=gain)
+    c = torch.tensor(trunk_cond(jd, jp, obs, cond, anchors))
+    args = (tp["trunk"], td.cfg.trunk_cfg, c, torch.tensor(obs), torch.tensor(obs),
+            torch.tensor(eye(obs)), budget)
+    ref = srch.broyden_search_plain(*args)
+    monkeypatch.setattr(srch, "_trunk_residual", _trunk_residual_3xtf32)
+    out = srch.broyden_search_plain(*args)
+    assert torch.equal(out["valid_ids"], ref["valid_ids"])
+    assert int((out["tile_iters"] - ref["tile_iters"]).abs().max()) <= 1
+    assert abs(int(out["iters"]) - int(ref["iters"])) <= 1
+    np.testing.assert_allclose(out["result"].numpy(), ref["result"].numpy(), atol=1e-5)
+    np.testing.assert_allclose(out["diff"].numpy(), ref["diff"].numpy(), atol=1e-5)
+
+
+def test_tile_matches_csrc():
+    """ops.search's tile, width limit and shared-memory mirror follow the
+    kernel's constants (csrc/broyden_search.cu), so the plain version's
+    per-tile exit and ``search_fits`` describe the kernel that runs."""
+    import os
+    import re
+
+    from nphm_tpu_torch.ops import search as srch
+
+    with open(os.path.join(os.path.dirname(srch.__file__), "..", "csrc",
+                           "broyden_search.cu")) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert srch.TILE == const("kLanes") == 32
+    assert (srch.K_SLICE, srch.RING_STAGES, srch.HALF) == (
+        const("kKS"), const("kStages"), const("kHalf"))
+    assert "constexpr int kMaxWidth = 2 * kHalf;" in src
+    assert srch.MAX_WIDTH == 2 * srch.HALF
+    assert srch.STATE_FIELDS == int(re.search(r"kFields = (\d+)", src).group(1))
+    assert "nphm_search_lanes_per_block() { return kLanes; }" in src
+    assert "const int64_t blocks = n_pad / kLanes;" in src
