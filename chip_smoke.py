@@ -43,6 +43,23 @@ Phases, in order; any failure exits non-zero:
    memory does not fit the 8x1024 offsets trunk, so its counter must stay
    at 0), ``extract_mesh`` at res 256 and ``deform_mesh_batch`` through K7,
    one PLY export; then the NPM grid through K7 against its plain version.
+7. The batched fit and the fitting CLI (NPHM models of phase 2): K2, K3
+   and K4 at the batched launch shapes (8 subjects x 5 scans = 40 rows of
+   1000 points, K2's lanes padded per subject) against their plain
+   versions, timed and bounded; ``fit_joint_batch`` on 8 subjects of 20
+   scans x 2500 points for 300 steps (K2-K4's counters must move), then 5
+   batched steps through the kernels against the plain path on the same
+   draws from seeded shape codes, and two subjects through ``fit_joint``
+   on their draws against the batched fit.  Then ``python -m nphm_tpu_torch.fitting_pointclouds``
+   in a child process on a dummy tree with port checkpoints of the phase-2
+   models: ``-demo -batch_subjects 2 -n_steps 50 -resolution 256`` and
+   ``-sample -n_samples 1``; every PLY and latent file must exist with a
+   non-empty mesh, ``FIT_PHASE_TIMINGS`` must parse, and the child's K1,
+   K2, K3, K4 and K7 counters must move.
+
+Each kernel's entry in the table holds its launches summed over the
+paths of phases 4-7, and under "at" its rows at other shapes (K1 on the
+res-256 grid, K2-K4 at the batched shapes).
 
 The second-to-last line is the kernel table as JSON, the last line the
 device record as JSON.  Nothing here imports JAX or the JAX package.
@@ -63,6 +80,8 @@ GRID_MIN = (-0.55, -0.5, -0.95)
 GRID_MAX = (0.55, 0.75, 0.4)
 FIT_STEPS = 300
 EXTRACT_RES = 256
+BATCH_SUBJECTS = 8  # phase 7's batched fit (the JAX package's protocol group)
+CLI_STEPS = 50  # phase 7's CLI fit
 K7_GRID_POINTS = 1 << 20  # K7's check (a): points of the res-256 grid
 K7_MESH_POINTS = 1 << 19  # checks (b), (c): points of a warped sphere
 
@@ -79,6 +98,8 @@ TOL_K5 = 1e-4  # F and G, absolute
 TOL_K6 = 1e-4  # every gradient, relative to the plain version's max magnitude
 # 5-step fit, kernels vs plain path: Adam amplifies ordering noise
 TOL_FIT_RTOL, TOL_FIT_ATOL = 1e-3, 5e-4
+# std of the shape codes phase 7's 5-step batched checks start from
+LAT_INIT_STD = 0.05
 # 3 training steps, kernels vs plain path: |d_kernel - d_plain| / |d_plain|
 # for the change d = after - before of the params and of each latent table
 # (L2 norms; measured on an H100: 2.1e-6, 2.7e-6 and 4.9e-5).  Not an
@@ -351,8 +372,13 @@ def check_k1(shape, params, gen, device, rows):
     """K1 against its plain version on the 64^3 brick grid and on 256k
     random points, culling on and off; timed on the 64^3 grid (the table's
     row, beside its plain version and the ``baddbmm`` chain) and on the
-    res-256 extraction grid, K1's launch on the main paths (too large for
-    the plain version and the chain: not measured there)."""
+    res-256 extraction grid, K1's launch on the main paths (row
+    ``ensemble_sdf@res256``).  At res 256 the plain version and the chain
+    run over 2^18-point chunks of the brick-ordered grid (whole cull
+    tiles, so the plain version culls as on the whole grid; one pass
+    holds ~25 GB), timed end to end over all 64 chunks; every chunk of
+    the plain version is held against the same points of one kernel
+    launch over the whole grid."""
     import torch
 
     from nphm_tpu_torch.ops.ensemble import (
@@ -360,6 +386,7 @@ def check_k1(shape, params, gen, device, rows):
         DEFAULT_TILE,
         _brick_points,
         _prepare,
+        _unbrick_gather,
         grid_tile,
         nphm_grid_sdf,
         nphm_sdf,
@@ -413,14 +440,49 @@ def check_k1(shape, params, gen, device, rows):
         else:
             ms_r = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, res),
                            2)
+            chunk = 1 << 18
+            grid = _brick_points(axes, torch.arange(res**3, device=device), res, brick,
+                                 tile)
+            # the kernel once over the whole brick-ordered grid, as
+            # nphm_grid_sdf launches it; each plain chunk is held against
+            # its slice (the running max stays on the device, so the
+            # timed passes do not wait on it)
+            kern = nphm_sdf(params, cfg, grid, lat, tile=tile)
+            expect(torch.equal(
+                nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, res),
+                kern[_unbrick_gather(res, brick, tile, device)]),
+                "K1 over the res-256 brick grid differs from nphm_grid_sdf's launch")
+            err_r = torch.zeros((), device=device)
+
+            def plain_chunks():
+                nonlocal err_r
+                for c0 in range(0, res**3, chunk):
+                    p = nphm_sdf_plain(params, cfg, grid[c0 : c0 + chunk], lat, tile=tile)
+                    err_r = torch.maximum(err_r, (p - kern[c0 : c0 + chunk]).abs().max())
+
+            plain_r = cuda_ms(plain_chunks, 1)
+            err_r = float(err_r)
+            expect(bool(torch.isfinite(kern).all()), "K1 non-finite on the res-256 grid")
+            del grid, kern
+            torch.cuda.empty_cache()
+            lib_r = baddbmm_chain_ms(cfg, cfg.n_members, chunk, "f", device,
+                                     res**3 // chunk) * (res**3 // chunk)
             log(f"[K1] res-{res} brick grid (the extraction's launch), cull on: kernel "
-                f"{ms_r:.3f} ms ({res**3 / ms_r / 1e3:.2f} M q/s); {pairs} live (point, "
-                f"member) pairs, {bound_note(flops, b)}; plain and baddbmm chain not "
-                f"measured at this size")
+                f"{ms_r:.3f} ms ({res**3 / ms_r / 1e3:.2f} M q/s), plain over 2^18-point "
+                f"chunks {plain_r:.3f} ms, baddbmm chain over the same chunks (all members, "
+                f"no culling) {lib_r:.3f} ms; {pairs} live (point, member) pairs, "
+                f"{bound_note(flops, b)}; max|err| over all {res**3} points {err_r:.3e} "
+                f"(tol {TOL_K1:g})")
+            expect(err_r <= TOL_K1, "K1 disagrees with its plain version on the res-256 grid")
+            rows["ensemble_sdf@res256"] = dict(max_abs_err=err_r, ms=ms_r, plain_ms=plain_r,
+                                               library_ms=lib_r, **b)
         torch.cuda.empty_cache()
 
 
-def search_inputs(shape, params_shape, expr, params_expr, gen, device, B, N):
+def search_inputs(shape, params_shape, expr, params_expr, gen, device, B, N,
+                  subjects: int = 1):
+    """K2's inputs for B rows of N points: ``subjects`` shape codes, each
+    conditioning B / subjects consecutive rows (a batched fit's folding)."""
     import numpy as np
     import torch
 
@@ -428,10 +490,11 @@ def search_inputs(shape, params_shape, expr, params_expr, gen, device, B, N):
     from nphm_tpu_torch.models.ensemble import predict_anchors
 
     obs = torch.tensor(np.stack(observations(B, N, SEED + 1)), device=device)
-    lat_s = (torch.randn((1, shape.lat_dim), generator=gen) * 0.01).to(device)
+    lat_s = (torch.randn((subjects, shape.lat_dim), generator=gen) * 0.01).to(device)
     lat_e = (torch.randn((B, expr.lat_dim), generator=gen) * 0.01).to(device)
-    anchors = predict_anchors(params_shape, shape.cfg, lat_s).expand(B, -1, -1)
-    cond_lat = torch.cat([lat_s.expand(B, -1), lat_e], dim=-1)
+    rep = B // subjects
+    anchors = predict_anchors(params_shape, shape.cfg, lat_s).repeat_interleave(rep, dim=0)
+    cond_lat = torch.cat([lat_s.repeat_interleave(rep, dim=0), lat_e], dim=-1)
     with torch.no_grad():
         cond = conditioning(params_expr, expr.cfg, cond_lat, anchors)
     eye = torch.eye(3, device=device).expand(B, N, 3, 3).contiguous()
@@ -511,7 +574,12 @@ def check_k2(shape, params_shape, expr, params_expr, gen, device, rows):
     rows["broyden_search"]["max_abs_err"] = err_x
 
 
-def check_k3_k4(shape, params, gen, device, rows):
+def check_k3_k4(shape, params, gen, device, rows, B: int = 5, subjects: int = 1,
+                suffix: str = ""):
+    """K3 and K4 on B rows of N = 1000 points (Morton-sorted, padded to the
+    512-point tile), ``subjects`` shape codes each conditioning B / subjects
+    rows, against their plain versions; rows ``fit_fwd{suffix}`` and
+    ``fit_bwd{suffix}``."""
     import numpy as np
     import torch
 
@@ -525,10 +593,10 @@ def check_k3_k4(shape, params, gen, device, rows):
     )
 
     cfg = shape.cfg
-    B, N, tile = 5, 1000, 512
+    N, tile = 1000, 512
     xyz = torch.tensor(np.stack(observations(B, N, SEED + 2)), device=device)
-    lat = (torch.randn((1, cfg.lat_dim), generator=gen) * 0.01).to(device).expand(B, -1)
-    lat = lat.contiguous().requires_grad_(True)
+    lat = (torch.randn((subjects, cfg.lat_dim), generator=gen) * 0.01).to(device)
+    lat = lat.repeat_interleave(B // subjects, dim=0).contiguous().requires_grad_(True)
     perm = torch.argsort(morton_codes(xyz), dim=1, stable=True)
     xyz = torch.gather(xyz, 1, perm[..., None].expand(B, N, 3))
     Np = -(-N // tile) * tile
@@ -576,12 +644,16 @@ def check_k3_k4(shape, params, gen, device, rows):
     M = B * Np
     lib3 = baddbmm_chain_ms(cfg, A, M, "f", device, 10)
     lib4 = baddbmm_chain_ms(cfg, A, M, "fr", device, 10)
-    log(f"[K3] M=5x1024: kernel {ms3:.3f} ms, plain {plain3:.3f} ms, baddbmm chain "
+    log(f"[K3] M={B}x{Np}: kernel {ms3:.3f} ms, plain {plain3:.3f} ms, baddbmm chain "
         f"{lib3:.3f} ms; {pairs} live (point, member) pairs, {bound_note(flops3, b3)}")
-    log(f"[K4] M=5x1024: kernel {ms4:.3f} ms, plain backward {plain4:.3f} ms, baddbmm "
+    log(f"[K4] M={B}x{Np}: kernel {ms4:.3f} ms, plain backward {plain4:.3f} ms, baddbmm "
         f"forward + reverse chains {lib4:.3f} ms; {bound_note(flops4, b4)}")
-    rows["fit_fwd"] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3, library_ms=lib3, **b3)
-    rows["fit_bwd"] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4, library_ms=lib4, **b4)
+    rows["fit_fwd" + suffix] = dict(max_abs_err=e3, ms=ms3, plain_ms=plain3,
+                                    library_ms=lib3, **b3)
+    rows["fit_bwd" + suffix] = dict(max_abs_err=e4, ms=ms4, plain_ms=plain4,
+                                    library_ms=lib4, **b4)
+    del Fk, Fp, gk, gp
+    torch.cuda.empty_cache()
 
 
 def train_batch(n_rows: int, seed: int):
@@ -985,7 +1057,7 @@ def main_path(models, device):
     for name in ("ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
         expect(counts[name] > 0, f"kernel {name} was not launched on the fit path")
     check_fit_reference(models, obs, device)
-    return counts
+    return counts, steady
 
 
 def check_fit_reference(models, obs, device):
@@ -1252,6 +1324,319 @@ def npm_path(npm, device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the batched fit and the fitting CLI
+# ---------------------------------------------------------------------------
+
+
+def batch_observations():
+    """BATCH_SUBJECTS subjects, each 20 scans x 2500 points from its own seed."""
+    return [observations(20, 2500, SEED + 100 + s) for s in range(BATCH_SUBJECTS)]
+
+
+def check_batched_kernels(models, device, rows):
+    """K2, K3 and K4 at the batched fit's launch shapes: 8 subjects x 5
+    scans = 40 rows of 1000 points, each subject's shape code conditioning
+    its 5 rows; K2's lanes in 8 per-subject groups of 5000, each padded to
+    5024 (157 tiles).  K2 cold at budget 15 (the table's row, as in phase
+    3) then warm at budget 3 from the plain result (the fit's launch after
+    its first step), each against its plain version with phase 3's
+    tolerances, per-subject iterations within one, two calls bit-identical."""
+    import torch
+
+    from nphm_tpu_torch.ops.search import (
+        TILE,
+        broyden_search,
+        broyden_search_plain,
+        lane_layout,
+    )
+
+    shape, params_shape, expr, params_expr, gen = models
+    S, N = BATCH_SUBJECTS, 1000
+    B = 5 * S
+    obs, cond, eye = search_inputs(shape, params_shape, expr, params_expr, gen, device,
+                                   B, N, subjects=S)
+    tcfg = expr.cfg.trunk_cfg
+    trunk = params_expr["trunk"]
+    shapes, skip = tcfg.layer_shapes
+    fmas = trunk_fmas(shapes, skip, tcfg.d_in_spatial, tcfg.d_in)
+    wbytes = 4 * sum(lay["w"].numel() + lay["b"].numel() for lay in trunk["layers"])
+    n_pad, g_pad, g_real = lane_layout(B * N, S)
+    real = [min(TILE, max(0, g_real - (t * TILE) % g_pad)) for t in range(n_pad // TILE)]
+    err, warm = 0.0, None
+    for budget in (15, 3):
+        x0, j0 = (obs, eye) if warm is None else (warm["result"], warm["j_inv"])
+
+        def run(fn=broyden_search):
+            return fn(trunk, tcfg, cond, obs, x0, j0, budget, groups=S)
+
+        k, k2, p = run(), run(), run(broyden_search_plain)
+        both = k["valid_ids"] & p["valid_ids"]
+        ex = float((k["result"] - p["result"]).abs()[both].max()) if both.any() else 0.0
+        eb = float((k["diff"] - p["diff"]).abs()[both].max()) if both.any() else 0.0
+        ej = float((k["j_inv"] - p["j_inv"]).abs()[both].max()) if both.any() else 0.0
+        nk, np_ = int(k["valid_ids"].sum()), int(p["valid_ids"].sum())
+        gk, gp = k["group_iters"].tolist(), p["group_iters"].tolist()
+        log(f"[K2x{S}] budget {budget}, {B} rows x {N} (8 groups of {g_real} lanes padded "
+            f"to {g_pad}): n_valid kernel {nk} plain {np_}; per-subject iterations kernel "
+            f"{gk} plain {gp}; valid-in-both max|dx| {ex:.3e} max|dbn| {eb:.3e} (tol "
+            f"{TOL_K2_X:g}) max|dJ| {ej:.3e} (tol {TOL_K2_J:g}); two calls bit-identical")
+        expect(bool(torch.isfinite(k["diff"]).all()), "batched K2 non-finite residuals")
+        expect(ex <= TOL_K2_X and eb <= TOL_K2_X and ej <= TOL_K2_J,
+               "batched K2 disagrees with its plain version")
+        expect(abs(nk - np_) <= TOL_K2_NVALID * B * N, "batched K2 n_valid disagrees")
+        expect(all(abs(a - b) <= 1 for a, b in zip(gk, gp)),
+               "batched K2's per-subject iterations differ from the plain search's by more "
+               "than one")
+        expect(all(torch.equal(k[key], k2[key]) for key in k),
+               "two batched K2 calls on the same inputs differ")
+        err = max(err, ex, eb)
+        evals = sum(r * (1 + i) for r, i in zip(real, k["tile_iters"].cpu().tolist()))
+        ms = cuda_ms(run, 5)
+        plain_ms = cuda_ms(lambda: run(broyden_search_plain), 3)
+        flops = 2.0 * fmas * evals
+        b = bound(flops, B * N * 4 * (15 + 14) + wbytes)
+        log(f"[K2x{S}] budget {budget}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+            f"{n_pad // TILE} tiles, {evals} trunk evaluations, {bound_note(flops, b)}")
+        if budget == 15:
+            rows["broyden_search@S8"] = dict(ms=ms, plain_ms=plain_ms, **b)
+        else:
+            rows["broyden_search@S8"]["warm_budget3_ms"] = ms
+        warm = p
+    rows["broyden_search@S8"]["max_abs_err"] = err
+    del obs, cond, eye, k, k2, p, warm
+    torch.cuda.empty_cache()
+    check_k3_k4(models[0], params_shape, gen, device, rows, B=B, subjects=S, suffix="@S8")
+
+
+def batch_path(models, device, serial_it_s: float):
+    """``fit_joint_batch`` on BATCH_SUBJECTS subjects for FIT_STEPS steps,
+    then the 5-step batched fit against the plain path and per-subject
+    ``fit_joint``."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.fitting import FittingConfig, fit_joint_batch
+
+    shape, params_shape, expr, params_expr, _gen = models
+    subjects = batch_observations()
+    cfg = FittingConfig(n_steps=FIT_STEPS, seed=SEED)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat_exprs, lat_shapes, anchors, hist = fit_joint_batch(
+        shape, params_shape, expr, params_expr, subjects, cfg=cfg, device=device,
+        verbose=False)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = read_counters()
+    loss = hist["loss"]
+    sss = hist["steady_subject_steps_s"]
+    log(f"[batch-fit] {BATCH_SUBJECTS} subjects x {FIT_STEPS} steps in {t_fit:.2f} s; "
+        f"steady {sss:.2f} subject-steps/s, {1e3 * BATCH_SUBJECTS / sss:.2f} ms a step "
+        f"(first step {hist['first_step_s']:.2f} s excluded), against {serial_it_s:.2f} "
+        f"it/s of phase 4's serial fit ({sss / serial_it_s:.2f}x); loss mean "
+        f"{float(loss[0].mean()):.5f} -> {float(loss[-1].mean()):.5f}; executed Broyden "
+        f"iterations mean {float(hist['broyden_iters'].mean()):.2f}, per subject "
+        f"{np.round(hist['broyden_iters'].mean(axis=0), 2).tolist()}")
+    log(f"[counters] batched fit: {json.dumps(counts)}")
+    expect(bool(np.isfinite(loss).all()), "batched fit loss history is not finite")
+    expect(all(np.isfinite(x).all() for x in lat_exprs + lat_shapes + anchors),
+           "batched fit latents are not finite")
+    for name in ("broyden_search", "fit_fwd", "fit_bwd"):
+        expect(counts[name] > 0, f"kernel {name} was not launched by the batched fit")
+    check_batch_reference(models, subjects, device)
+    return counts
+
+
+def check_batch_reference(models, subjects, device):
+    """5 batched steps through K2-K4 against the plain path (``"off"``) on
+    the same draws, then the same draws through ``fit_joint`` for two
+    subjects; then the zero start that users run.
+
+    The 5-step checks start the shape codes from a seeded draw (std
+    LAT_INIT_STD), not zero.  At zero the codes of each symmetric member
+    pair coincide, and symm_dist's gradient, the direction of their
+    difference, is then set by rounding: from zero, five steps of two fits
+    whose sums differ only in order put a code up to 2.8e-3 apart on an
+    H100 (kernels against the plain path, and batched against
+    per-subject ``fit_joint`` alike; largest in the symmetric pairs 12/13
+    and 20/21), where one step agrees within 2.4e-5.  So from zero one
+    step of the kernels is held against the plain path under the same
+    tolerance, and the 5-step readings from zero are logged beside a
+    witness with no kernel in it: the plain path against itself with
+    each subject's rows in another order."""
+    import numpy as np
+
+    from nphm_tpu_torch.fitting import FittingConfig, fit_joint, fit_joint_batch
+
+    shape, params_shape, expr, params_expr, _gen = models
+    steps, nb, npp, S = 5, 5, 1000, len(subjects)
+    rng = np.random.default_rng(SEED + 7)
+    sel = rng.integers(0, len(subjects[0]), size=(steps, S, nb))
+    idx = rng.integers(0, len(subjects[0][0]), size=(steps, S, nb, npp))
+    init = (rng.normal(size=(S, shape.lat_dim)) * LAT_INIT_STD).astype(np.float32)
+    perm = rng.permutation(nb)
+
+    def batch(mode, n=steps, start=init, draws=(sel, idx)):
+        cfg = FittingConfig(n_steps=n, fused_search=mode, fused_shape_fields=mode)
+        return fit_joint_batch(shape, params_shape, expr, params_expr, subjects, cfg=cfg,
+                               device=device, verbose=False,
+                               sample_draws=tuple(d[:n] for d in draws),
+                               lat_shape_init=start)
+
+    def diffs(x, y):
+        (le, ls, _, h), (rle, rls, _, rh) = x, y
+        pairs = [("lat_shape", a, b) for a, b in zip(ls, rls)]
+        pairs += [("lat_expr", a, b) for a, b in zip(le, rle)]
+        pairs.append(("loss", h["loss"], rh["loss"]))
+        errs = {}
+        for key, a, b in pairs:
+            errs[key] = max(errs.get(key, 0.0), float(np.abs(a - b).max()))
+        close = all(np.allclose(a, b, rtol=TOL_FIT_RTOL, atol=TOL_FIT_ATOL)
+                    for _, a, b in pairs)
+        return errs, close
+
+    out = {mode: batch(mode) for mode in ("auto", "off")}
+    (le, ls, _, h), (_, _, _, rh) = out["auto"], out["off"]
+    errs, close = diffs(out["auto"], out["off"])
+    log(f"[batch-check] {steps} steps x {S} subjects, kernels vs plain path: max|diff| "
+        f"{json.dumps(errs)}; n_valid {h['n_valid'].sum(axis=1).tolist()} vs "
+        f"{rh['n_valid'].sum(axis=1).tolist()}; iterations kernel "
+        f"{h['broyden_iters'].tolist()} plain {rh['broyden_iters'].tolist()} (rtol "
+        f"{TOL_FIT_RTOL:g}, atol {TOL_FIT_ATOL:g})")
+    expect(close, "the batched kernel fit disagrees with the plain-path batched fit")
+    expect(bool(np.all(np.abs(h["n_valid"] - rh["n_valid"]) <= TOL_K2_NVALID * nb * npp)),
+           "the batched kernel fit's n_valid disagrees with the plain path's")
+    cfg = FittingConfig(n_steps=steps)
+    for s in (0, S - 3):
+        sle, sls, _, sh = fit_joint(shape, params_shape, expr, params_expr, subjects[s],
+                                    cfg=cfg, device=device, verbose=False,
+                                    sample_draws=(sel[:, s], idx[:, s]),
+                                    lat_shape_init=init[s])
+        e = {"lat_shape": float(np.abs(sls - ls[s]).max()),
+             "lat_expr": float(np.abs(sle - le[s]).max()),
+             "loss": float(np.abs(sh["loss"] - h["loss"][:, s]).max())}
+        log(f"[batch-check] subject {s} through fit_joint on its draws vs the batched fit: "
+            f"max|diff| {json.dumps(e)}; iterations {sh['broyden_iters'].tolist()} vs "
+            f"{h['broyden_iters'][:, s].tolist()}")
+        for a, b in ((sls, ls[s]), (sle, le[s]), (sh["loss"], h["loss"][:, s])):
+            expect(bool(np.allclose(a, b, rtol=TOL_FIT_RTOL, atol=TOL_FIT_ATOL)),
+                   f"subject {s}'s fit_joint disagrees with the batched fit")
+
+    # the zero start: one step checked, five logged beside the witness
+    reordered = (sel[:, :, perm], idx[:, :, perm])
+    for n in (1, steps):
+        plain = batch("off", n, None)
+        k_vs_p, close = diffs(batch("auto", n, None), plain)
+        p_vs_p, _ = diffs(plain, batch("off", n, None, reordered))
+        log(f"[batch-check] zero start, {n} step(s) x {S} subjects: kernels vs plain path "
+            f"max|diff| {json.dumps(k_vs_p)}; plain vs plain with each subject's rows "
+            f"reordered {perm.tolist()} max|diff| {json.dumps(p_vs_p)}")
+        if n == 1:
+            expect(close, "one batched kernel step from zero disagrees with the plain path")
+
+
+def write_experiments(models, env):
+    """Port-format checkpoints (epoch 1) and ``configs.yaml`` of the phase-2
+    NPHM models, and a latent prior for ``-sample``, into a dummy tree's
+    experiment and asset folders; returns the fitting config's path."""
+    import shutil
+
+    import numpy as np
+    import yaml
+
+    from nphm_tpu_torch.training.checkpoints import save_checkpoint
+    from nphm_tpu_torch.utils.params import to_numpy_pytree
+
+    shape, params_shape, _expr, params_expr, _gen = models
+    exp = env["NPHM_EXPERIMENT_DIR"]
+    for name, cfg_file, params in (("smoke_shape", "nphm.yaml", params_shape),
+                                   ("smoke_expr", "nphm_def.yaml", params_expr)):
+        os.makedirs(os.path.join(exp, name))
+        shutil.copy(os.path.join(ROOT, "configs", cfg_file),
+                    os.path.join(exp, name, "configs.yaml"))
+        save_checkpoint(os.path.join(exp, name, "checkpoints"), 1,
+                        {"params": to_numpy_pytree(params)})
+    np.save(os.path.join(env["NPHM_ASSETS"], "nphm_lat_mean.npy"),
+            np.zeros(shape.lat_dim, np.float32))
+    np.save(os.path.join(env["NPHM_ASSETS"], "nphm_lat_std.npy"),
+            np.full(shape.lat_dim, 0.01, np.float32))
+    path = os.path.join(exp, "fitting_smoke.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"exp_name_shape": "smoke_shape", "checkpoint_shape": 1,
+                        "mode": "compress", "local_shape": True, "local_expr": False,
+                        "exp_name_expr": "smoke_expr", "checkpoint_expr": 1}, f)
+    return path
+
+
+def cli_path(models):
+    """``python -m nphm_tpu_torch.fitting_pointclouds``'s ``main`` in a child
+    process whose environment names a dummy tree: ``-demo -batch_subjects 2
+    -n_steps 50 -resolution 256``, then ``-sample -n_samples 1``."""
+    import numpy as np
+
+    from nphm_tpu_torch.data.dummy import dummy_env, generate_dummy_data
+    from nphm_tpu_torch.utils.mesh_io import read_ply
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "dummy")
+        generate_dummy_data(root, n_supervision=2000)
+        env = dummy_env(root)
+        cfg_path = write_experiments(models, env)
+        base = ["-cfg_file", cfg_path, "-exp_name", "smoke", "-resolution", str(EXTRACT_RES)]
+        argvs = [base + ["-exp_tag", "demo", "-demo", "-batch_subjects", "2", "-n_steps",
+                         str(CLI_STEPS)],
+                 base + ["-exp_tag", "sample", "-sample", "-n_samples", "1"]]
+        code = (f"import json, sys\nsys.path.insert(0, {ROOT!r})\nimport chip_smoke as c\n"
+                f"from nphm_tpu_torch.fitting_pointclouds import main\nc.reset_counters()\n"
+                f"for argv in {argvs!r}:\n    main(argv)\n"
+                f"print('CLI_COUNTERS ' + json.dumps(c.read_counters()), flush=True)\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tmp, capture_output=True,
+                              text=True, env={**os.environ, **env}, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            if line.startswith(("[fit_joint_batch]", "FIT_PHASE_TIMINGS", "sample ",
+                                "exported ", "screenshot")):
+                log(f"[cli] {line}")
+        expect(proc.returncode == 0, f"the fitting CLI failed (exit {proc.returncode}):\n"
+               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        timings = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                   if ln.startswith("FIT_PHASE_TIMINGS ")]
+        counts = [json.loads(ln.split(" ", 1)[1]) for ln in lines
+                  if ln.startswith("CLI_COUNTERS ")]
+        expect(len(timings) == 1 and len(timings[0]["fit_group_walls_s"]) == 1,
+               "the CLI printed no FIT_PHASE_TIMINGS line of one batched group")
+        expect(len(counts) == 1, "the CLI child printed no launch counters")
+        out_dir = os.path.join(env["NPHM_FITTING_DIR"], "forward_smoke", "demo")
+        expect(os.path.exists(os.path.join(out_dir, "configs.yaml")), "no configs.yaml")
+        n_verts = []
+        for subj in (351, 365):
+            for e in (0, 1):
+                mesh = read_ply(os.path.join(out_dir, f"{subj}_{e}.ply"))
+                expect(len(mesh.vertices) > 0 and len(mesh.faces) > 0
+                       and bool(np.isfinite(mesh.vertices).all()),
+                       f"empty or non-finite mesh {subj}_{e}.ply")
+                n_verts.append(len(mesh.vertices))
+                for kind in ("lat_shape", "lat_expr"):
+                    lat = np.load(os.path.join(out_dir, f"{subj}_{e}_{kind}.npy"))
+                    expect(bool(np.isfinite(lat).all()), f"{subj}_{e}_{kind}.npy not finite")
+        samples = os.path.join(tmp, "nphm_shape_space_samples_085")
+        sample = read_ply(os.path.join(samples, "mesh_0000.ply"))
+        expect(len(sample.vertices) > 0, "the -sample mesh is empty")
+        expect(np.load(os.path.join(samples, "lat_0000.npy")).shape == (1, models[0].lat_dim),
+               "the -sample latent has the wrong shape")
+    log(f"[cli] demo (2 subjects x 2 expressions, one batched group) and one sample in "
+        f"{wall:.2f} s (child process included); posed meshes {n_verts} vertices, sample "
+        f"{len(sample.vertices)}; FIT_PHASE_TIMINGS {json.dumps(timings[0])}")
+    log(f"[counters] CLI: {json.dumps(counts[0])}")
+    for name in ("ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
+        expect(counts[0][name] > 0, f"kernel {name} was not launched by the CLI")
+    return counts[0]
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -1274,15 +1659,21 @@ def run():
     models = build_models(device)
     npm = build_npm_models(device)
     rows = kernel_checks(models, npm, device)
-    fit_counts = main_path(models, device)
+    fit_counts, serial_it_s = main_path(models, device)
     train_counts = train_path(models, device)
     npm_counts = npm_path(npm, device)
+    check_batched_kernels(models, device, rows)
+    batch_counts = batch_path(models, device, serial_it_s)
+    cli_counts = cli_path(models)
+    paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts)
     table = []
     for name, (source, replaces) in KERNELS.items():
+        # rows of the same kernel at other shapes: "ensemble_sdf@res256", ...
+        also = {k.split("@", 1)[1]: v for k, v in rows.items() if k.startswith(name + "@")}
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces,
-                      "launches": fit_counts[name] + train_counts[name] + npm_counts[name],
-                      "library_ms": None, **rows[name]})
+                      "launches": sum(c[name] for c in paths),
+                      "library_ms": None, **rows[name], **({"at": also} if also else {})})
     log(smi)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

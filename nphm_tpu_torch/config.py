@@ -8,6 +8,7 @@ global DeepSDF identity decoder with its DeepSDF offsets network.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import yaml
@@ -26,6 +27,12 @@ from nphm_tpu_torch.models import (
 def load_yaml(path: str) -> dict:
     with open(path, "r") as f:
         return yaml.safe_load(f)
+
+
+def print_cfg(cfg: dict, title: str = ""):
+    if title:
+        print(f"#### {title} ####")
+    print(json.dumps(cfg, sort_keys=True, indent=4))
 
 
 def load_mean_anchors() -> np.ndarray:

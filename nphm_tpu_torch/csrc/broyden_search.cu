@@ -7,9 +7,11 @@
 // with best-iterate tracking, convergence at `cvg`, divergence at `dvg`.
 // The block leaves its loop as soon as none of its lanes is active (a warp
 // vote), and writes its executed iteration count; the wrapper takes the max
-// over blocks.  Lanes past n_real (padding) never count as active.  Per-obs
-// conditioning biases reach each lane through its row index (lane /
-// row_len).
+// over blocks.  Lanes come in groups (a batched fit's subjects) of
+// group_real lanes, each padded to group_pad (a multiple of 32), so no
+// tile holds lanes of two groups; padding lanes never count as active.
+// Per-obs conditioning biases reach each lane through its row index
+// (compact lane / row_len).
 //
 // Bound on this card: at the fit's 5000 lanes and ~3 trunk evaluations a
 // lane, the 3xTF32 products (1.07 M multiply-adds an evaluation at the
@@ -349,8 +351,8 @@ broyden_search_kernel(nphm::Trunk tr, const __grid_constant__ Maps maps,
                       const float* __restrict__ j_init, float* __restrict__ xb_out,
                       float* __restrict__ bn_out, float* __restrict__ j_out,
                       float* __restrict__ act_out, int* __restrict__ iters_out,
-                      int64_t n_real, int niter, float cvg, float dvg, float eps, int ld,
-                      int stage) {
+                      int64_t group_pad, int64_t group_real, int niter, float cvg,
+                      float dvg, float eps, int ld, int stage) {
   extern __shared__ float4 smem4[];
   float* act = reinterpret_cast<float*>(smem4);
   float* S = act + kLanes * ld;
@@ -370,9 +372,12 @@ broyden_search_kernel(nphm::Trunk tr, const __grid_constant__ Maps maps,
   const int t = threadIdx.x;
   const int64_t p = (int64_t)blockIdx.x * kLanes + t;
   const bool lane_owner = t < kLanes;
-  const bool inb = lane_owner && p < n_real;
+  const int64_t grp = p / group_pad, q = p - grp * group_pad;
+  const bool inb = lane_owner && q < group_real;
   if (lane_owner) {
-    const int64_t pc = inb ? p : n_real - 1;
+    // compact index of the lane's input: a padding lane repeats its
+    // group's last real lane
+    const int64_t pc = grp * group_real + (q < group_real ? q : group_real - 1);
     for (int c = 0; c < 3; ++c) {
       S[(kO + c) * kLanes + t] = obs[pc * 3 + c];
       S[(kX + c) * kLanes + t] = x_init[pc * 3 + c];
@@ -525,16 +530,18 @@ int search_setup(const nphm::Trunk* tr, Maps* maps, int* ld, int* stage, int* sm
 
 extern "C" int nphm_search_lanes_per_block() { return kLanes; }
 
-// obs, x_init: [n_pad][3]; j_init: [n_pad][9] (n_pad a multiple of 32, rows
-// past n_real are padding); outputs xb [n_pad][3], bn [n_pad], j [n_pad][9],
+// obs, x_init: [n_real][3]; j_init: [n_real][9], n_real = groups *
+// group_real lanes, compact; the launch covers n_pad = groups * group_pad
+// lanes (group_pad a multiple of 32, lanes group_real .. group_pad - 1 of a
+// group are padding); outputs xb [n_pad][3], bn [n_pad], j [n_pad][9],
 // act [n_pad], iters [n_pad / 32].  Hidden layers read wt [n_out][ldwt]
 // (ldwt a multiple of 8, zero columns past n_in).
 extern "C" int nphm_broyden_search(const nphm::Trunk* tr, const float* obs,
                                    const float* x_init, const float* j_init,
                                    float* xb, float* bn, float* j_out,
                                    float* act, int* iters, int64_t n_pad,
-                                   int64_t n_real, int niter, float cvg,
-                                   float dvg, float eps, void* stream) {
+                                   int64_t group_pad, int64_t group_real, int niter,
+                                   float cvg, float dvg, float eps, void* stream) {
   Maps maps = {};
   int ld = 0, stage = 0, smem = 0;
   const int rc = search_setup(tr, &maps, &ld, &stage, &smem);
@@ -548,7 +555,7 @@ extern "C" int nphm_broyden_search(const nphm::Trunk* tr, const float* obs,
   }
   const int64_t blocks = n_pad / kLanes;
   broyden_search_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      *tr, maps, obs, x_init, j_init, xb, bn, j_out, act, iters, n_real, niter, cvg, dvg,
-      eps, ld, stage);
+      *tr, maps, obs, x_init, j_init, xb, bn, j_out, act, iters, group_pad, group_real, niter,
+      cvg, dvg, eps, ld, stage);
   return (int)cudaGetLastError();
 }

@@ -38,12 +38,16 @@ def point_jacobian(fn: Callable, x):
 @torch.no_grad()
 def broyden(g: Callable, x_init, j_inv_init, max_steps: int = 15,
             cvg_thresh: float = 1e-6, dvg_thresh: float = 0.2, eps: float = 1e-6,
-            min_active: int = 0):
+            min_active: int = 0, groups: int = 1):
     """Solve g(x) = 0 per point; g: [P, 3] -> [P, 3].
 
     Returns dict(result [P,3], diff [P], valid_ids [P], j_inv [P,3,3],
-    active [P], iters).  ``min_active``: iterate only while more than this
-    many points are active (0 = the reference's ``any(active)``).
+    active [P], iters, group_iters).  The P points split into ``groups``
+    equal groups (a batched fit's subjects), each iterating only while more
+    than ``min_active`` of its points are active (0 = the reference's
+    ``any(active)``), as each subject's own loop does under the JAX
+    package's ``vmap``; ``group_iters`` [groups] counts each group's
+    iterations, ``iters`` is their max.
     """
     x = x_init.detach()
     j_inv = j_inv_init.detach()
@@ -52,12 +56,14 @@ def broyden(g: Callable, x_init, j_inv_init, max_steps: int = 15,
     best_norm = torch.linalg.norm(gx, dim=-1)
     x_best = x
     active = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    group_iters = torch.zeros(groups, dtype=torch.int32, device=x.device)
     it = 0
     while it < max_steps:
-        alive = int(active.sum()) > min_active if min_active > 0 else bool(active.any())
-        if not alive:
+        live = active.reshape(groups, -1).sum(dim=1) > min_active
+        if not bool(live.any()):
             break
-        m = active[:, None]
+        # a group that stopped keeps its state: its active points stand still
+        m = (active & live.repeat_interleave(x.shape[0] // groups))[:, None]
         delta_x = torch.where(m, update, 0.0)
         x = x + delta_x
         gx_new = g(x)
@@ -79,6 +85,7 @@ def broyden(g: Callable, x_init, j_inv_init, max_steps: int = 15,
         j_inv = j_inv + torch.where(m[:, :, None], u[:, :, None] * vT[:, None, :], 0.0)
         update = -torch.einsum("pij,pj->pi", j_inv, gx)
         active = new_active
+        group_iters += live.to(torch.int32)
         it += 1
     return {
         "result": x_best,
@@ -87,21 +94,23 @@ def broyden(g: Callable, x_init, j_inv_init, max_steps: int = 15,
         "j_inv": j_inv,
         "active": active,
         "iters": torch.tensor(it, dtype=torch.int32),
+        "group_iters": group_iters,
     }
 
 
 def search(decoder_expr, params_expr, obs, cond, anchors: Optional[torch.Tensor],
            max_steps: int = 15, cvg_thresh: float = 1e-6, dvg_thresh: float = 0.2,
            xc_init=None, identity_j_init: bool = False, j_inv_init=None,
-           frac_exit: float = 0.0):
+           frac_exit: float = 0.0, groups: int = 1):
     """Posed -> canonical correspondences through the forward warp.
 
     obs: [B, N, 3]; cond: [B, D] latent ``[z_id, z_ex]``; anchors [B, K, 3]
     or None.  ``xc_init`` warm-starts from earlier roots (default: obs);
     ``j_inv_init`` resumes from an earlier refined inverse Jacobian
     (default: I when ``identity_j_init``, else the autograd Jacobian's
-    inverse).  Returns (xc [B, N, 3], result dict); diverged points get
-    J^-1 reset to I.
+    inverse); ``groups``: equal groups of rows (a batched fit's subjects)
+    that iterate and exit on their own (``broyden``).  Returns (xc
+    [B, N, 3], result dict); diverged points get J^-1 reset to I.
     """
     n_batch, n_point, _ = obs.shape
     obs = obs.detach()
@@ -125,12 +134,12 @@ def search(decoder_expr, params_expr, obs, cond, anchors: Optional[torch.Tensor]
         x = x_flat.reshape(n_batch, -1, 3)
         return (warp(x) - obs).reshape(-1, 3)
 
-    n_total = n_batch * n_point
+    n_total = n_batch * n_point // groups
     min_active = max(1, int(frac_exit * n_total)) if frac_exit > 0 else 0
     result = broyden(
         g, xc_init.reshape(-1, 3), j_inv_init.reshape(-1, 3, 3),
         max_steps=max_steps, cvg_thresh=cvg_thresh, dvg_thresh=dvg_thresh,
-        min_active=min_active,
+        min_active=min_active, groups=groups,
     )
     diverged = ~result["active"] & ~result["valid_ids"]
     eye = torch.eye(3, dtype=result["j_inv"].dtype, device=obs.device)
@@ -142,6 +151,7 @@ def search(decoder_expr, params_expr, obs, cond, anchors: Optional[torch.Tensor]
         "valid_ids": result["valid_ids"].reshape(n_batch, n_point),
         "j_inv": j_inv.reshape(n_batch, n_point, 3, 3),
         "iters": result["iters"],
+        "group_iters": result["group_iters"],
     }
 
 

@@ -1,13 +1,18 @@
-"""Joint latent fitting (counterpart of ``fit_joint`` in
-``nphm_tpu/fitting/inference.py``).
+"""Latent fitting (counterpart of ``fit_joint``, ``fit_joint_batch`` and
+``fit_identity`` in ``nphm_tpu/fitting/inference.py``).
 
-Jointly optimizes one identity code and per-observation expression codes
-against |SDF| at Broyden-found canonical correspondences, with IFT gradients
-through the roots, a step-scheduled clamp on |SDF|, and the reference's
-lr/lambda division schedules.  Schedules are precomputed on the host; the
-step loop is a Python loop over the step body, with the per-point warm
-store of roots and inverse Jacobians, the Adam moments and the history all
-kept on the device (the history is pulled once, at the end).
+``fit_joint`` jointly optimizes one identity code and per-observation
+expression codes against |SDF| at Broyden-found canonical correspondences,
+with IFT gradients through the roots, a step-scheduled clamp on |SDF|, and
+the reference's lr/lambda division schedules.  ``fit_joint_batch`` fits S
+subjects at once: a step folds their S x nb observations into the rows of
+one search and one shape-field call, and every subject keeps its own loss
+terms, Adam moments and warm store (``fit_joint`` is its S = 1 case).
+``fit_identity`` fits the identity code alone, with no search.  Schedules
+are precomputed on the host; the step loop is a Python loop over the step
+body, with the per-point warm store of roots and inverse Jacobians, the
+Adam moments and the history all kept on the device (the history is
+pulled once, at the end).
 
 Kernel routing: on a CUDA device the correspondence search runs as K2
 (``ops.search``) and the NPHM shape field at the roots as K3/K4
@@ -122,47 +127,73 @@ def _clamp_array(schedule, total: int, step_scale: float) -> np.ndarray:
     return out
 
 
-def _pad_observations(all_obs: List[np.ndarray]):
-    """Ragged clouds -> (padded [n_obs, max_n, 3], lens [n_obs]) numpy."""
-    lens = np.asarray([len(o) for o in all_obs], np.int64)
-    padded = np.zeros((len(all_obs), int(lens.max()), 3), np.float32)
-    for i, o in enumerate(all_obs):
-        padded[i, : len(o)] = np.asarray(o, np.float32)[:, :3]
-    return padded, lens
+def _pad_subjects(subjects_obs: List[List[np.ndarray]], pad_obs_to: int = 0,
+                  pad_points_to: int = 0, pad_subjects_to: int = 0):
+    """Ragged clouds of S subjects -> (padded [S_pad, o_max, p_max, 3],
+    lens [S_pad, o_max], n_obs [S_pad]) numpy, as the JAX package pads them:
+    o_max to a multiple of 8 observations, p_max to a multiple of 512
+    points, each at least its ``pad_*_to``; dummy subjects (up to
+    ``pad_subjects_to``) hold one one-point observation at the origin."""
+    S = len(subjects_obs)
+    S_pad = max(S, pad_subjects_to)
+    n_obs = np.ones(S_pad, np.int64)
+    n_obs[:S] = [len(o) for o in subjects_obs]
+    o_max = -(-max(int(n_obs.max()), pad_obs_to) // 8) * 8
+    p_max = -(-max(max(len(o) for obs in subjects_obs for o in obs), pad_points_to)
+              // 512) * 512
+    padded = np.zeros((S_pad, o_max, p_max, 3), np.float32)
+    lens = np.ones((S_pad, o_max), np.int64)
+    for s_i, obs in enumerate(subjects_obs):
+        for i, o in enumerate(obs):
+            o = np.asarray(o, np.float32)[:, :3]
+            padded[s_i, i, : len(o)] = o
+            lens[s_i, i] = len(o)
+    return padded, lens, n_obs
 
 
 def _masked_mean(values, mask):
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    """Mean of values over mask along the last axis."""
+    return torch.sum(values * mask, dim=-1) / torch.clamp(torch.sum(mask, dim=-1), min=1.0)
 
 
 _JOINT_HIST_KEYS = (
     "loss", "n_valid", "reg_expr", "reg_global", "reg_loc",
     "reg_unobserved", "surface", "symm_dist", "broyden_iters",
 )
+_ID_HIST_KEYS = (
+    "loss", "reg_global", "reg_loc", "reg_unobserved", "surface",
+    "symm_dist",
+)
 
 
 def _shape_regularizers(decoder, lat_shape, unobserved):
     """Latent regularizers for the ensemble decoder's structured code; a
-    global code (the NPM family) has only ``reg_global``."""
+    global code (the NPM family) has only ``reg_global``.
+
+    lat_shape: [S, D], the codes of S subjects; every term is of shape [S].
+    """
     if decoder.lat_dim_glob is None:
-        zero = torch.zeros((), device=lat_shape.device)
-        return {"reg_loc": zero, "reg_global": torch.mean(sq_norm(lat_shape)),
-                "reg_unobserved": zero, "symm_dist": zero}
+        reg = sq_norm(lat_shape)
+        zero = torch.zeros_like(reg)
+        return {"reg_loc": zero, "reg_global": reg, "reg_unobserved": zero,
+                "symm_dist": zero}
     g, l = decoder.lat_dim_glob, decoder.lat_dim_loc
     terms = {
-        "reg_loc": torch.mean(sq_norm(lat_shape[..., g:])),
-        "reg_global": torch.mean(sq_norm(lat_shape[..., :g])),
+        "reg_loc": sq_norm(lat_shape[..., g:]),
+        "reg_global": sq_norm(lat_shape[..., :g]),
     }
     reg_unobserved = 0.0
     for idx in unobserved:
-        sl = lat_shape[..., g + idx * l : g + (idx + 1) * l]
-        reg_unobserved = reg_unobserved + torch.mean(sq_norm(sl))
+        reg_unobserved = reg_unobserved + sq_norm(
+            lat_shape[..., g + idx * l : g + (idx + 1) * l])
     terms["reg_unobserved"] = reg_unobserved
     n_symm = decoder.n_symm_pairs
     loc = lat_shape[..., g : g + 2 * n_symm * l].reshape(
-        lat_shape.shape[0], 2 * n_symm, l
+        lat_shape.shape[:-1] + (2 * n_symm, l)
     )
-    terms["symm_dist"] = torch.mean(safe_l2norm(loc[:, ::2] - loc[:, 1::2]))
+    terms["symm_dist"] = torch.mean(
+        safe_l2norm(loc[..., ::2, :] - loc[..., 1::2, :]), dim=-1
+    )
     return terms
 
 
@@ -224,21 +255,43 @@ def _use_fused_search(decoder_expr, cfg: FittingConfig, device) -> bool:
 
 def _make_joint_loss(decoder_shape, decoder_expr, cfg: FittingConfig, lam_keys,
                      fused_fields, fused_search: bool):
-    """The joint-fit loss body: anchors -> Broyden search -> IFT correction
-    -> clamped |sdf| + regularizers.  Returns ``loss_fn(...) -> (loss, aux)``.
+    """The joint-fit loss body of S subjects folded into one batch of rows:
+    anchors -> Broyden search -> IFT correction -> clamped |sdf| +
+    regularizers.  Returns ``loss_fn(...) -> (loss, aux)``: ``loss`` is the
+    sum of the subjects' losses, so each subject's gradient is its own (the
+    JAX package's ``vmap``); every term in ``aux`` is per subject, [S].
     """
-    nb = cfg.n_obs_per_batch
     warm = cfg.warm_start_corresp
     use_anchors = decoder_shape.lat_dim_glob is not None
 
-    def loss_fn(lat_s, lat_e, params_shape, params_expr, padded, lam_row,
-                clamp_j, sel, idx, xc0, jinv0, broyden_steps):
-        obs = padded[sel[:, None], idx]
-        cond = torch.cat([lat_s.expand(nb, -1), lat_e[sel]], dim=-1)
+    def loss_fn(lat_s, lat_e, params_shape, params_expr, points, lam_row,
+                clamp_j, obs_row, pt, xc0, jinv0, broyden_steps):
+        """lat_s [S, D]; lat_e [S * O, E] and points [S * O * P, 3], the
+        expression codes and padded observations flattened; obs_row [S,
+        nb], the drawn observations' rows of ``lat_e``; pt [S, nb, npp],
+        their points' rows of ``points``; xc0 / jinv0 [S * nb * npp, 3
+        (, 3)] or None.  The S * nb rows of npp points run through one
+        search and one shape-field call."""
+        S, nb = obs_row.shape
+        npp = pt.shape[-1]
+        rows = S * nb
+        obs = points.index_select(0, pt.reshape(-1)).reshape(rows, npp, 3)
+        lat_e_sel = lat_e[obs_row]
+
+        def per_row(t):  # [S, ...] -> [S * nb, ...], each subject's nb rows
+            if S == 1:  # one subject: a plain broadcast, fewer ops on the host
+                return t.expand((nb,) + t.shape[1:])
+            return t[:, None].expand((S, nb) + t.shape[1:]).reshape((rows,) + t.shape[1:])
+
+        lat_b = per_row(lat_s)
+        cond = torch.cat([lat_b, lat_e_sel.reshape(rows, -1)], dim=-1)
         anchors_b = None
         if use_anchors:
-            anchors = predict_anchors(params_shape, decoder_shape.cfg, lat_s)
-            anchors_b = anchors.expand((nb,) + anchors.shape[1:])
+            anchors_b = per_row(predict_anchors(params_shape, decoder_shape.cfg, lat_s))
+        if xc0 is not None:
+            xc0 = xc0.reshape(rows, npp, 3)
+        if jinv0 is not None:
+            jinv0 = jinv0.reshape(rows, npp, 3, 3)
         if fused_search:
             from nphm_tpu_torch.ops.search import search_fused
 
@@ -252,7 +305,7 @@ def _make_joint_loss(decoder_shape, decoder_expr, cfg: FittingConfig, lam_keys,
                 None if anchors_b is None else anchors_b.detach(),
                 max_steps=broyden_steps, cvg_thresh=cfg.broyden_cvg,
                 dvg_thresh=cfg.broyden_dvg,
-                xc_init=obs if xc0 is None else xc0, j_inv_init=jinv_k,
+                xc_init=obs if xc0 is None else xc0, j_inv_init=jinv_k, groups=S,
             )
         else:
             xc_opt, result = search(
@@ -260,33 +313,34 @@ def _make_joint_loss(decoder_shape, decoder_expr, cfg: FittingConfig, lam_keys,
                 max_steps=broyden_steps, cvg_thresh=cfg.broyden_cvg,
                 dvg_thresh=cfg.broyden_dvg, xc_init=xc0,
                 identity_j_init=warm and cfg.warm_identity_jacobian,
-                j_inv_init=jinv0, frac_exit=cfg.broyden_frac_exit,
+                j_inv_init=jinv0, frac_exit=cfg.broyden_frac_exit, groups=S,
             )
         xc = ift_correction(
             decoder_expr, params_expr, xc_opt, cond, anchors_b,
             j_inv=result["j_inv"] if cfg.ift_jacobian == "broyden" else None,
         )
-        lat_b = lat_s.expand(nb, -1)
         if fused_fields is not None:
             sdf = fused_fields(params_shape, xc, lat_b)
         else:
             sdf, _ = decoder_shape.apply(
                 params_shape, xc, lat_b, training=cfg.training_mode_shape
             )
-        l = torch.abs(sdf[..., 0])
-        mask = (result["valid_ids"] & (l < clamp_j)).to(l.dtype)
+        l = torch.abs(sdf[..., 0]).reshape(S, -1)
+        valid = result["valid_ids"].reshape(S, -1)
+        mask = (valid & (l < clamp_j)).to(l.dtype)
         terms = {"surface": _masked_mean(l, mask)}
-        terms["reg_expr"] = torch.mean(sq_norm(lat_e[sel]))
+        terms["reg_expr"] = torch.mean(sq_norm(lat_e_sel), dim=-1)
         terms.update(_shape_regularizers(decoder_shape, lat_s, cfg.unobserved_anchors))
         loss = 0.0
         for i, k in enumerate(lam_keys):
             loss = loss + lam_row[i] * terms[k]
         aux = dict(terms)
-        aux["n_valid"] = torch.sum(result["valid_ids"].to(torch.float32))
-        aux["broyden_iters"] = result["iters"].to(torch.float32).to(obs.device)
-        aux["xc_opt"] = xc_opt
+        aux["loss"] = loss
+        aux["n_valid"] = torch.sum(valid.to(torch.float32), dim=-1)
+        aux["broyden_iters"] = result["group_iters"].to(torch.float32).to(obs.device)
+        aux["xc_opt"] = xc_opt  # [S * nb, npp, 3 (, 3)], the search's rows
         aux["j_inv"] = result["j_inv"]
-        return loss, aux
+        return loss.sum(), aux
 
     return loss_fn
 
@@ -310,6 +364,46 @@ class _Adam:
         p.sub_(lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps)))
 
 
+def _schedules(lambdas, schedule, cfg: FittingConfig, device):
+    """(lam_keys, lr per step numpy, lambdas [K, T] and clamp [T] on device)."""
+    total = cfg.total_steps
+    lam_keys = tuple(sorted(lambdas))
+    lr_arr = _scheduled_array(cfg.lr * cfg.lr_scale, schedule.get("lr", {}), total,
+                              cfg.step_scale)
+    lam_mat = np.stack([_scheduled_array(lambdas[k], schedule.get(k, {}), total,
+                                         cfg.step_scale) for k in lam_keys])
+    clamp_arr = _clamp_array(cfg.clamp_schedule, total, cfg.step_scale)
+    return (lam_keys, lr_arr, torch.as_tensor(lam_mat, device=device),
+            torch.as_tensor(clamp_arr, device=device))
+
+
+class _StepClock:
+    """Wall time of a step loop: total, first step, and steps per second
+    after the first (the device synchronised at both marks)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.start = time.perf_counter()
+        self.first = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def step_done(self, j: int):
+        if j == 0:
+            self._sync()
+            self.first = time.perf_counter()
+
+    def finish(self, total: int) -> dict:
+        self._sync()
+        end = time.perf_counter()
+        first = self.first or end
+        steady = (total - 1) / (end - first) if total > 1 and end > first else float("nan")
+        return {"elapsed_s": end - self.start, "first_step_s": first - self.start,
+                "steady_it_s": steady}
+
+
 def fit_joint(
     decoder_shape,
     params_shape,
@@ -325,7 +419,8 @@ def fit_joint(
     device=None,
     sample_draws=None,
 ):
-    """Joint identity + expression fitting with Broyden correspondences.
+    """Joint identity + expression fitting with Broyden correspondences: the
+    one-subject case of ``fit_joint_batch``.
 
     Returns (lat_expr [n_obs, E], lat_shape [1, D], anchors (None for the
     NPM family), history dict) as numpy.  The parameters move to ``device``
@@ -336,115 +431,18 @@ def fit_joint(
     ``elapsed_s``, ``first_step_s`` and ``steady_it_s`` (steps after the
     first over their wall time).
     """
-    device = default_device() if device is None else torch.device(device)
-    params_shape = tree_to(params_shape, device)
-    params_expr = tree_to(params_expr, device)
-    lambdas = dict(lambdas or default_joint_lambdas())
-    schedule = schedule or default_joint_schedule()
+    le, ls, anchors, hist = fit_joint_batch(
+        decoder_shape, params_shape, decoder_expr, params_expr, [all_obs], lambdas,
+        schedule, cfg, verbose=False, device=device,
+        sample_draws=None if sample_draws is None else tuple(
+            np.asarray(a)[:, None] for a in sample_draws),
+        lat_shape_init=None if lat_shape_init is None else [lat_shape_init],
+        lat_expr_init=None if lat_expr_init is None else [lat_expr_init],
+    )
     total = cfg.total_steps
-    lam_keys = tuple(sorted(lambdas))
-    nb, npp = cfg.n_obs_per_batch, cfg.n_points_per_obs
-
-    def dev(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-    lr_arr = _scheduled_array(cfg.lr * cfg.lr_scale, schedule.get("lr", {}), total,
-                              cfg.step_scale)
-    lam_mat = dev(np.stack([
-        _scheduled_array(lambdas[k], schedule.get(k, {}), total, cfg.step_scale)
-        for k in lam_keys
-    ]))
-    clamp_arr = dev(_clamp_array(cfg.clamp_schedule, total, cfg.step_scale))
-
-    padded_np, lens_np = _pad_observations(all_obs)
-    n_obs = len(all_obs)
-    o_pad = -(-n_obs // 8) * 8
-    p_pad = -(-padded_np.shape[1] // 512) * 512
-    padded_np = np.pad(
-        padded_np, ((0, o_pad - n_obs), (0, p_pad - padded_np.shape[1]), (0, 0))
-    )
-    padded = dev(padded_np)
-    lens = dev(lens_np, torch.int64)
-
-    lat_expr = (
-        torch.zeros((o_pad, decoder_expr.lat_dim), device=device)
-        if lat_expr_init is None
-        else torch.nn.functional.pad(
-            dev(lat_expr_init).reshape(n_obs, -1), (0, 0, 0, o_pad - n_obs)
-        )
-    )
-    lat_shape = (
-        torch.zeros((1, decoder_shape.lat_dim), device=device)
-        if lat_shape_init is None
-        else dev(lat_shape_init).reshape(1, -1)
-    )
-    opt_s, opt_e = _Adam(lat_shape), _Adam(lat_expr)
-
-    warm = cfg.warm_start_corresp
-    warm_j = warm and cfg.warm_jacobian_store
-    store = padded.clone() if warm else None
-    store_j = (
-        torch.eye(3, device=device).expand(padded.shape[:2] + (3, 3)).contiguous()
-        if warm_j
-        else None
-    )
-    loss_fn = _make_joint_loss(
-        decoder_shape, decoder_expr, cfg, lam_keys,
-        _shape_fields_fn(decoder_shape, cfg, device),
-        _use_fused_search(decoder_expr, cfg, device),
-    )
-    if sample_draws is not None:
-        draws_sel = dev(sample_draws[0], torch.int64)
-        draws_idx = dev(sample_draws[1], torch.int64)
-    else:
-        gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    hist = torch.zeros((total, len(_JOINT_HIST_KEYS)), device=device)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    t_start = time.perf_counter()
-    t_first = None
-    for j in range(total):
-        if sample_draws is not None:
-            sel, idx = draws_sel[j], draws_idx[j]
-        else:
-            sel = torch.randint(0, n_obs, (nb,), generator=gen, device=device)
-            u = torch.rand((nb, npp), generator=gen, device=device)
-            idx = torch.minimum((u * lens[sel][:, None]).to(torch.int64),
-                                lens[sel][:, None] - 1)
-        xc0 = store[sel[:, None], idx] if warm else None
-        bsteps = cfg.broyden_warm_steps if warm and j > 0 else cfg.broyden_max_steps
-        jinv0 = store_j[sel[:, None], idx] if warm_j else None
-
-        lat_s = lat_shape.detach().requires_grad_(True)
-        lat_e = lat_expr.detach().requires_grad_(True)
-        loss, aux = loss_fn(lat_s, lat_e, params_shape, params_expr, padded,
-                            lam_mat[:, j], clamp_arr[j], sel, idx, xc0, jinv0, bsteps)
-        g_s, g_e = torch.autograd.grad(loss, (lat_s, lat_e))
-        if warm:
-            store[sel[:, None], idx] = aux["xc_opt"]
-        if warm_j:
-            store_j[sel[:, None], idx] = aux["j_inv"]
-        opt_s.step(lat_shape, g_s, float(lr_arr[j]))
-        opt_e.step(lat_expr, g_e, float(lr_arr[j]))
-        aux["loss"] = loss
-        hist[j] = torch.stack([torch.as_tensor(aux[k], device=device).detach().reshape(())
-                               for k in _JOINT_HIST_KEYS])
-        if j == 0:
-            sync()
-            t_first = time.perf_counter()
-    sync()
-    t_end = time.perf_counter()
-
-    hist_np = hist.cpu().numpy()
-    history = {k: hist_np[:, i] for i, k in enumerate(_JOINT_HIST_KEYS)}
-    history["elapsed_s"] = t_end - t_start
-    history["first_step_s"] = (t_first or t_end) - t_start
-    history["steady_it_s"] = (
-        (total - 1) / (t_end - t_first) if total > 1 and t_end > t_first else float("nan")
-    )
+    history = {k: hist[k][:, 0] for k in _JOINT_HIST_KEYS}
+    history.update(elapsed_s=hist["elapsed_s"], first_step_s=hist["first_step_s"],
+                   steady_it_s=hist["steady_subject_steps_s"])
     if verbose:
         for j in range(0, total, max(1, cfg.log_every)):
             msg = f"Step {j:5d} " + " ".join(
@@ -454,9 +452,259 @@ def fit_joint(
             print(msg, int(history["n_valid"][j]))
         print(f"[fit_joint] {total} steps in {history['elapsed_s']:.1f}s "
               f"({history['steady_it_s']:.1f} it/s after the first step)")
+    return le[0], ls[0], anchors[0], history
+
+
+def fit_joint_batch(
+    decoder_shape,
+    params_shape,
+    decoder_expr,
+    params_expr,
+    subjects_obs: List[List[np.ndarray]],
+    lambdas: Optional[Dict[str, float]] = None,
+    schedule: Optional[Dict[str, Dict[int, float]]] = None,
+    cfg: FittingConfig = FittingConfig(),
+    verbose: bool = True,
+    pad_obs_to: int = 0,
+    pad_points_to: int = 0,
+    pad_subjects_to: int = 0,
+    device=None,
+    sample_draws=None,
+    lat_shape_init: Optional[List[np.ndarray]] = None,
+    lat_expr_init: Optional[List[np.ndarray]] = None,
+):
+    """Fit many subjects at once: each step folds the S subjects' nb
+    observations into S * nb rows of one search (K2, a subject's lanes
+    padded to whole tiles) and one shape-field call (K3/K4).  Every subject
+    keeps its own loss, Adam moments and warm store, so its trajectory is
+    that of ``fit_joint`` on the same draws.
+
+    subjects_obs: one observation list per subject (ragged sizes fine).
+    ``pad_obs_to`` / ``pad_points_to`` / ``pad_subjects_to``: lower bounds
+    on the padded observation, point and subject axes (a caller fitting
+    several groups passes its global maxima, as the JAX package's CLI
+    does); dummy subjects are dropped from the results.
+    ``sample_draws``: optional (sel [T, S, nb], idx [T, S, nb, npp]); dummy
+    subjects draw zeros.  ``lat_shape_init`` (one [D] a subject) and
+    ``lat_expr_init`` (one [n_obs_s, E] a subject): optional starting codes
+    (default zero).  Returns per-subject lists (lat_exprs [n_obs_s, E],
+    lat_shapes [1, D], anchors [1, K, 3] or None) and a history: each term
+    [T, S] (``loss``, ``broyden_iters``, ...), ``elapsed_s``,
+    ``first_step_s`` and ``steady_subject_steps_s`` (subject-steps after
+    the first step over their wall time).
+    """
+    device = default_device() if device is None else torch.device(device)
+    params_shape = tree_to(params_shape, device)
+    params_expr = tree_to(params_expr, device)
+    lam_keys, lr_arr, lam_mat, clamp_arr = _schedules(
+        dict(lambdas or default_joint_lambdas()), schedule or default_joint_schedule(),
+        cfg, device)
+    total = cfg.total_steps
+    nb, npp = cfg.n_obs_per_batch, cfg.n_points_per_obs
+    S = len(subjects_obs)
+    padded_np, lens_np, n_obs_np = _pad_subjects(subjects_obs, pad_obs_to, pad_points_to,
+                                                 pad_subjects_to)
+    S_pad, o_max = padded_np.shape[:2]
+    padded = torch.as_tensor(padded_np, device=device)
+    lens = torch.as_tensor(lens_np, device=device)
+    # the draws' bounds: observations a subject has (as float), and its last
+    n_obs = torch.as_tensor(n_obs_np, device=device)[:, None]
+    n_obs_f, n_obs_last = n_obs.to(torch.float32), n_obs - 1
+    lens_flat = lens.reshape(-1)
+    subj_row = torch.arange(S_pad, device=device)[:, None] * o_max
+    points = padded.reshape(-1, 3)
+    p_max = padded.shape[2]
+
+    # the expression codes of all subjects' (padded) observations, flattened
+    lat_expr = torch.zeros((S_pad * o_max, decoder_expr.lat_dim), device=device)
+    lat_shape = torch.zeros((S_pad, decoder_shape.lat_dim), device=device)
+    for s, init in enumerate(() if lat_shape_init is None else lat_shape_init):
+        lat_shape[s] = torch.as_tensor(np.asarray(init, np.float32).reshape(-1))
+    for s, init in enumerate(() if lat_expr_init is None else lat_expr_init):
+        lat_expr[s * o_max : s * o_max + n_obs_np[s]] = torch.as_tensor(
+            np.asarray(init, np.float32).reshape(n_obs_np[s], -1))
+    opt_s, opt_e = _Adam(lat_shape), _Adam(lat_expr)
+
+    warm = cfg.warm_start_corresp
+    warm_j = warm and cfg.warm_jacobian_store
+    store = padded.clone() if warm else None
+    store_j = (
+        torch.eye(3, device=device).expand(padded.shape[:3] + (3, 3)).contiguous()
+        if warm_j
+        else None
+    )
+    loss_fn = _make_joint_loss(
+        decoder_shape, decoder_expr, cfg, lam_keys,
+        _shape_fields_fn(decoder_shape, cfg, device),
+        _use_fused_search(decoder_expr, cfg, device),
+    )
+    if sample_draws is not None:
+        # dummy subjects past S draw zeros
+        draws = [torch.zeros((total, S_pad) + np.shape(a)[2:], dtype=torch.int64,
+                             device=device) for a in sample_draws]
+        for d, a in zip(draws, sample_draws):
+            d[:, :S] = torch.as_tensor(np.asarray(a), dtype=torch.int64)
+    else:
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    hist = torch.zeros((total, len(_JOINT_HIST_KEYS), S_pad), device=device)
+
+    clock = _StepClock(device)
+    for j in range(total):
+        # obs_row: the drawn observations' rows of the flattened [S_pad *
+        # o_max] observations; pt: their points' rows of the flattened
+        # [S_pad * o_max * p_max] points and warm stores (one index, not three)
+        if sample_draws is not None:
+            sel, idx = draws[0][j], draws[1][j]
+            obs_row = subj_row + sel
+        else:
+            u = torch.rand((S_pad, nb), generator=gen, device=device)
+            sel = torch.minimum((u * n_obs_f).to(torch.int64), n_obs_last)
+            obs_row = subj_row + sel
+            n_pts = lens_flat[obs_row][..., None]
+            u = torch.rand((S_pad, nb, npp), generator=gen, device=device)
+            idx = torch.minimum((u * n_pts).to(torch.int64), n_pts - 1)
+        pt = obs_row[..., None] * p_max + idx
+        at = pt.reshape(-1)
+        xc0 = store.view(-1, 3).index_select(0, at) if warm else None
+        bsteps = cfg.broyden_warm_steps if warm and j > 0 else cfg.broyden_max_steps
+        jinv0 = store_j.view(-1, 3, 3).index_select(0, at) if warm_j else None
+
+        lat_s = lat_shape.detach().requires_grad_(True)
+        lat_e = lat_expr.detach().requires_grad_(True)
+        loss, aux = loss_fn(lat_s, lat_e, params_shape, params_expr, points,
+                            lam_mat[:, j], clamp_arr[j], obs_row, pt, xc0, jinv0, bsteps)
+        g_s, g_e = torch.autograd.grad(loss, (lat_s, lat_e))
+        if warm:
+            store.view(-1, 3).index_copy_(0, at, aux["xc_opt"].reshape(-1, 3))
+        if warm_j:
+            store_j.view(-1, 3, 3).index_copy_(0, at, aux["j_inv"].reshape(-1, 3, 3))
+        opt_s.step(lat_shape, g_s, float(lr_arr[j]))
+        opt_e.step(lat_expr, g_e, float(lr_arr[j]))
+        with torch.no_grad():
+            hist[j] = torch.stack([torch.as_tensor(aux[k], device=device).expand(S_pad)
+                                   for k in _JOINT_HIST_KEYS])
+        clock.step_done(j)
+    timing = clock.finish(total)
+
+    hist_np = hist.cpu().numpy()
+    history = {k: hist_np[:, i, :S] for i, k in enumerate(_JOINT_HIST_KEYS)}
+    history.update(elapsed_s=timing["elapsed_s"], first_step_s=timing["first_step_s"],
+                   steady_subject_steps_s=timing["steady_it_s"] * S)
+    if verbose:
+        print(f"[fit_joint_batch] {S} subjects x {total} steps in "
+              f"{timing['elapsed_s']:.1f}s ({history['steady_subject_steps_s']:.1f} "
+              f"subject-steps/s after the first step, mean Broyden iters "
+              f"{float(history['broyden_iters'].mean()):.2f})")
+    anchors_list = [None] * S
+    if decoder_shape.lat_dim_glob is not None:
+        with torch.no_grad():
+            anchors = predict_anchors(params_shape, decoder_shape.cfg,
+                                      lat_shape[:S]).cpu().numpy()
+        anchors_list = [anchors[s : s + 1] for s in range(S)]
+    lat_expr_np = lat_expr.cpu().numpy().reshape(S_pad, o_max, -1)
+    lat_shape_np = lat_shape.cpu().numpy()
+    lat_exprs = [lat_expr_np[s, : n_obs_np[s]] for s in range(S)]
+    lat_shapes = [lat_shape_np[s : s + 1] for s in range(S)]
+    return lat_exprs, lat_shapes, anchors_list, history
+
+
+def default_identity_lambdas() -> Dict[str, float]:
+    """Loss weights of the identity-only fit (the JAX package's defaults)."""
+    return {
+        "surface": 2.0,
+        "reg_global": 0.25,
+        "reg_unobserved": 10.0,
+        "reg_loc": 0.05,
+        "symm_dist": 5.0,
+    }
+
+
+def fit_identity(
+    decoder_shape,
+    params_shape,
+    all_obs: List[np.ndarray],
+    lambdas: Optional[Dict[str, float]] = None,
+    schedule: Optional[Dict[str, Dict[int, float]]] = None,
+    cfg: FittingConfig = FittingConfig(),
+    lat_shape_init: Optional[np.ndarray] = None,
+    verbose: bool = True,
+    device=None,
+    sample_draws=None,
+):
+    """Identity-space-only fitting (counterpart of the JAX package's
+    ``fit_identity``): clamped |sdf| at the observed points, no search.  On
+    a CUDA device the NPHM shape field runs through K3/K4
+    (``fused_shape_fields``).
+
+    ``sample_draws``: optional (sel [T, nb], idx [T, nb, npp]).  Returns
+    (lat_shape [1, D], anchors (None for the NPM family), history): each
+    term of ``_ID_HIST_KEYS`` per step, plus ``elapsed_s``,
+    ``first_step_s`` and ``steady_it_s``.
+    """
+    device = default_device() if device is None else torch.device(device)
+    params_shape = tree_to(params_shape, device)
+    lam_keys, lr_arr, lam_mat, clamp_arr = _schedules(
+        dict(lambdas or default_identity_lambdas()), schedule or default_joint_schedule(),
+        cfg, device)
+    total = cfg.total_steps
+    nb, npp = cfg.n_obs_per_batch, cfg.n_points_per_obs
+    padded_np, lens_np, _ = _pad_subjects([all_obs])
+    padded = torch.as_tensor(padded_np[0], device=device)
+    lens = torch.as_tensor(lens_np[0], device=device)
+    n_obs = len(all_obs)
+    lat_shape = torch.zeros((1, decoder_shape.lat_dim), device=device)
+    if lat_shape_init is not None:
+        lat_shape[0] = torch.as_tensor(np.asarray(lat_shape_init, np.float32).reshape(-1))
+    opt = _Adam(lat_shape)
+    fields = _shape_fields_fn(decoder_shape, cfg, device)
+    if sample_draws is not None:
+        draws_sel, draws_idx = (torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                                device=device) for a in sample_draws)
+    else:
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    hist = torch.zeros((total, len(_ID_HIST_KEYS)), device=device)
+
+    clock = _StepClock(device)
+    for j in range(total):
+        if sample_draws is not None:
+            sel, idx = draws_sel[j], draws_idx[j]
+        else:
+            sel = torch.randint(0, n_obs, (nb,), generator=gen, device=device)
+            u = torch.rand((nb, npp), generator=gen, device=device)
+            idx = torch.minimum((u * lens[sel][:, None]).to(torch.int64),
+                                lens[sel][:, None] - 1)
+        obs = padded[sel[:, None], idx]
+        lat_s = lat_shape.detach().requires_grad_(True)
+        lat_b = lat_s.expand(nb, -1)
+        if fields is not None:
+            sdf = fields(params_shape, obs, lat_b)
+        else:
+            sdf, _ = decoder_shape.apply(params_shape, obs, lat_b,
+                                         training=cfg.training_mode_shape)
+        l = torch.abs(sdf[..., 0]).reshape(-1)
+        terms = {"surface": _masked_mean(l, (l < clamp_arr[j]).to(l.dtype))}
+        terms.update({k: v[0] for k, v in _shape_regularizers(
+            decoder_shape, lat_s, cfg.unobserved_anchors).items()})
+        loss = 0.0
+        for i, k in enumerate(lam_keys):
+            loss = loss + lam_mat[i, j] * terms[k]
+        (g,) = torch.autograd.grad(loss, (lat_s,))
+        opt.step(lat_shape, g, float(lr_arr[j]))
+        terms["loss"] = loss
+        hist[j] = torch.stack([torch.as_tensor(terms[k], device=device).detach().reshape(())
+                               for k in _ID_HIST_KEYS])
+        clock.step_done(j)
+    timing = clock.finish(total)
+    hist_np = hist.cpu().numpy()
+    history = {k: hist_np[:, i] for i, k in enumerate(_ID_HIST_KEYS)}
+    history.update(timing)
+    if verbose:
+        print(f"[fit_identity] {total} steps in {history['elapsed_s']:.1f}s "
+              f"({history['steady_it_s']:.1f} it/s after the first step), "
+              f"final loss {history['loss'][-1]:.6f}")
     anchors = None
     if decoder_shape.lat_dim_glob is not None:
         with torch.no_grad():
             anchors = predict_anchors(params_shape, decoder_shape.cfg,
                                       lat_shape).cpu().numpy()
-    return lat_expr[:n_obs].cpu().numpy(), lat_shape.cpu().numpy(), anchors, history
+    return lat_shape.cpu().numpy(), anchors, history

@@ -74,7 +74,7 @@ _SIGNATURES = {
     ],
     "nphm_broyden_search": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-        _i64, _i32, _f32, _f32, _f32, _vp,
+        _i64, _i64, _i32, _f32, _f32, _f32, _vp,
     ],
     "nphm_fit_fwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _i64, _i32, _i32, _vp,

@@ -7,7 +7,11 @@ whose row-constant conditioning is folded into per-obs biases outside the
 kernel.  Lanes are grouped in tiles of 32 (one CUDA block); a tile stops
 iterating once none of its lanes is active, which only skips no-op
 iterations, so the result equals the global ``any(active)`` loop and
-``iters`` is the max over tiles.  Padding lanes never count as active.  The
+``iters`` is the max over tiles.  A batched fit folds its subjects into
+the rows: ``groups`` splits the lanes into equal groups, each padded to a
+whole number of tiles, so no tile spans two subjects and ``group_iters``
+is each subject's own iteration count.  Padding lanes never count as
+active.  The
 search is forward only: the fit attaches gradients at the roots through the
 IFT correction.
 
@@ -104,16 +108,35 @@ def _matvec3(j9, v):
     return torch.einsum("pij,pj->pi", j9.reshape(-1, 3, 3), v)
 
 
-def _result(B, N, xb, bn, j9, act, tile_iters, cvg):
-    diff = bn[: B * N].reshape(B, N)
+def lane_layout(n_lanes: int, groups: int = 1):
+    """(n_pad, group_pad, group_real): n_lanes split into ``groups`` equal
+    groups of group_real lanes, each padded to group_pad, a whole number of
+    tiles."""
+    if groups < 1 or n_lanes % groups:
+        raise ValueError(f"{n_lanes} lanes do not split into {groups} equal groups")
+    g_real = n_lanes // groups
+    g_pad = _build.round_up(g_real, TILE)
+    return groups * g_pad, g_pad, g_real
+
+
+def _result(B, N, groups, xb, bn, j9, act, tile_iters, cvg):
+    """Outputs of the padded lanes -> [B, N, ...] of the real ones."""
+    _, g_pad, g_real = lane_layout(B * N, groups)
+
+    def real(t, *shape):
+        return t.reshape((groups, g_pad) + t.shape[1:])[:, :g_real].reshape(B, N, *shape)
+
+    diff = real(bn)
+    group_iters = (tile_iters.reshape(groups, -1).amax(dim=1) if tile_iters.numel()
+                   else torch.zeros(groups, dtype=torch.int32, device=tile_iters.device))
     return {
-        "result": xb[: B * N].reshape(B, N, 3),
+        "result": real(xb, 3),
         "diff": diff,
         "valid_ids": diff < cvg,
-        "j_inv": j9[: B * N].reshape(B, N, 3, 3),
-        "active": act[: B * N].reshape(B, N),
-        "iters": tile_iters.max() if tile_iters.numel() else torch.zeros(
-            (), dtype=torch.int32, device=tile_iters.device),
+        "j_inv": real(j9, 3, 3),
+        "active": real(act),
+        "iters": group_iters.max(),
+        "group_iters": group_iters,  # iterations each group of lanes ran
         "tile_iters": tile_iters,  # iterations each TILE-lane tile ran
     }
 
@@ -121,21 +144,21 @@ def _result(B, N, xb, bn, j9, act, tile_iters, cvg):
 @torch.no_grad()
 def broyden_search_plain(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
                          j_inv_init, n_iters, *, cvg_thresh: float = 1e-6,
-                         dvg_thresh: float = 0.2, eps: float = 1e-6):
-    """Plain PyTorch version of K2: same tiles, pad lanes and per-tile exit."""
+                         dvg_thresh: float = 0.2, eps: float = 1e-6, groups: int = 1):
+    """Plain PyTorch version of K2: same tiles, lane groups, pad lanes and
+    per-tile exit."""
     _check_trunk(tcfg)
     B, N, _ = obs.shape
-    P = B * N
-    Pp = _build.round_up(P, TILE)
+    Pp, g_pad, g_real = lane_layout(B * N, groups)
     layers = prepare_search_operands(params_trunk, tcfg, cond.to(torch.float32))
-    o, x, j9 = _flat(obs, xc_init, j_inv_init)
-    pad = Pp - P
-    if pad:
-        o, x, j9 = (torch.cat([t, t[-1:].expand(pad, t.shape[1])]) for t in (o, x, j9))
     dev = obs.device
     lane = torch.arange(Pp, device=dev)
-    inb = lane < P
-    rows = torch.clamp(lane, max=P - 1) // N
+    grp, q = lane // g_pad, lane % g_pad
+    inb = q < g_real
+    # a padding lane repeats its group's last real lane, as in the kernel
+    src = grp * g_real + torch.clamp(q, max=g_real - 1)
+    o, x, j9 = (t[src] for t in _flat(obs, xc_init, j_inv_init))
+    rows = src // N
     n_t = Pp // TILE
 
     gx = _trunk_residual(layers, tcfg, x, o, rows)
@@ -177,7 +200,7 @@ def broyden_search_plain(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
         bn = torch.where(live, bn2, bn)
         act = torch.where(live, act2, act)
         tile_it = tile_it + tile_live.to(torch.int32)
-    return _result(B, N, xb, bn, j9, act, tile_it, cvg_thresh)
+    return _result(B, N, groups, xb, bn, j9, act, tile_it, cvg_thresh)
 
 
 def _search_trunk(layers, tcfg: DeepSDFConfig, n_per_row: int):
@@ -221,19 +244,21 @@ def _search_trunk(layers, tcfg: DeepSDFConfig, n_per_row: int):
 @torch.no_grad()
 def broyden_search(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
                    j_inv_init, n_iters, *, cvg_thresh: float = 1e-6,
-                   dvg_thresh: float = 0.2, eps: float = 1e-6):
+                   dvg_thresh: float = 0.2, eps: float = 1e-6, groups: int = 1):
     """Run the whole Broyden search fused.
 
     cond: [B, tcfg.lat_dim] row-constant conditioning; obs / xc_init:
-    [B, N, 3]; j_inv_init: [B, N, 3, 3]; n_iters: iteration budget.
-    Returns dict(result [B,N,3], diff [B,N], valid_ids [B,N], j_inv
-    [B,N,3,3], active [B,N], iters) like ``fitting.broyden.broyden``, plus
-    ``tile_iters``, the iterations each tile of lanes ran.
+    [B, N, 3]; j_inv_init: [B, N, 3, 3]; n_iters: iteration budget;
+    groups: equal groups of rows (a batched fit's subjects) whose lanes
+    never share a tile.  Returns dict(result [B,N,3], diff [B,N], valid_ids
+    [B,N], j_inv [B,N,3,3], active [B,N], iters) like
+    ``fitting.broyden.broyden``, plus ``group_iters`` [groups] and
+    ``tile_iters``, the iterations each group and each tile of lanes ran.
     """
     if not obs.is_cuda:
         return broyden_search_plain(
             params_trunk, tcfg, cond, obs, xc_init, j_inv_init, n_iters,
-            cvg_thresh=cvg_thresh, dvg_thresh=dvg_thresh, eps=eps,
+            cvg_thresh=cvg_thresh, dvg_thresh=dvg_thresh, eps=eps, groups=groups,
         )
     _check_trunk(tcfg)
     if tcfg.beta <= 0 or tcfg.out_dim > 4:
@@ -242,8 +267,7 @@ def broyden_search(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
     if lib.nphm_search_lanes_per_block() != TILE:
         raise RuntimeError("K2 tile size disagrees with ops.search.TILE")
     B, N, _ = obs.shape
-    P = B * N
-    Pp = _build.round_up(P, TILE)
+    Pp, g_pad, g_real = lane_layout(B * N, groups)
     layers = prepare_search_operands(params_trunk, tcfg, cond.to(torch.float32))
     tr, keep = _search_trunk(layers, tcfg, N)
     o, x, j9 = (t.contiguous() for t in _flat(obs, xc_init, j_inv_init))
@@ -257,12 +281,12 @@ def broyden_search(params_trunk, tcfg: DeepSDFConfig, cond, obs, xc_init,
     rc = lib.nphm_broyden_search(
         ctypes.byref(tr), o.data_ptr(), x.data_ptr(), j9.data_ptr(),
         xb.data_ptr(), bn.data_ptr(), jo.data_ptr(), act.data_ptr(),
-        iters.data_ptr(), Pp, P, int(n_iters), cvg_thresh, dvg_thresh, eps,
+        iters.data_ptr(), Pp, g_pad, g_real, int(n_iters), cvg_thresh, dvg_thresh, eps,
         _build.stream_ptr(dev),
     )
     _build.check(rc, "nphm_broyden_search")
     broyden_search.launches += 1
-    return _result(B, N, xb, bn, jo, act > 0.5, iters, cvg_thresh)
+    return _result(B, N, groups, xb, bn, jo, act > 0.5, iters, cvg_thresh)
 
 
 broyden_search.launches = 0
@@ -319,10 +343,11 @@ def search_fits(decoder_expr) -> bool:
 @torch.no_grad()
 def search_fused(decoder_expr, params_expr, obs, cond_lat, anchors, *,
                  max_steps, xc_init, j_inv_init, cvg_thresh: float = 1e-6,
-                 dvg_thresh: float = 0.2, search_fn=broyden_search):
+                 dvg_thresh: float = 0.2, groups: int = 1, search_fn=broyden_search):
     """Counterpart of ``fitting.broyden.search`` on the fused path.
 
-    cond_lat: [B, lat_shape_full + lat_expr]; requires explicit warm inits.
+    cond_lat: [B, lat_shape_full + lat_expr]; requires explicit warm inits;
+    ``groups``: the subjects folded into the B rows (``broyden_search``).
     The NPM family's offsets network is the trunk itself, conditioned on
     cond_lat = [z_id, z_ex].  Diverged points (final-state inactive and not
     valid) get J^-1 reset to I.  Returns (xc [B, N, 3], result dict).
@@ -335,7 +360,7 @@ def search_fused(decoder_expr, params_expr, obs, cond_lat, anchors, *,
         tcfg, trunk = dcfg.trunk_cfg, params_expr["trunk"]
     res = search_fn(
         trunk, tcfg, cond, obs, xc_init, j_inv_init,
-        max_steps, cvg_thresh=cvg_thresh, dvg_thresh=dvg_thresh,
+        max_steps, cvg_thresh=cvg_thresh, dvg_thresh=dvg_thresh, groups=groups,
     )
     diverged = ~res["active"] & ~res["valid_ids"]
     eye = torch.eye(3, dtype=res["j_inv"].dtype, device=obs.device)
@@ -347,4 +372,5 @@ def search_fused(decoder_expr, params_expr, obs, cond_lat, anchors, *,
         "valid_ids": res["valid_ids"],
         "j_inv": j_inv,
         "iters": res["iters"],
+        "group_iters": res["group_iters"],
     }

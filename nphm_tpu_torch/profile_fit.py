@@ -1,13 +1,16 @@
 """Where the time of one NPHM fit step goes, on the GPU.
 
     python -m nphm_tpu_torch.profile_fit [ROOT ...] [--steps 60] [--active 20]
+                                         [--subjects S]
 
 For each checkout ROOT (default: this one), in a fresh process whose
 ``nphm_tpu_torch`` and ``chip_smoke`` are that checkout's: builds the NPHM
 models of ``chip_smoke.build_models`` (``configs/nphm.yaml``,
 ``configs/nphm_def.yaml``, seeded), the 20 warped-sphere scans of its fit
 phase, and runs ``fit_joint`` at the ``FittingConfig`` defaults (5 obs x
-1000 points a step, K2/K3/K4 on CUDA):
+1000 points a step, K2/K3/K4 on CUDA); with ``--subjects S`` > 1,
+``fit_joint_batch`` on S subjects of 20 scans each (phase 7's, from their
+own seeds), S x 5 obs x 1000 points a step:
 
 - once unprofiled for ``--steps`` steps: the steady wall time of a step
   (``steady_it_s``, the first step excluded);
@@ -28,8 +31,9 @@ profiler links to it: torch's own and K3 (launched inside an autograd
 Function), not K2 (a bare ctypes launch), and none of the backward's,
 which the autograd engine launches from its own thread.  Host times are
 taken under the profiler; ``profiled_step_wall_ms`` is its step.  Naming
-a checkout more than once times the checkouts in turns.  Needs a GPU;
-nothing falls back to the CPU.
+a checkout more than once times the checkouts in turns, and a last
+``PROFILE_FIT_SUMMARY {...}`` line gives each checkout's quartiles over
+its turns.  Needs a GPU; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -64,9 +68,9 @@ def _ranged(name, fn):
     return wrapped
 
 
-def profile_checkout(steps: int, active: int) -> dict:
-    """Profile fit steps with the ``nphm_tpu_torch`` and ``chip_smoke`` on
-    ``sys.path`` (one checkout's)."""
+def profile_checkout(steps: int, active: int, subjects: int = 1) -> dict:
+    """Profile fit steps of ``subjects`` subjects with the ``nphm_tpu_torch``
+    and ``chip_smoke`` on ``sys.path`` (one checkout's)."""
     import torch
 
     import chip_smoke as c
@@ -81,11 +85,18 @@ def profile_checkout(steps: int, active: int) -> dict:
     c.device_and_build()
     shape, ps, expr, pe, _gen = c.build_models(dev)
     obs = c.observations(20, 2500, c.SEED + 3)
+    group = [c.observations(20, 2500, c.SEED + 100 + s) for s in range(subjects)]
 
     def fit(n):
+        """The history of an n-step fit, with ``steady_it_s`` in steps/s."""
         cfg = inference.FittingConfig(n_steps=n, seed=c.SEED)
-        return inference.fit_joint(shape, ps, expr, pe, obs, cfg=cfg, device=dev,
-                                   verbose=False)[3]
+        if subjects == 1:
+            return inference.fit_joint(shape, ps, expr, pe, obs, cfg=cfg, device=dev,
+                                       verbose=False)[3]
+        hist = inference.fit_joint_batch(shape, ps, expr, pe, group, cfg=cfg, device=dev,
+                                         verbose=False)[3]
+        hist["steady_it_s"] = hist["steady_subject_steps_s"] / subjects
+        return hist
 
     hist = fit(steps)
     wall_ms = 1e3 / hist["steady_it_s"]
@@ -154,17 +165,19 @@ def profile_checkout(steps: int, active: int) -> dict:
     return {
         "card": _card(),
         "root": os.getcwd(),
-        "obs_x_points": [5, 1000],
+        "subjects": subjects,
+        "obs_x_points": [5 * subjects, 1000],
         "steps_timed": steps - 1,
         "steps_profiled": active,
         "steady_it_s": hist["steady_it_s"],
+        "steady_subject_steps_s": hist["steady_it_s"] * subjects,
         "step_wall_ms": wall_ms,
         "profiled_step_wall_ms": profiled_ms,
         "device_ms_per_step": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
         "kernels_ms": by_kernel,
         "phases": ranges,
-        "broyden_iters_mean": float(sum(hist["broyden_iters"][1:]) / (steps - 1)),
+        "broyden_iters_mean": float(hist["broyden_iters"][1:].mean()),
         "top_kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10]),
     }
 
@@ -174,27 +187,53 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="*", default=[ROOT])
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--active", type=int, default=20)
+    ap.add_argument("--subjects", type=int, default=1)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:  # a child: PYTHONPATH holds one checkout
         here = os.path.dirname(os.path.abspath(__file__))
         sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
-        print("PROFILE_FIT " + json.dumps(profile_checkout(args.steps, args.active)),
-              flush=True)
+        print("PROFILE_FIT " + json.dumps(
+            profile_checkout(args.steps, args.active, args.subjects)), flush=True)
         return 0
+    turns = {}
     for root in args.roots:
         root = os.path.abspath(root)
         env = dict(os.environ, PYTHONPATH=root)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", "--steps", str(args.steps),
-             "--active", str(args.active)],
+             "--active", str(args.active), "--subjects", str(args.subjects)],
             cwd=root, env=env, capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("PROFILE_FIT ")]
         if proc.returncode != 0 or not lines:
             raise RuntimeError(f"profile in {root} failed:\n{proc.stdout[-4000:]}\n"
                                f"{proc.stderr[-4000:]}")
         print(lines[-1], flush=True)
+        turns.setdefault(root, []).append(json.loads(lines[-1].split(" ", 1)[1]))
+    if any(len(v) > 1 for v in turns.values()):
+        print("PROFILE_FIT_SUMMARY " + json.dumps(
+            {root: summary(runs) for root, runs in turns.items()}), flush=True)
     return 0
+
+
+def summary(runs) -> dict:
+    """Quartiles [25%, 50%, 75%] over one checkout's turns of the step's
+    wall and device ms, its idle share, and each phase's host and device
+    ms a step."""
+    import numpy as np
+
+    def q(values):
+        return [float(x) for x in np.percentile(values, [25, 50, 75])]
+
+    out = {"turns": len(runs)}
+    for key in ("steady_it_s", "step_wall_ms", "profiled_step_wall_ms",
+                "device_ms_per_step", "idle_share"):
+        out[key] = q([r[key] for r in runs])
+    for phase in PHASES:
+        for kind in ("host_ms", "device_ms"):
+            out[f"{phase}.{kind}"] = q([r["phases"].get(phase, {}).get(kind, float("nan"))
+                                        for r in runs])
+    return out
 
 
 if __name__ == "__main__":

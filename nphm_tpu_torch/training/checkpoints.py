@@ -7,6 +7,13 @@ latest-epoch discovery by file name, and ``val_min=EPOCH.npy`` marker files
 numpy arrays, so a checkpoint loads without torch.  Checkpoints are local
 trusted artifacts (pickle, as the reference's torch.save).
 
+``load_checkpoint`` also reads the JAX package's checkpoints without
+importing ``jax``: the JAX trainer pickles its optimizer states as optax
+NamedTuples, whose classes a plain ``pickle.load`` would import (and
+optax imports jax).  Its unpickler resolves numpy, builtins and
+``collections`` classes as usual and turns any other class into a plain
+tuple of its fields; params and latent tables are numpy arrays either way.
+
 Epoch numbering differs from the JAX package's: the port's
 ``IdentityTrainer`` writes ``checkpoint_epoch_N`` at the end of epoch N,
 after validation (so ``latents_val`` holds epoch N's validation update),
@@ -59,14 +66,36 @@ def latest_checkpoint_epoch(checkpoint_dir: str):
     return max(epochs) if epochs else None
 
 
+class _Fields(tuple):
+    """Stands in for a class the unpickler does not import: built with the
+    pickled fields, it returns them as a plain tuple."""
+
+    def __new__(cls, *fields, **_):
+        return tuple(fields)
+
+
+class _Unpickler(pickle.Unpickler):
+    _ADMIT = ("numpy", "builtins", "collections")
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in self._ADMIT:
+            return super().find_class(module, name)
+        return _Fields
+
+
 def load_checkpoint(checkpoint_dir: str, epoch=None):
-    """The checkpoint dict of ``epoch`` (None = latest), or None if none exists."""
+    """The checkpoint dict of ``epoch`` (None = latest), or None if none
+    exists.  Classes other than numpy's, builtins and ``collections``' (the
+    JAX trainer's optax states) come back as plain tuples of their fields,
+    positional, without their names: a JAX-written checkpoint's ``params``
+    and latent tables load, but ``IdentityTrainer`` does not resume from
+    its optimizer state."""
     if epoch is None:
         epoch = latest_checkpoint_epoch(checkpoint_dir)
         if epoch is None:
             return None
     with open(checkpoint_path(checkpoint_dir, epoch), "rb") as f:
-        return pickle.load(f)
+        return _Unpickler(f).load()
 
 
 def update_val_min(exp_path: str, epoch: int, val_loss: float):

@@ -347,8 +347,14 @@ class IdentityTrainer:
                 tensors(s["exp_avg"]), tensors(s["exp_avg_sq"]),
             )
 
-        self.params = tensors(state["params"])
         opt = state["opt_state"]
+        if not isinstance(opt, dict):
+            raise ValueError(
+                "this checkpoint's optimizer state is not the port's (a JAX-written "
+                "checkpoint loads its optax states as positional tuples): the port "
+                "trainer does not resume from it (ROADMAP, 'Departure on purpose'); "
+                "bridge a live JAX state with utils.params.trainer_state_from_jax")
+        self.params = tensors(state["params"])
         self.opt_state = {
             "count": torch.as_tensor(np.array(opt["count"]), dtype=torch.int32,
                                      device=self.device),

@@ -70,7 +70,9 @@ def trainer_state_from_jax(state: dict) -> dict:
     ``np.asarray`` (NamedTuples kept): params, the optax
     ``inject_hyperparams(adamw)`` state (its first inner state holds the
     Adam count and moments), latent tables and row-Adam states (step,
-    exp_avg, exp_avg_sq).
+    exp_avg, exp_avg_sq).  Not a checkpoint file read by
+    ``training.checkpoints.load_checkpoint``: that loads the optax states
+    without optax, as positional tuples with no field names.
     """
     adam = state["opt_state"].inner_state[0]
 

@@ -426,9 +426,12 @@ def test_k2_refuses_npm_offsets_trunk(device):
 
 
 def test_production_dims(device):
-    """chip_smoke.py's phase 3: every kernel at the main path's shapes."""
+    """chip_smoke.py's phase 3: every kernel at the main path's shapes (and
+    K1 at its res-256 launch), then phase 7's K2-K4 at the batched shapes."""
     c = smoke()
     models = c.build_models(device)
     rows = c.kernel_checks(models, c.build_npm_models(device), device)
-    assert set(rows) == {"ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd",
-                         "train_fwd", "train_bwd", "deepsdf_trunk"}
+    assert set(rows) == {"ensemble_sdf", "ensemble_sdf@res256", "broyden_search", "fit_fwd",
+                         "fit_bwd", "train_fwd", "train_bwd", "deepsdf_trunk"}
+    c.check_batched_kernels(models, device, rows)
+    assert {"broyden_search@S8", "fit_fwd@S8", "fit_bwd@S8"} <= set(rows)

@@ -8,8 +8,9 @@
 - ``extract_mesh`` at res 32 and ``deform_mesh_batch`` from the same latents
   as JAX: vertex arrays at atol 1e-5 (nearest-neighbour matched for the
   extracted mesh, row by row for the posed meshes), face counts equal.
-- The port's main paths (fit, extract, deform, identity training; the NPM
-  family's fit, extract and deform) leave
+- The port's main paths (fit, batched fit, identity-only fit, extract,
+  deform, identity training, the fitting CLI module; the NPM family's fit,
+  extract and deform) leave
   ``jax`` and ``nphm_tpu`` unimported (subprocess), and no source file of
   the port, nor ``chip_smoke.py``, imports them.
 """
@@ -161,7 +162,8 @@ def test_extract_and_deform_match_jax(fitted):
 
 
 def test_main_path_never_imports_jax(tmp_path):
-    """Every module of the port imported, and the fit, extract, deform and
+    """Every module of the port imported (the fitting CLI's among them), and
+    the fit, batched fit, identity-only fit, extract, deform and
     identity-training paths (NPHM) and the fit, extract and deform paths
     (NPM) run on the CPU, with neither ``jax`` nor any module of
     ``nphm_tpu`` loaded."""
@@ -175,6 +177,7 @@ def test_main_path_never_imports_jax(tmp_path):
         import nphm_tpu_torch
         for mod in pkgutil.walk_packages(nphm_tpu_torch.__path__, "nphm_tpu_torch."):
             importlib.import_module(mod.name)
+        assert "nphm_tpu_torch.fitting_pointclouds" in sys.modules
         from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
         from nphm_tpu_torch.training.trainer import IdentityTrainer
         from nphm_tpu_torch.utils.logging_utils import MetricsLogger
@@ -192,6 +195,16 @@ def test_main_path_never_imports_jax(tmp_path):
         le, ls, anchors, hist = fit_joint(s, ps, e, pe, obs, verbose=False, device="cpu",
             cfg=FittingConfig(n_steps=2, n_obs_per_batch=2, n_points_per_obs=32,
                               fused_search="on", fused_shape_fields="on"))
+        from nphm_tpu_torch.fitting import fit_identity, fit_joint_batch
+        les, lss, _, bhist = fit_joint_batch(s, ps, e, pe, [obs, obs[:1]], verbose=False,
+            device="cpu", cfg=FittingConfig(n_steps=2, n_obs_per_batch=2,
+                                            n_points_per_obs=32, fused_search="on",
+                                            fused_shape_fields="on"))
+        assert bhist["loss"].shape == (2, 2) and np.isfinite(bhist["loss"]).all()
+        ils, _, ihist = fit_identity(s, ps, obs, verbose=False, device="cpu",
+            cfg=FittingConfig(n_steps=2, n_obs_per_batch=2, n_points_per_obs=32,
+                              fused_shape_fields="on"))
+        assert np.isfinite(ihist["loss"]).all()
         mesh = extract_mesh(s, ps, ls, resolution=16, device="cpu")
         posed = deform_mesh_batch(mesh, e, pe, le, anchors=anchors, lat_shape=ls,
                                   device="cpu")
