@@ -56,10 +56,37 @@ Phases, in order; any failure exits non-zero:
    ``-sample -n_samples 1``; every PLY and latent file must exist with a
    non-empty mesh, ``FIT_PHASE_TIMINGS`` must parse, and the child's K1,
    K2, K3, K4 and K7 counters must move.
+8. Streamed, sparse and backward-warp extraction on the fitted codes of
+   phases 4 (NPHM) and 6 (NPM) at res 256: dense at tile 1024,
+   ``extract_mesh_streamed`` (8 slabs, tile 1024) and
+   ``extract_mesh_sparse`` (``lip="auto"``) must emit array-equal sorted
+   vertex sets with f32 and f16 copies, both families; the streamed path
+   must launch K1 once per slab and the sparse path once per pass.  Times
+   of dense ``extract_mesh``, the streamed path (8 slabs, f32 and f16) and
+   the sparse path (f16) in this run (NPM: dense and sparse), with the
+   sparse candidate and transfer counts.  K1 at its new launch shapes (one x-slab, the sparse
+   coarse pass, the candidate blocks' fine pass, the res-64 Lipschitz
+   probe) and K7 at its new ones (one 65536-point warp chunk, the NPM
+   candidate blocks' fine pass) against their plain versions, timed and
+   bounded.  ``backward_grid_logits`` at res 256 (K7 warp, then K1) against
+   ``get_logits_backward`` through the plain versions on one slab's
+   points, within TOL_K1.
+9. The training pipeline through the CLIs, each in a child process on a
+   dummy tree of 32 training subjects and 1 validation subject (2
+   expressions each), at the widths of ``configs/nphm.yaml`` and
+   ``configs/nphm_def.yaml``, 2 epochs, a checkpoint every epoch: ``python
+   -m nphm_tpu_torch.train -local`` (K5, K6 and K1's counters must move),
+   ``train_corresp -mode compress`` on that experiment (K7 and K1 must
+   move; its step times at batch 32 are printed), then
+   ``fitting_pointclouds -demo -sparse -batch_subjects 2 -n_steps 50
+   -resolution 256`` on both (K1's coarse and fine passes, K2-K4 and K7
+   must move).  Each child must exit 0, write both checkpoints and
+   non-empty reconstruction logs and meshes.
 
 Each kernel's entry in the table holds its launches summed over the
-paths of phases 4-7, and under "at" its rows at other shapes (K1 on the
-res-256 grid, K2-K4 at the batched shapes).
+paths of phases 4-9, and under "at" its rows at other shapes (K1 on the
+res-256 grid, K2-K4 at the batched shapes; K1 and K7 at phase 8's launch
+shapes, each with its own launches in phase 8).
 
 The second-to-last line is the kernel table as JSON, the last line the
 device record as JSON.  Nothing here imports JAX or the JAX package.
@@ -1057,7 +1084,7 @@ def main_path(models, device):
     for name in ("ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
         expect(counts[name] > 0, f"kernel {name} was not launched on the fit path")
     check_fit_reference(models, obs, device)
-    return counts, steady
+    return counts, steady, (lat_expr, lat_shape, anchors)
 
 
 def check_fit_reference(models, obs, device):
@@ -1321,7 +1348,7 @@ def npm_path(npm, device):
         f"{e / max(scale, 1e-30):.3e} (tol {TOL_K7:g}) to the head product's max "
         f"magnitude {scale:.4f}")
     expect(e <= TOL_K7 * scale, "the NPM grid through K7 disagrees with its plain version")
-    return counts
+    return counts, lat_shape
 
 
 # ---------------------------------------------------------------------------
@@ -1637,6 +1664,500 @@ def cli_path(models):
     return counts[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: streamed, sparse and backward-warp extraction
+# ---------------------------------------------------------------------------
+
+
+def _sorted_vertices(mesh):
+    import numpy as np
+
+    v = mesh.vertices
+    return v[np.lexsort(v.T)]
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _count_launches(launches, c_streamed, kernel, passes):
+    """Add a streamed call's K1 launches to the slab row and one launch to
+    each of the sparse passes named."""
+    if c_streamed:
+        launches["ensemble_sdf@slab"] = (launches.get("ensemble_sdf@slab", 0)
+                                         + c_streamed["ensemble_sdf"])
+    for row in passes:
+        launches[f"{kernel}@{row}"] = launches.get(f"{kernel}@{row}", 0) + 1
+
+
+def three_paths(decoder, params, lat, device, tag, total, launches):
+    """Dense (tile 1024), streamed (8 slabs, tile 1024) and sparse (lip
+    "auto") extraction at res 256 must emit array-equal vertex sets, with
+    f32 and f16 copies to the host.  Counts each call's launches; returns
+    the f16 sparse call's stats."""
+    import warnings
+
+    import numpy as np
+
+    from nphm_tpu_torch.ops.ensemble import grid_tile
+    from nphm_tpu_torch.ops.marching import mesh_from_logits
+    from nphm_tpu_torch.reconstruction.extract import (
+        _pick_n_slabs,
+        extract_mesh_streamed,
+        grid_logits,
+    )
+    from nphm_tpu_torch.reconstruction.sparse import extract_mesh_sparse
+
+    kw = {"tile": 1024} if decoder.kind == "nphm" else {}
+    stats = {}
+    for dt, name in ((None, "f32"), (np.float16, "f16")):
+        reset_counters()
+        dense = mesh_from_logits(grid_logits(decoder, params, lat, GRID_MIN, GRID_MAX,
+                                             EXTRACT_RES, dt, **kw),
+                                 GRID_MIN, GRID_MAX, EXTRACT_RES)
+        _add(total, read_counters())
+        reset_counters()
+        streamed = extract_mesh_streamed(decoder, params, lat, GRID_MIN, GRID_MAX,
+                                         EXTRACT_RES, n_slabs=8, transfer_dtype=dt, tile=1024,
+                                         device=device)
+        c_streamed = read_counters()
+        _add(total, c_streamed)
+        reset_counters()
+        stats = {}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sparse = extract_mesh_sparse(decoder, params, lat, GRID_MIN, GRID_MAX,
+                                         EXTRACT_RES, lip="auto", transfer_dtype=dt,
+                                         stats=stats, device=device)
+        c_sparse = read_counters()
+        _add(total, c_sparse)
+        if decoder.kind == "nphm":
+            slabs = _pick_n_slabs(EXTRACT_RES, grid_tile(EXTRACT_RES, 1024)[1][0], 8)
+            expect(c_streamed["ensemble_sdf"] == slabs, "the streamed path did not launch "
+                   "K1 once per slab")
+            expect(c_sparse["ensemble_sdf"] == 3, "the sparse path did not launch K1 for "
+                   "its probe, coarse and fine passes")
+            _count_launches(launches, c_streamed, "ensemble_sdf", ("sparse_coarse",
+                                                                   "sparse_fine", "lip_probe"))
+        else:
+            expect(c_sparse["deepsdf_trunk"] == 3, "the NPM sparse path did not launch K7 "
+                   "for its probe, coarse and fine passes")
+            _count_launches(launches, {}, "deepsdf_trunk", ("npm_sparse_fine",))
+        n = [len(m.vertices) for m in (dense, streamed, sparse)]
+        vd = _sorted_vertices(dense)
+        same = (n[0] == n[1] == n[2] and np.array_equal(vd, _sorted_vertices(streamed))
+                and np.array_equal(vd, _sorted_vertices(sparse)))
+        log(f"[{tag}] res {EXTRACT_RES} {name}: dense / streamed / sparse vertices {n}, "
+            f"faces {[len(m.faces) for m in (dense, streamed, sparse)]}; array-equal sorted "
+            f"vertex sets: {same}; sparse stats {json.dumps(stats)}; warnings "
+            f"{[str(w.message)[:120] for w in caught]}")
+        expect(n[0] > 0, f"{tag}: the dense mesh is empty")
+        expect(same, f"{tag}: dense, streamed and sparse extraction differ ({name})")
+    return stats
+
+
+def k1_launch_row(shape, params, lat, pts, tile, operands, what, reps=3):
+    """K1 at one of phase 8's launch shapes against its plain version on the
+    same points (the plain one in 2^18-point chunks of whole tiles), both
+    timed, beside the ``baddbmm`` chain over the same chunks and the bound
+    from the live (point, member) pairs of these points."""
+    import torch
+
+    from nphm_tpu_torch.ops.ensemble import CULL_EPS, _prepare, nphm_sdf, nphm_sdf_plain
+
+    cfg = shape.cfg
+    n, chunk = pts.shape[0], 1 << 18
+    kern = nphm_sdf(params, cfg, pts, lat, tile=tile, operands=operands)
+    err = torch.zeros((), device=pts.device)
+
+    def plain_chunks():
+        nonlocal err
+        for c0 in range(0, n, chunk):
+            p = nphm_sdf_plain(params, cfg, pts[c0 : c0 + chunk], lat, tile=tile,
+                               operands=operands)
+            err = torch.maximum(err, (p - kern[c0 : c0 + chunk]).abs().max())
+
+    plain_ms = cuda_ms(plain_chunks, 1)
+    err = float(err)
+    expect(bool(torch.isfinite(kern).all()), f"K1 non-finite at {what}")
+    ms = cuda_ms(lambda: nphm_sdf(params, cfg, pts, lat, tile=tile, operands=operands), reps)
+    n_chunks = -(-n // chunk)
+    lib_ms = baddbmm_chain_ms(cfg, cfg.n_members, min(n, chunk), "f", device=pts.device,
+                              reps=1) * n_chunks
+    with torch.no_grad():
+        _, _, _, active = _prepare(params, cfg, pts, lat, tile, CULL_EPS, operands)
+    pairs = int(active.sum()) * tile
+    flops = 2.0 * nphm_fmas(cfg) * pairs
+    wb = weight_bytes(params["ensemble"], cfg) // cfg.n_members * cfg.n_loc
+    b = bound(flops, n * 16 + wb)
+    log(f"[K1@{what}] {n} points, tile {tile}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"baddbmm chain {lib_ms:.3f} ms; {pairs} live (point, member) pairs, "
+        f"{bound_note(flops, b)}; max|err| {err:.3e} (tol {TOL_K1:g})")
+    expect(err <= TOL_K1, f"K1 disagrees with its plain version at {what}")
+    del kern
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+
+
+def k7_launch_row(params, cfg, pts, cond, what, reps=3, chunk=1 << 20):
+    """K7 at one of phase 8's launch shapes against its plain version on the
+    same points (in 2^20-point chunks), both timed, beside the ``addmm``
+    chain over the same chunks; error relative to the plain head
+    product's magnitude."""
+    import torch
+
+    from nphm_tpu_torch.ops.trunk import deepsdf_trunk, deepsdf_trunk_plain, prepare_trunk_operands
+
+    n = pts.shape[0]
+    kern = deepsdf_trunk(params, cfg, pts, cond)
+    head_bias = params["layers"][-1]["b"]
+    err = torch.zeros((), device=pts.device)
+    scale = torch.zeros((), device=pts.device)
+
+    def plain_chunks():
+        nonlocal err, scale
+        for c0 in range(0, n, chunk):
+            p = deepsdf_trunk_plain(params, cfg, pts[c0 : c0 + chunk], cond)
+            err = torch.maximum(err, (p - kern[c0 : c0 + chunk]).abs().max())
+            scale = torch.maximum(scale, (p - head_bias).abs().max())
+
+    plain_ms = cuda_ms(plain_chunks, 1)
+    err, scale = float(err), float(scale)
+    expect(bool(torch.isfinite(kern).all()), f"K7 non-finite at {what}")
+    ms = cuda_ms(lambda: deepsdf_trunk(params, cfg, pts, cond), reps)
+    lib_ms = addmm_chain_ms(cfg, min(n, chunk), pts.device, 1) * -(-n // chunk)
+    with torch.no_grad():
+        b = trunk_bound(cfg, n, prepare_trunk_operands(params, cfg, cond))
+    flops = trunk_flops(cfg, n)
+    log(f"[K7@{what}] {n} points: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, addmm chain "
+        f"{lib_ms:.3f} ms; {bound_note(flops, b)}; max|err| {err:.3e}, relative "
+        f"{err / max(scale, 1e-30):.3e} (tol {TOL_K7:g}) to the head product's max "
+        f"magnitude {scale:.4f}")
+    expect(err <= TOL_K7 * scale, f"K7 disagrees with its plain version at {what}")
+    del kern
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def extraction_path(models, npm, fitted, npm_lat, device, rows):
+    """Phase 8 on the fitted codes of phases 4 and 6: the three extraction
+    paths' vertex parity at res 256 (NPHM and NPM, f32 and f16), their
+    times beside dense ``extract_mesh`` in this run, K1's and K7's new
+    launch shapes against their plain versions, and the backward-warp grid
+    against the plain path on one slab's points."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.models.deformation import conditioning
+    from nphm_tpu_torch.ops.ensemble import (
+        _brick_points,
+        grid_axes,
+        grid_tile,
+        nphm_sdf_plain,
+        prepare_ensemble_operands,
+    )
+    from nphm_tpu_torch.ops.trunk import deepsdf_trunk_plain
+    from nphm_tpu_torch.reconstruction import sparse as sp
+    from nphm_tpu_torch.reconstruction.extract import (
+        _pick_n_slabs,
+        backward_grid_logits,
+        extract_mesh,
+        extract_mesh_streamed,
+        get_logits_backward,
+        make_point_evaluator,
+    )
+
+    shape, params_shape, expr, params_expr, _gen = models
+    lat_expr, lat_shape, anchors = fitted
+    total, launches = {}, {}
+    res = EXTRACT_RES
+    stats = three_paths(shape, params_shape, lat_shape, device, "nphm-extract", total,
+                        launches)
+
+    # the CLI's choices against the dense path, in this run
+    reset_counters()
+    (mesh, timing), t_dense = _timed(lambda: extract_mesh(
+        shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, device=device,
+        return_timing=True))
+    _add(total, read_counters())
+    streamed, t_stream = {}, {}
+    for dt, name in ((None, "f32"), (np.float16, "f16")):
+        reset_counters()
+        streamed[name], t_stream[name] = _timed(lambda: extract_mesh_streamed(
+            shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, transfer_dtype=dt,
+            device=device))
+        c_streamed = read_counters()
+        _add(total, c_streamed)
+        _count_launches(launches, c_streamed, "ensemble_sdf", ())
+    tstats = {}
+    reset_counters()
+    _, t_sparse = _timed(lambda: sp.extract_mesh_sparse(
+        shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, lip="auto",
+        transfer_dtype=np.float16, stats=tstats, device=device))
+    _add(total, read_counters())
+    _count_launches(launches, {}, "ensemble_sdf", ("sparse_coarse", "sparse_fine", "lip_probe"))
+    log(f"[nphm-extract] res {res}, this run: dense extract_mesh {t_dense:.3f} s (grid "
+        f"{timing['grid_s']:.3f} + marching {timing['march_s']:.3f}), streamed (8 slabs, tile "
+        f"2048) f32 {t_stream['f32']:.3f} s, f16 {t_stream['f16']:.3f} s; sparse (lip auto, "
+        f"f16) {t_sparse:.3f} s with {tstats['n_candidates']} of {tstats['n_blocks']} blocks "
+        f"candidates ({tstats['n_candidates'] / tstats['n_blocks']:.4f}), "
+        f"{tstats['n_transferred']} transferred, lip_auto {tstats['lip_auto']:.3f}, "
+        f"lip_observed {tstats['lip_observed']:.3f}; vertices dense {len(mesh.vertices)}, "
+        f"streamed f32 {len(streamed['f32'].vertices)}, f16 {len(streamed['f16'].vertices)}")
+    expect(np.array_equal(_sorted_vertices(mesh), _sorted_vertices(streamed["f32"])),
+           "streamed f32 at tile 2048 differs from extract_mesh")
+
+    # K1 at its new launch shapes against the plain version
+    cfg = shape.cfg
+    lat = torch.tensor(lat_shape, device=device).reshape(-1)
+    with torch.no_grad():
+        operands = prepare_ensemble_operands(params_shape, cfg, lat)
+    tile, brick = grid_tile(res, 2048)
+    n_slabs = _pick_n_slabs(res, brick[0], 8)
+    per = res**3 // n_slabs
+    axes = grid_axes(GRID_MIN, GRID_MAX, res, device)
+    slab = _brick_points(axes, torch.arange(per, device=device) + 3 * per, res, brick, tile)
+    rows["ensemble_sdf@slab"] = k1_launch_row(shape, params_shape, lat, slab, tile, operands,
+                                              "slab (x-slab 3 of 8, tile 2048)")
+    del slab
+    nb = sp._block_grid(res)
+    ids = torch.arange(nb[0] * nb[1] * nb[2], device=device)
+    coarse = sp._block_points(axes, ids, nb, sp._coarse_offsets(device))
+    rows["ensemble_sdf@sparse_coarse"] = k1_launch_row(
+        shape, params_shape, lat, coarse, sp._TILE, operands, "sparse_coarse")
+    cmm = sp.coarse_pass(shape, params_shape, lat, axes, res, operands=operands)
+    h = (np.asarray(GRID_MAX) - np.asarray(GRID_MIN)) / (res - 1)
+    cand = sp.candidates(cmm.cpu().numpy(), stats["lip_auto"], h)
+    expect(len(cand) == stats["n_candidates"], "the sparse candidate count differs")
+    fine = sp._block_points(axes, torch.as_tensor(cand, device=device), nb,
+                            sp._fine_offsets(device))
+    rows["ensemble_sdf@sparse_fine"] = k1_launch_row(
+        shape, params_shape, lat, fine, sp._TILE, operands,
+        f"sparse_fine ({len(cand)} candidate blocks)")
+    del fine
+    nb64 = sp._block_grid(64)
+    probe = sp._block_points(grid_axes(GRID_MIN, GRID_MAX, 64, device),
+                             torch.arange(nb64[0] * nb64[1] * nb64[2], device=device), nb64,
+                             sp._fine_offsets(device))
+    rows["ensemble_sdf@lip_probe"] = k1_launch_row(shape, params_shape, lat, probe, sp._TILE,
+                                                   operands, "lip_probe (res 64)")
+
+    # backward warp: K7 warps the brick-ordered grid, K1 evaluates it
+    lat_full = np.concatenate([lat_shape.reshape(-1), lat_expr[0].reshape(-1)])
+    reset_counters()
+    bw, t_bw = _timed(lambda: backward_grid_logits(
+        shape, expr, params_shape, params_expr, lat_shape, lat_full, GRID_MIN, GRID_MAX, res,
+        anchors=anchors, device=device))
+    c_bw = read_counters()
+    _add(total, c_bw)
+    launches["deepsdf_trunk@warp"] = c_bw["deepsdf_trunk"]
+    anc = torch.tensor(anchors, device=device).reshape(1, -1, 3)
+    lat_full_t = torch.tensor(lat_full, device=device)
+    with torch.no_grad():
+        cond = conditioning(params_expr, expr.cfg, lat_full_t[None], anc)[0]
+
+    def plain_point_fn(ctx, pts):
+        warped = pts + deepsdf_trunk_plain(params_expr["trunk"], expr.cfg.trunk_cfg, pts,
+                                           cond)[:, :3]
+        return nphm_sdf_plain(params_shape, cfg, warped, lat)
+
+    lin = torch.arange(per, device=device) + 3 * per
+    natural = torch.stack([axes[0][lin // res**2], axes[1][(lin // res) % res],
+                           axes[2][lin % res]], dim=-1).cpu().numpy()
+    plain_eval = make_point_evaluator(plain_point_fn, 1 << 18, 1, device)
+    ref, t_plain = _timed(lambda: get_logits_backward(
+        shape, expr, params_shape, params_expr, lat_shape, lat_full, natural,
+        anchors=anchors, evaluator=plain_eval, device=device))
+    err_bw = float(np.abs(bw[3 * per : 4 * per] - ref).max())
+    log(f"[backward-warp] res {res}: {t_bw:.3f} s ({c_bw['deepsdf_trunk']} K7 warp chunks, "
+        f"{c_bw['ensemble_sdf']} K1 launch); against get_logits_backward's plain path on "
+        f"x-slab 3's {per} points ({t_plain:.3f} s): max|err| {err_bw:.3e} (tol {TOL_K1:g}); "
+        f"{int((bw < 0).sum())} points inside")
+    expect(bool(np.isfinite(bw).all()), "backward-warp logits are not finite")
+    expect(err_bw <= TOL_K1, "backward-warp logits disagree with the plain path")
+    del natural, ref, bw
+    grid = _brick_points(axes, torch.arange(1 << 16, device=device), res, brick, tile)
+    rows["deepsdf_trunk@warp"] = k7_launch_row(params_expr["trunk"], expr.cfg.trunk_cfg, grid,
+                                               cond, "warp (one 65536-point chunk)", reps=5)
+
+    # the NPM family through the same three paths
+    n_shape, n_ps = npm[0], npm[1]
+    nstats = three_paths(n_shape, n_ps, npm_lat, device, "npm-extract", total, launches)
+    reset_counters()
+    (nmesh, ntiming), t_ndense = _timed(lambda: extract_mesh(
+        n_shape, n_ps, npm_lat, GRID_MIN, GRID_MAX, res, device=device, return_timing=True))
+    ntstats = {}
+    nsparse, t_nsparse = _timed(lambda: sp.extract_mesh_sparse(
+        n_shape, n_ps, npm_lat, GRID_MIN, GRID_MAX, res, lip="auto",
+        transfer_dtype=np.float16, stats=ntstats, device=device))
+    _add(total, read_counters())
+    _count_launches(launches, {}, "deepsdf_trunk", ("npm_sparse_fine",))
+    log(f"[npm-extract] res {res}, this run: dense extract_mesh {t_ndense:.3f} s (grid "
+        f"{ntiming['grid_s']:.3f} + marching {ntiming['march_s']:.3f}); sparse (lip auto, f16) "
+        f"{t_nsparse:.3f} s with {ntstats['n_candidates']} of {ntstats['n_blocks']} blocks "
+        f"candidates ({ntstats['n_candidates'] / ntstats['n_blocks']:.4f}), "
+        f"{ntstats['n_transferred']} transferred; vertices {len(nmesh.vertices)} and "
+        f"{len(nsparse.vertices)}")
+    n_lat = torch.tensor(npm_lat, device=device).reshape(-1)
+    ncmm = sp.coarse_pass(n_shape, n_ps, n_lat, axes, res).cpu().numpy()
+    ncand = sp.candidates(ncmm, nstats["lip_auto"], h)
+    expect(len(ncand) == nstats["n_candidates"], "the NPM sparse candidate count differs")
+    nfine = sp._block_points(axes, torch.as_tensor(ncand, device=device), nb,
+                             sp._fine_offsets(device))
+    rows["deepsdf_trunk@npm_sparse_fine"] = k7_launch_row(
+        n_ps, n_shape.cfg, nfine, n_lat, f"npm_sparse_fine ({len(ncand)} candidate blocks)",
+        reps=1)
+    del nfine
+    torch.cuda.empty_cache()
+    for key, n in launches.items():
+        rows[key]["launches"] = n
+    log(f"[counters] extraction variants: {json.dumps(total)}; by launch shape "
+        f"{json.dumps(launches)}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the training pipeline through the CLIs
+# ---------------------------------------------------------------------------
+
+TRAIN_SUBJECTS = (351, 365) + tuple(range(400, 430))  # 32 training subjects
+CHILD = """
+import importlib, json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as c
+import nphm_tpu_torch.training.trainer as T
+train_model = T.AutoDecoderTrainer.train_model
+def timed(self, epochs):
+    train_model(self, epochs)
+    print("STEP_MS " + json.dumps([1e3 * t for t in self._timer.times]), flush=True)
+T.AutoDecoderTrainer.train_model = timed
+c.reset_counters()
+importlib.import_module({module!r}).main({argv!r})
+print("CHILD_COUNTERS " + json.dumps(c.read_counters()), flush=True)
+"""
+
+
+def run_child(module, argv, env, cwd):
+    """One CLI in a child process; returns (stdout lines, counters, step ms)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHILD.format(root=ROOT, module=module,
+                                                               argv=argv)],
+                          cwd=cwd, capture_output=True, text=True,
+                          env={**os.environ, **env}, timeout=900)
+    wall = time.perf_counter() - t0
+    expect(proc.returncode == 0, f"{module} failed (exit {proc.returncode}):\n"
+           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    counts = [json.loads(ln.split(" ", 1)[1]) for ln in lines if ln.startswith("CHILD_COUNTERS ")]
+    steps = [json.loads(ln.split(" ", 1)[1]) for ln in lines if ln.startswith("STEP_MS ")]
+    expect(len(counts) == 1, f"{module} printed no launch counters")
+    warned = [ln.strip() for ln in proc.stderr.splitlines() if "Warning" in ln]
+    log(f"[train-cli] python -m {module} {' '.join(argv)}: exit 0 in {wall:.2f} s (child "
+        f"process included); counters {json.dumps(counts[0])}; warnings {warned[:4]}")
+    for line in lines:
+        if line.startswith(("Epoch", "FIT_PHASE_TIMINGS", "exported ", "[fit_joint_batch]")):
+            log(f"[train-cli]   {line}")
+    return lines, counts[0], steps[0] if steps else []
+
+
+def training_cli_path():
+    """``python -m nphm_tpu_torch.train -local`` -> ``train_corresp -mode
+    compress`` -> ``fitting_pointclouds -demo -sparse -batch_subjects 2
+    -n_steps 50 -resolution 256``, each in a child process on a dummy tree
+    of 32 training subjects and one validation subject (2 expressions
+    each), at the widths of configs/nphm.yaml and configs/nphm_def.yaml,
+    2 epochs, a checkpoint every epoch."""
+    import numpy as np
+    import yaml
+
+    from nphm_tpu_torch.config import load_yaml
+    from nphm_tpu_torch.data.dummy import dummy_env, generate_dummy_data
+    from nphm_tpu_torch.utils.mesh_io import read_ply
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "dummy")
+        generate_dummy_data(root, subjects=TRAIN_SUBJECTS + (199,), n_expressions=2,
+                            n_supervision=4000)
+        env = dummy_env(root)
+        exp = env["NPHM_EXPERIMENT_DIR"]
+        id_cfg = load_yaml(os.path.join(ROOT, "configs", "nphm.yaml"))
+        id_cfg["training"].update(nepochs=2, ckpt_interval=1)
+        def_cfg = load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml"))
+        # the stage-1 model's own decoder block (configs/nphm_def.yaml's
+        # id_decoder has another anchor-MLP width than configs/nphm.yaml)
+        def_cfg["id_decoder"] = dict(id_cfg["decoder"])
+        def_cfg["training"].update(nepochs=2, ckpt_interval=1, shape_exp_name="smoke_id",
+                                   shape_ckpt=1)
+        fit_cfg = {"exp_name_shape": "smoke_id", "checkpoint_shape": 1, "mode": "compress",
+                   "local_shape": True, "local_expr": False, "exp_name_expr": "smoke_def",
+                   "checkpoint_expr": 1}
+        paths = {}
+        for name, cfg in (("id", id_cfg), ("def", def_cfg), ("fit", fit_cfg)):
+            paths[name] = os.path.join(tmp, f"{name}.yaml")
+            with open(paths[name], "w") as f:
+                yaml.safe_dump(cfg, f)
+
+        _, c1, steps1 = run_child("nphm_tpu_torch.train",
+                                  ["-exp_name", "smoke_id", "-cfg_file", paths["id"], "-local"],
+                                  env, tmp)
+        for name in ("train_fwd", "train_bwd", "ensemble_sdf"):
+            expect(c1[name] > 0, f"kernel {name} was not launched by the stage-1 CLI")
+        _, c2, steps2 = run_child("nphm_tpu_torch.train_corresp",
+                                  ["-exp_name", "smoke_def", "-cfg_file", paths["def"],
+                                   "-mode", "compress"], env, tmp)
+        for name in ("deepsdf_trunk", "ensemble_sdf"):
+            expect(c2[name] > 0, f"kernel {name} was not launched by the stage-2 CLI")
+        lines, c3, _ = run_child("nphm_tpu_torch.fitting_pointclouds",
+                                 ["-cfg_file", paths["fit"], "-exp_name", "smoke_train",
+                                  "-exp_tag", "demo", "-demo", "-sparse", "-batch_subjects",
+                                  "2", "-n_steps", str(CLI_STEPS), "-resolution",
+                                  str(EXTRACT_RES)], env, tmp)
+        for name in ("broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
+            expect(c3[name] > 0, f"kernel {name} was not launched by the sparse fitting CLI")
+        expect(c3["ensemble_sdf"] >= 4, "the sparse fitting CLI did not launch K1's coarse "
+               "and fine passes for both subjects")
+        for name in ("smoke_id", "smoke_def"):
+            ckpts = sorted(os.listdir(os.path.join(exp, name, "checkpoints")))
+            expect(ckpts == ["checkpoint_epoch_0.pkl", "checkpoint_epoch_1.pkl"],
+                   f"{name}: checkpoints {ckpts}")
+        recs = {}
+        for name, sub in (("smoke_id", "epoch_1"), ("smoke_def", "val_epoch_1")):
+            d = os.path.join(exp, name, "recs", sub)
+            recs[name] = {f: len(read_ply(os.path.join(d, f)).vertices)
+                          for f in sorted(os.listdir(d))}
+            expect(bool(recs[name]) and all(n > 0 for n in recs[name].values()),
+                   f"{name}: empty reconstruction logs {recs[name]}")
+        out_dir = os.path.join(env["NPHM_FITTING_DIR"], "forward_smoke_train", "demo")
+        n_verts = []
+        for subj in (351, 365):
+            for e in (0, 1):
+                mesh = read_ply(os.path.join(out_dir, f"{subj}_{e}.ply"))
+                expect(len(mesh.vertices) > 0 and bool(np.isfinite(mesh.vertices).all()),
+                       f"empty or non-finite sparse-extracted mesh {subj}_{e}.ply")
+                n_verts.append(len(mesh.vertices))
+    for c in (c1, c2, c3):
+        _add(total, c)
+    mean2 = float(np.mean(steps2[1:])) if len(steps2) > 1 else float("nan")
+    log(f"[train-cli] stage-1 step ms {[round(t, 3) for t in steps1]}; stage-2 step ms at "
+        f"batch 32 {[round(t, 3) for t in steps2]} (steady mean {mean2:.3f} ms, first step "
+        f"excluded); reconstruction logs (vertices) {json.dumps(recs)}; sparse-extracted "
+        f"posed meshes {n_verts} vertices")
+    log(f"[counters] training CLIs: {json.dumps(total)}")
+    return total
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -1659,13 +2180,16 @@ def run():
     models = build_models(device)
     npm = build_npm_models(device)
     rows = kernel_checks(models, npm, device)
-    fit_counts, serial_it_s = main_path(models, device)
+    fit_counts, serial_it_s, fitted = main_path(models, device)
     train_counts = train_path(models, device)
-    npm_counts = npm_path(npm, device)
+    npm_counts, npm_lat = npm_path(npm, device)
     check_batched_kernels(models, device, rows)
     batch_counts = batch_path(models, device, serial_it_s)
     cli_counts = cli_path(models)
-    paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts)
+    extract_counts = extraction_path(models, npm, fitted, npm_lat, device, rows)
+    train_cli_counts = training_cli_path()
+    paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts, extract_counts,
+             train_cli_counts)
     table = []
     for name, (source, replaces) in KERNELS.items():
         # rows of the same kernel at other shapes: "ensemble_sdf@res256", ...

@@ -2,13 +2,18 @@
 
 Reads the same ``configs/*.yaml`` files as the JAX package and builds both
 model families: the NPHM ensemble with its deformation field, and the NPM
-global DeepSDF identity decoder with its DeepSDF offsets network.
+global DeepSDF identity decoder with its DeepSDF offsets network.  An
+experiment's config is snapshotted on its first run and reloaded on every
+later one (``snapshot_or_reload_config``, reference
+scripts/training/train.py:33-43).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+from typing import Optional
 
 import numpy as np
 import yaml
@@ -27,6 +32,22 @@ from nphm_tpu_torch.models import (
 def load_yaml(path: str) -> dict:
     with open(path, "r") as f:
         return yaml.safe_load(f)
+
+
+def snapshot_or_reload_config(exp_dir: str, cfg: Optional[dict]) -> dict:
+    """First run of an experiment: write ``cfg`` to ``{exp_dir}/configs.yaml``.
+    Later runs: reload that file and ignore ``cfg``."""
+    fname = os.path.join(exp_dir, "configs.yaml")
+    if not os.path.exists(fname):
+        if cfg is None:
+            raise ValueError("a new experiment needs a config file (-cfg_file)")
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(fname, "w") as f:
+            yaml.safe_dump(cfg, f, default_flow_style=False)
+        print(f"Snapshotted config to {fname}")
+        return cfg
+    print(f"Loading config snapshot from {fname}")
+    return load_yaml(fname)
 
 
 def print_cfg(cfg: dict, title: str = ""):

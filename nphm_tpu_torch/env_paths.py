@@ -21,6 +21,12 @@ DATA = os.environ.get("NPHM_DATA", os.path.join(_DEF_ROOT, "dataset"))
 DATA_SINGLE_VIEW = os.environ.get(
     "NPHM_DATA_SINGLE_VIEW", os.path.join(_DEF_ROOT, "single_view")
 )
+SUPERVISION_IDENTITY = os.environ.get(
+    "NPHM_SUPERVISION_IDENTITY", os.path.join(_DEF_ROOT, "supervision_identity")
+)
+SUPERVISION_DEFORMATION_OPEN = os.environ.get(
+    "NPHM_SUPERVISION_DEFORMATION", os.path.join(_DEF_ROOT, "supervision_deformation")
+)
 EXPERIMENT_DIR = os.environ.get(
     "NPHM_EXPERIMENT_DIR", os.path.join(_DEF_ROOT, "experiments")
 )
@@ -28,6 +34,11 @@ FITTING_DIR = os.environ.get("NPHM_FITTING_DIR", os.path.join(_DEF_ROOT, "fittin
 DUMMY_DATA = os.environ.get("NPHM_DUMMY_DATA", os.path.join(_DEF_ROOT, "dummy_data"))
 
 ANCHOR_MEAN_PATH = os.path.join(ASSETS, "anchors_39.npy")
+
+# supervision chunks per scan: identity surface samples, deformation
+# correspondences
+NUM_SPLITS = int(os.environ.get("NPHM_NUM_SPLITS", "200"))
+NUM_SPLITS_EXPR = int(os.environ.get("NPHM_NUM_SPLITS_EXPR", "100"))
 
 subjects_eval = [199, 286, 290, 291, 292, 293, 294, 295, 297, 298]
 

@@ -18,9 +18,13 @@ each subject and expression ``{subj}_{expr}.ply``,
 ``{subj}_{expr}_lat_shape.npy`` and ``{subj}_{expr}_lat_expr.npy``, then
 prints one ``FIT_PHASE_TIMINGS {json}`` line.  ``-sample`` writes
 ``mesh_NNNN.ply`` and ``lat_NNNN.npy`` into ``nphm_shape_space_samples_085``
-(``npm_...`` for the NPM family) under the working directory.  Meshes come
-from the dense grid (K1 or K7 on the card) and are posed through K7.
-Everything runs on the card unless ``-device cpu`` is given.
+(``npm_...`` for the NPM family) under the working directory.  Meshes are
+extracted as the JAX script extracts them: ``-sparse`` through
+``extract_mesh_sparse`` (``-sparse_lip``), else on the card an NPHM model
+through ``extract_mesh_streamed``, both with an f16 copy to the host,
+else through the dense grid (``extract_mesh``); K1 (NPHM) or K7 (NPM)
+evaluates the field.  Posing runs through K7.  Everything runs on the card
+unless ``-device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import os
 import time
 
 import numpy as np
+import torch
 import yaml
 
 from nphm_tpu_torch import env_paths
@@ -43,7 +48,12 @@ from nphm_tpu_torch.config import (
 )
 from nphm_tpu_torch.data.manager import DataManager
 from nphm_tpu_torch.fitting import FittingConfig, fit_joint, fit_joint_batch
-from nphm_tpu_torch.reconstruction.extract import deform_mesh_batch, extract_mesh
+from nphm_tpu_torch.reconstruction.extract import (
+    deform_mesh_batch,
+    extract_mesh,
+    extract_mesh_streamed,
+)
+from nphm_tpu_torch.reconstruction.sparse import extract_mesh_sparse
 from nphm_tpu_torch.training import checkpoints as ckpt
 from nphm_tpu_torch.utils.params import default_device, from_numpy_pytree
 
@@ -66,6 +76,22 @@ def load_experiment(exp_name: str, checkpoint_epoch, local: bool, kind: str, dev
     return decoder, from_numpy_pytree(data["params"], device), data, cfg
 
 
+def extract(args, decoder_shape, params_shape, lat, device, sparse: bool):
+    """The canonical mesh of a shape code, by the JAX script's choice of
+    path: sparse two-pass when ``sparse``; streamed over x-slabs for an
+    NPHM model on the card; the dense grid otherwise."""
+    if sparse:
+        return extract_mesh_sparse(decoder_shape, params_shape, lat, GRID_MIN, GRID_MAX,
+                                   args.resolution, lip=args.sparse_lip,
+                                   transfer_dtype=np.float16, device=device)
+    if torch.device(device).type == "cuda" and decoder_shape.kind == "nphm":
+        return extract_mesh_streamed(decoder_shape, params_shape, lat, GRID_MIN, GRID_MAX,
+                                     args.resolution, transfer_dtype=np.float16,
+                                     device=device)
+    return extract_mesh(decoder_shape, params_shape, lat, GRID_MIN, GRID_MAX,
+                        args.resolution, device=device)
+
+
 def sample_shape_space(args, CFG, decoder_shape, params_shape, device):
     local = CFG["local_shape"]
     out_dir = "nphm_shape_space_samples_085" if local else "npm_shape_space_samples_085"
@@ -78,8 +104,7 @@ def sample_shape_space(args, CFG, decoder_shape, params_shape, device):
     for step in range(args.n_samples):
         lat = (rng.normal(size=lat_mean.shape) * lat_std * 0.85 + lat_mean).astype(
             np.float32)[None]
-        mesh = extract_mesh(decoder_shape, params_shape, lat, GRID_MIN, GRID_MAX,
-                            args.resolution, device=device)
+        mesh = extract(args, decoder_shape, params_shape, lat, device, sparse=False)
         mesh.export(os.path.join(out_dir, f"mesh_{step:04d}.ply"))
         np.save(os.path.join(out_dir, f"lat_{step:04d}.npy"), lat)
         # the JAX script also saves a screenshot step_NNNN.png, best effort
@@ -164,8 +189,7 @@ def _export_subject(args, out_dir, decoder_shape, params_shape, decoder_expr,
     """Extract, pose and export one fitted subject; returns the wall time
     of (extraction, posing + export)."""
     t0 = time.time()
-    mesh_can = extract_mesh(decoder_shape, params_shape, lat_shape, GRID_MIN, GRID_MAX,
-                            args.resolution, device=device)
+    mesh_can = extract(args, decoder_shape, params_shape, lat_shape, device, args.sparse)
     extract_s = time.time() - t0
     t0 = time.time()
     meshes = deform_mesh_batch(
@@ -199,7 +223,9 @@ def parse_args(argv=None):
     parser.add_argument("-subjects", type=int, nargs="*", default=None,
                         help="restrict fitting to these subject ids (default: the test split)")
     parser.add_argument("-sparse", action="store_true",
-                        help="sparse two-pass extraction (not ported: ROADMAP A3)")
+                        help="sparse two-pass extraction (O(surface); eikonal-trained SDFs)")
+    parser.add_argument("-sparse_lip", type=float, default=2.0,
+                        help="Lipschitz bound for the sparse coarse-pass margin")
     parser.add_argument("-broyden_frac_exit", type=float,
                         default=FittingConfig.broyden_frac_exit,
                         help="stop a Broyden search once at most this fraction of points "
@@ -223,10 +249,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.sparse:
-        raise NotImplementedError(
-            "-sparse: sparse and streamed extraction are not ported yet (ROADMAP A3); "
-            "run without -sparse for the dense grid")
     device = default_device() if args.device is None else args.device
     CFG = load_yaml(args.cfg_file)
     print_cfg(CFG)

@@ -73,9 +73,9 @@ def make_nphm_decoder(cfg: NPHMConfig, mean_anchors) -> Decoder:
 def make_deformation_decoder(cfg: DeformationConfig) -> Decoder:
     """Forward deformation field; returns the offset head only."""
 
-    def apply(params, xyz, lat, anchors=None, *, training=False, gen=None, **_):
+    def apply(params, xyz, lat, anchors=None, *, training=False, gen=None, noise=None, **_):
         delta, _extra = apply_deformation(
-            params, cfg, xyz, lat, anchors, training=training, gen=gen
+            params, cfg, xyz, lat, anchors, training=training, gen=gen, noise=noise
         )
         return delta, None
 

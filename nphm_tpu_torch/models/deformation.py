@@ -86,8 +86,12 @@ def init_deformation(gen: torch.Generator, cfg: DeformationConfig, device=None):
 
 
 def conditioning(params, cfg: DeformationConfig, lat, anchors, *,
-                 training: bool = False, gen=None):
-    """Row-constant trunk conditioning [B, cfg.lat_dim] from lat [B, D]."""
+                 training: bool = False, gen=None, noise=None):
+    """Row-constant trunk conditioning [B, cfg.lat_dim] from lat [B, D].
+
+    In compress mode at train time the compressed code gets N(0, 1) *
+    ``noise_scale``: ``noise`` [B, lat_dim_id] when given, else drawn from
+    ``gen``."""
     B = lat.shape[0]
     E = cfg.lat_dim_expr
     z_ex = lat[..., -E:]
@@ -98,19 +102,20 @@ def conditioning(params, cfg: DeformationConfig, lat, anchors, *,
     concat = torch.cat([lat[..., :-E], anchors.reshape(B, -1)], dim=-1)  # compress
     compressed = linear(params["compressor"], concat)
     if training:
-        if gen is None:
-            raise ValueError("compress-mode training needs a generator for noise")
-        noise = torch.randn(compressed.shape, generator=gen)
+        if noise is None:
+            if gen is None:
+                raise ValueError("compress-mode training needs a generator for noise")
+            noise = torch.randn(compressed.shape, generator=gen)
         compressed = compressed + noise.to(compressed.device) * cfg.noise_scale
     return torch.cat([compressed, z_ex], dim=-1)
 
 
 def apply_deformation(params, cfg: DeformationConfig, xyz, lat, anchors=None, *,
-                      training: bool = False, gen=None):
+                      training: bool = False, gen=None, noise=None):
     """Offsets for xyz [B, N, 3] under lat [B, lat_dim_shape_full + lat_dim_expr].
 
     Returns (delta [B, N, 3], extra [B, N, 1]) like the JAX package.
     """
-    cond = conditioning(params, cfg, lat, anchors, training=training, gen=gen)
+    cond = conditioning(params, cfg, lat, anchors, training=training, gen=gen, noise=noise)
     pred = apply_deepsdf(params["trunk"], cfg.trunk_cfg, xyz, cond)
     return pred[..., :3], pred[..., -1:]

@@ -111,9 +111,10 @@ def _pad_points(xyz, tile):
     return xyz.contiguous()
 
 
-def _prepare(params, cfg, xyz, lat, tile, cull_eps):
+def _prepare(params, cfg, xyz, lat, tile, cull_eps, operands=None):
     xyz = _pad_points(xyz.to(torch.float32), tile)
-    layers, anchors = prepare_ensemble_operands(params, cfg, lat)
+    layers, anchors = (prepare_ensemble_operands(params, cfg, lat) if operands is None
+                       else operands)
     active = cull_mask(xyz, anchors, cfg.blend_var, tile, cull_eps)
     return xyz, layers, anchors, active
 
@@ -125,10 +126,10 @@ def _blend_weight(raw, inv_var):
 
 @torch.no_grad()
 def nphm_sdf_plain(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TILE,
-                   cull_eps: float = CULL_EPS):
+                   cull_eps: float = CULL_EPS, operands=None):
     """Plain PyTorch version of K1: same folding, cull mask, pad and order."""
     n = xyz.shape[0]
-    xyz, layers, anchors, active = _prepare(params, cfg, xyz, lat, tile, cull_eps)
+    xyz, layers, anchors, active = _prepare(params, cfg, xyz, lat, tile, cull_eps, operands)
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
     inv_var = 1.0 / cfg.blend_var
@@ -155,15 +156,29 @@ def nphm_sdf_plain(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TIL
     return (num / (den + 1e-6))[:n]
 
 
+def _work_list_padded(active):
+    """``work_list`` without a host sync: the same offsets, and the members
+    in a buffer of n_tiles * K + 1 entries whose first n_live are
+    ``work_list``'s (K1 reads no entry past them).  Each live pair goes to
+    its rank among the live pairs, tile-major; the rest to the last slot."""
+    n_t, K = active.shape
+    flat = active.reshape(-1).to(torch.int64)
+    rank = torch.cumsum(flat, 0) - 1
+    dump = n_t * K
+    members = torch.zeros(dump + 1, dtype=torch.int32, device=active.device)
+    ids = torch.arange(K, dtype=torch.int32, device=active.device).repeat(n_t)
+    members.scatter_(0, torch.where(flat > 0, rank, dump), ids)
+    offsets = torch.zeros(n_t + 1, dtype=torch.int64, device=active.device)
+    offsets[1:] = torch.cumsum(flat.reshape(n_t, K).sum(dim=1), 0)
+    return offsets.to(torch.int32), members
+
+
 def work_list(active):
     """K1's compacted schedule of a cull mask [n_tiles, K]: (offsets int32
     [n_tiles + 1], members int32 [n_live]); tile t's live members, in
     ascending order, are members[offsets[t]:offsets[t + 1]]."""
-    pairs = torch.nonzero(active)  # row-major: tile-major, members ascending
-    counts = active.to(torch.int64).sum(dim=1)
-    offsets = torch.zeros(active.shape[0] + 1, dtype=torch.int64, device=active.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return offsets.to(torch.int32), pairs[:, 1].to(torch.int32).contiguous()
+    offsets, members = _work_list_padded(active)
+    return offsets, members[: int(offsets[-1])].contiguous()
 
 
 @torch.no_grad()
@@ -258,7 +273,7 @@ def _launch_ensemble(cfg, xyz, layers, anchors, active, tile):
     centers = anchors.contiguous()
     _build.require_cuda_f32(xyz, centers, *keep)
     _build.require_mask(active, (xyz.shape[0] // tile, cfg.n_loc), xyz.device)
-    offsets, members = work_list(active)
+    offsets, members = _work_list_padded(active)  # no host sync: launches queue up
     out = torch.empty(xyz.shape[0], device=xyz.device, dtype=torch.float32)
     rc = lib.nphm_ensemble_sdf(
         ctypes.byref(tr), xyz.data_ptr(), centers.data_ptr(), offsets.data_ptr(),
@@ -273,17 +288,21 @@ def _launch_ensemble(cfg, xyz, layers, anchors, active, tile):
 
 @torch.no_grad()
 def nphm_sdf(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TILE,
-             cull_eps: float = CULL_EPS):
+             cull_eps: float = CULL_EPS, operands=None):
     """Eval-mode NPHM SDF at xyz [N, 3] for one latent -> sdf [N].
 
     Matches ``apply_nphm(..., training=False)`` up to summation order plus a
     blend-weight truncation bounded by ``n_loc * cull_eps``
-    (``cull_eps=0`` disables culling).
+    (``cull_eps=0`` disables culling).  ``operands``: the latent's
+    ``prepare_ensemble_operands``, when the caller evaluates one latent
+    over several point sets (their host-to-device constants synchronise
+    the stream, so a pipeline prepares them once, before its launches).
     """
     if not xyz.is_cuda:
-        return nphm_sdf_plain(params, cfg, xyz, lat, tile=tile, cull_eps=cull_eps)
+        return nphm_sdf_plain(params, cfg, xyz, lat, tile=tile, cull_eps=cull_eps,
+                              operands=operands)
     n = xyz.shape[0]
-    xyz, layers, anchors, active = _prepare(params, cfg, xyz, lat, tile, cull_eps)
+    xyz, layers, anchors, active = _prepare(params, cfg, xyz, lat, tile, cull_eps, operands)
     return _launch_ensemble(cfg, xyz, layers, anchors, active, tile)[:n]
 
 
@@ -324,9 +343,12 @@ def _brick_points(axes, lin, res: int, brick, tile: int):
     return torch.stack([axes[0][ix], axes[1][iy], axes[2][iz]], dim=-1)
 
 
-def _unbrick_gather(res: int, brick, tile: int, device):
-    """Natural (x-major) index -> brick-order position, as a gather map."""
-    lin = torch.arange(res * res * res, dtype=torch.int64, device=device)
+def _unbrick_gather(res: int, brick, tile: int, device, n=None):
+    """Natural (x-major) index -> brick-order position, as a gather map of
+    the first ``n`` (default res^3) natural indices.  A brick's x extent
+    divides a slab of whole brick rows, so the map of a slab's first
+    ``n`` indices is also every such slab's map into its own range."""
+    lin = torch.arange(res**3 if n is None else n, dtype=torch.int64, device=device)
     if brick is None:
         return lin
     bx, by, bz = brick
@@ -356,6 +378,14 @@ def grid_tile(res: int, tile: int = DEFAULT_TILE):
     return tile, brick
 
 
+def grid_axes(mini, maxi, res: int, device):
+    """The lattice's three axes.  Every extraction path (dense, slab,
+    sparse, backward warp) builds them with this call on the evaluation
+    device, so equal indices give bit-equal points."""
+    return [torch.linspace(float(mini[i]), float(maxi[i]), res, dtype=torch.float32,
+                           device=device) for i in range(3)]
+
+
 @torch.no_grad()
 def nphm_grid_sdf(params, cfg: NPHMConfig, lat, mini, maxi, res: int, *,
                   tile: int = DEFAULT_TILE, cull_eps: float = CULL_EPS,
@@ -368,11 +398,7 @@ def nphm_grid_sdf(params, cfg: NPHMConfig, lat, mini, maxi, res: int, *,
     """
     device = lat.device
     tile, brick = grid_tile(res, tile)
-    axes = [
-        torch.linspace(float(mini[i]), float(maxi[i]), res, dtype=torch.float32,
-                       device=device)
-        for i in range(3)
-    ]
+    axes = grid_axes(mini, maxi, res, device)
     lin = torch.arange(res * res * res, dtype=torch.int64, device=device)
     pts = _brick_points(axes, lin, res, brick, tile)
     sdf = sdf_fn(params, cfg, pts, lat, tile=tile, cull_eps=cull_eps)

@@ -1,6 +1,6 @@
-"""Where the time of one identity train step goes, on the GPU.
+"""Where the time of one train step goes, on the GPU.
 
-    python -m nphm_tpu_torch.profile_train [--steps 10] [--batch 32]
+    python -m nphm_tpu_torch.profile_train [--steps 10] [--batch 32] [--stage 2]
 
 Builds the NPHM decoder of ``configs/nphm.yaml`` from a seed, an
 ``IdentityTrainer`` through K5/K6 on synthetic heads (750 face / 250
@@ -13,6 +13,12 @@ non-face points a row), runs two warm-up steps, then:
   the lane contraction and the fixed-order sums), the optimizer (the
   kernels launched inside the trainer's ``optimizer`` profiler range:
   clips, AdamW, row-Adam) and the autograd glue (every other kernel).
+
+``--stage 2`` profiles a ``DeformationTrainer`` step instead: the
+compress-mode field of ``configs/nphm_def.yaml`` (plain torch, no kernel),
+its frozen identity model the decoder of ``configs/nphm.yaml`` from a
+seed, a batch of ``--batch`` scans x 1000 correspondences on a warped
+sphere; the device time is split into the optimizer and the rest.
 
 Prints one JSON line with the card's name and power limit beside every
 number.  Needs a GPU; nothing falls back to the CPU.
@@ -68,10 +74,35 @@ def _trainer(batch: int, exp_dir: str):
     return tr, tr._batch(b)
 
 
+def _deformation_trainer(batch: int, exp_dir: str):
+    from nphm_tpu_torch.config import build_expression_decoder, load_yaml
+    from nphm_tpu_torch.training.trainer_corresp import DeformationTrainer
+    from nphm_tpu_torch.utils.logging_utils import MetricsLogger
+
+    id_cfg = load_yaml(os.path.join(ROOT, "configs", "nphm.yaml"))
+    cfg = load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml"))
+    cfg["id_decoder"] = dict(id_cfg["decoder"])
+    shape, _ = _trainer(batch, exp_dir)
+    expr = build_expression_decoder(cfg, "compress")
+    gen = torch.Generator().manual_seed(1)
+    rows = torch.randn((batch, shape.decoder.lat_dim), generator=gen) * 0.1
+    state = {"params": shape.params, "latents": rows, "latents_val": rows}
+    tr = DeformationTrainer(expr, expr.init(gen), shape.decoder, cfg, range(batch),
+                            range(batch), "profile2", exp_dir=exp_dir,
+                            logger=MetricsLogger(quiet=True), shape_state=state)
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(batch, cfg["training"]["npoints_decoder"], 3))
+    pn = (0.4 * d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    idx = np.arange(batch, dtype=np.int32)[:, None]
+    b = {"points_neutral": pn, "points_posed": pn + 0.01, "idx": idx, "subj_ind": idx}
+    return tr, tr._batch(b)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--stage", type=int, default=1, choices=(1, 2))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a GPU")
@@ -79,7 +110,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
     with tempfile.TemporaryDirectory() as tmp:
-        tr, batch = _trainer(args.batch, tmp)
+        tr, batch = (_trainer if args.stage == 1 else _deformation_trainer)(args.batch, tmp)
         lr, lr_lat = 5e-4, 1e-3
         for _ in range(2):
             tr._train_step(batch, lr, lr_lat)
@@ -118,21 +149,22 @@ def main(argv=None):
                            f"({sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})")
     k5, k6 = share(K5_KERNELS), share(K6_KERNELS)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(json.dumps({
+    out = {
         "card": card,
+        "stage": args.stage,
         "batch_rows": args.batch,
-        "points_per_row": 1693,
+        "points_per_row": 1693 if args.stage == 1 else int(batch["points_neutral"].shape[1]),
         "steps": args.steps,
         "step_wall_ms": wall_ms,
         "device_ms_per_step": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
-        "k5_ms": k5,
-        "k6_ms": k6,
-        "k6_parts_ms": {n: share((n,)) for n in K6_KERNELS},
         "optimizer_ms": opt_ms,
         "autograd_glue_ms": device_ms - k5 - k6 - opt_ms,
         "top_kernels_ms": dict(top),
-    }), flush=True)
+    }
+    if args.stage == 1:
+        out.update(k5_ms=k5, k6_ms=k6, k6_parts_ms={n: share((n,)) for n in K6_KERNELS})
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

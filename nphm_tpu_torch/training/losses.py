@@ -1,5 +1,7 @@
-"""Stage-1 training loss (counterpart of ``identity_sdf_loss`` and
-``latent_pair_consistency`` in ``nphm_tpu/training/losses.py``).
+"""Training losses (counterpart of ``identity_sdf_loss``,
+``latent_pair_consistency`` and ``deformation_loss`` in
+``nphm_tpu/training/losses.py``; its ``joint_loss``, which the reference's
+pipelines never call, is not ported).
 
 Behavioural spec: reference ``src/NPHM/models/loss_functions.py``
 ``actual_compute_loss`` (:20-110): |sdf| on surface points, normal
@@ -11,7 +13,7 @@ sets are concatenated into one field evaluation, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -92,3 +94,54 @@ def identity_sdf_loss(decoder, params, batch: Dict[str, torch.Tensor], lat, *,
         out["symm_dist"] = symm
         out["middle_dist"] = middle
     return out
+
+
+def generator_draws(gen: Optional[torch.Generator] = None):
+    """The draws of ``deformation_loss`` from a (CPU) generator: N(0, 1) for
+    the noise kinds, U[0, 1) for "samples", moved to the loss's device."""
+
+    def draw(kind: str, shape, device):
+        fn = torch.rand if kind == "samples" else torch.randn
+        return fn(shape, generator=gen).to(device)
+
+    return draw
+
+
+def deformation_loss(decoder_expr, params_expr, batch: Dict[str, torch.Tensor], lat_shape,
+                     lat_expr, anchors, *, training: bool = True,
+                     gen: Optional[torch.Generator] = None,
+                     draws: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """Forward-deformation correspondence loss dict.
+
+    batch keys: points_neutral [B,N,3], points_posed [B,N,3].
+    lat_shape: [B, D_id] frozen identity codes; lat_expr: [B, E].
+    anchors: [B, K, 3] from the frozen identity decoder, or None.
+
+    The random draws go through ``draws(kind, shape, device)`` (default
+    ``generator_draws(gen)``): "noise" and "noise_reg", the N(0, 1) noise
+    of a compress-mode field at train time at the neutral points and at the
+    prior's points; "samples", U[0, 1) points of the zero-deformation prior
+    before they are mapped to [-1.25, 1.25]^3.  The JAX package draws the
+    same three from split keys; a caller can hand those draws in here.
+    """
+    draws = draws or generator_draws(gen)
+    lat = torch.cat([lat_shape, lat_expr], dim=-1)
+    pn = batch["points_neutral"]
+    B, N, _ = pn.shape
+    noisy = (training and decoder_expr.kind == "deformation"
+             and decoder_expr.cfg.mode == "compress")
+
+    def noise(kind):
+        return draws(kind, (B, decoder_expr.cfg.lat_dim_id), pn.device) if noisy else None
+
+    delta, _ = decoder_expr.apply(params_expr, pn, lat, anchors, training=training,
+                                  noise=noise("noise"))
+    corresp = torch.mean((pn + delta - batch["points_posed"][..., :3]) ** 2)
+    lat_reg = torch.mean(sq_norm(lat_expr))
+
+    # zero-deformation prior at uniform random points in [-1.25, 1.25]^3
+    samps = (draws("samples", (B, min(100, N), 3), pn.device) - 0.5) * 2.5
+    delta_reg, _ = decoder_expr.apply(params_expr, samps, lat, anchors, training=training,
+                                      noise=noise("noise_reg"))
+    return {"corresp": corresp, "lat_reg": lat_reg,
+            "loss_reg_zero": torch.mean(delta_reg**2)}

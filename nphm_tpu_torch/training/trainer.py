@@ -1,5 +1,6 @@
 """Stage-1 auto-decoder trainer (counterpart of ``IdentityTrainer`` in
-``nphm_tpu/training/trainer.py``), on one device.
+``nphm_tpu/training/trainer.py``), on one device, and the machinery it
+shares with the stage-2 trainer (``AutoDecoderTrainer``).
 
 Behavioural spec: reference ``src/NPHM/models/training.py``
 (TrainerAutoDecoder): per-subject latent tables (max_norm 1, N(0,
@@ -101,13 +102,19 @@ class _TermAccumulator:
         return {k: float(v) for k, v in zip(self.keys, vals)}
 
 
-class IdentityTrainer:
-    def __init__(self, decoder, params, cfg: dict, train_dataset, val_dataset,
-                 exp_name: str, exp_dir: Optional[str] = None,
-                 logger: Optional[MetricsLogger] = None, recon_resolution: int = 256,
-                 seed: int = 0, device=None):
+class AutoDecoderTrainer:
+    """What both auto-decoder trainers share (stage 1 here, stage 2 in
+    ``trainer_corresp``): train and validation latent tables (max_norm 1),
+    AdamW on the decoder (decay masked off ``NO_DECAY``), row-Adam on the
+    latents, global-norm clips, the epoch loop with validation, best-val
+    markers, checkpoints and resume.  A subclass sets ``self.decoder`` and
+    defines ``_loss(params, table, batch, *, val)``, ``lr_lat_at`` and
+    ``log_recs``."""
+
+    def __init__(self, params, cfg: dict, train_dataset, val_dataset, exp_name: str,
+                 exp_dir: Optional[str], logger: Optional[MetricsLogger],
+                 recon_resolution: int, seed: int, device, lat_dim: int, lat_std: float):
         self.device = default_device() if device is None else torch.device(device)
-        self.decoder = decoder
         self.cfg = cfg["training"]
         if self.cfg.get("matmul_precision", "default") != "default":
             raise ValueError("matmul_precision: only 'default' (fp32, TF32 off) is supported")
@@ -121,11 +128,11 @@ class IdentityTrainer:
         os.makedirs(self.checkpoint_path, exist_ok=True)
         self.logger = logger or MetricsLogger(log_dir=self.exp_path)
 
-        d = decoder.lat_dim
         gen = torch.Generator().manual_seed(seed)
-        std = 0.1 / math.sqrt(d)
-        self.latents = (torch.randn((len(train_dataset), d), generator=gen) * std).to(self.device)
-        self.latents_val = (torch.randn((len(val_dataset), d), generator=gen) * std).to(self.device)
+        self.latents = (torch.randn((len(train_dataset), lat_dim), generator=gen)
+                        * lat_std).to(self.device)
+        self.latents_val = (torch.randn((len(val_dataset), lat_dim), generator=gen)
+                            * lat_std).to(self.device)
         self.max_norm = 1.0
 
         self.params = from_numpy_pytree(to_numpy_pytree(params), self.device)
@@ -135,23 +142,6 @@ class IdentityTrainer:
         self.val_min = None
         self.log_steps = 0
         self._timer = StepTimer(self.device)
-
-        fused = self.cfg.get("fused_train_kernel", "auto")
-        if fused == "auto":
-            fused = getattr(decoder, "kind", None) == "nphm" and self.device.type == "cuda"
-        self._fields_fn = None
-        if fused:
-            from nphm_tpu_torch.ops.train_fields import apply_nphm_train
-
-            kw = dict(self.cfg.get("fused_train_kernel_kw", {}))
-            unknown = set(kw) - {"tile", "cull_eps"}
-            if unknown:
-                raise ValueError(f"fused_train_kernel_kw: unknown keys {sorted(unknown)}")
-
-            def fields_fn(p, pts, lat):
-                return apply_nphm_train(p, decoder.cfg, pts, lat, **kw)
-
-            self._fields_fn = fields_fn
 
     # -------------------------------------------------------------- optimizer
 
@@ -197,13 +187,6 @@ class IdentityTrainer:
     def _batch(self, batch):
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
-    def _loss(self, params, table, batch):
-        idx = batch["idx"].reshape(-1)
-        terms = identity_sdf_loss(self.decoder, params, batch, table[idx], training=True,
-                                  fields_fn=self._fields_fn)
-        loss = sum(self.lambdas[k] * terms[k] for k in terms)
-        return loss, terms
-
     def _train_step(self, batch, lr: float, lr_lat: float):
         idx = batch["idx"].reshape(-1).long()
         with torch.no_grad():
@@ -211,7 +194,7 @@ class IdentityTrainer:
         table.requires_grad_(True)
         leaves = [p.detach().requires_grad_(True) for _, p in tree_paths(self.params)]
         params = tree_rebuild(self.params, leaves)
-        loss, terms = self._loss(params, table, batch)
+        loss, terms = self._loss(params, table, batch, val=False)
         grads = torch.autograd.grad(loss, leaves + [table], allow_unused=True)
         g_params = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         g_table = grads[-1]
@@ -247,7 +230,7 @@ class IdentityTrainer:
         with torch.no_grad():
             table = renorm_rows(self.latents_val, idx, self.max_norm)
         table.requires_grad_(True)
-        loss, terms = self._loss(self.params, table, batch)
+        loss, terms = self._loss(self.params, table, batch, val=True)
         (g_table,) = torch.autograd.grad(loss, [table])
         with torch.no_grad():
             if self.cfg.get("grad_clip_lat") is not None:
@@ -267,18 +250,6 @@ class IdentityTrainer:
         if not interval:
             return self.cfg["lr"]
         return self.cfg["lr"] * self.cfg["lr_decay_factor"] ** (epoch // interval)
-
-    def lr_lat_at(self, epoch: int) -> float:
-        """Latent LR: decays only at multiples of the interval past epoch
-        1000 and holds the last-set value in between (training.py:101-108),
-        so interval 600 holds the base LR until epoch 1200."""
-        interval = self.cfg.get("lr_decay_interval_lat")
-        if not interval:
-            return self.cfg["lr_lat"]
-        k = epoch // interval
-        if k * interval <= 1000:
-            return self.cfg["lr_lat"]
-        return self.cfg["lr_lat"] * self.cfg["lr_decay_factor_lat"] ** k
 
     # --------------------------------------------------------------- training
 
@@ -382,7 +353,52 @@ class IdentityTrainer:
         self.logger.print(f"Resumed after epoch {data['epoch']}")
         return int(data["epoch"]) + 1
 
-    # ---------------------------------------------------------------- logging
+
+class IdentityTrainer(AutoDecoderTrainer):
+    def __init__(self, decoder, params, cfg: dict, train_dataset, val_dataset,
+                 exp_name: str, exp_dir: Optional[str] = None,
+                 logger: Optional[MetricsLogger] = None, recon_resolution: int = 256,
+                 seed: int = 0, device=None):
+        self.decoder = decoder
+        d = decoder.lat_dim
+        super().__init__(params, cfg, train_dataset, val_dataset, exp_name, exp_dir, logger,
+                         recon_resolution, seed, device, d, 0.1 / math.sqrt(d))
+
+        fused = self.cfg.get("fused_train_kernel", "auto")
+        if fused == "auto":
+            fused = getattr(decoder, "kind", None) == "nphm" and self.device.type == "cuda"
+        self._fields_fn = None
+        if fused:
+            from nphm_tpu_torch.ops.train_fields import apply_nphm_train
+
+            kw = dict(self.cfg.get("fused_train_kernel_kw", {}))
+            unknown = set(kw) - {"tile", "cull_eps"}
+            if unknown:
+                raise ValueError(f"fused_train_kernel_kw: unknown keys {sorted(unknown)}")
+
+            def fields_fn(p, pts, lat):
+                return apply_nphm_train(p, decoder.cfg, pts, lat, **kw)
+
+            self._fields_fn = fields_fn
+
+    def _loss(self, params, table, batch, *, val: bool):
+        idx = batch["idx"].reshape(-1)
+        terms = identity_sdf_loss(self.decoder, params, batch, table[idx], training=True,
+                                  fields_fn=self._fields_fn)
+        loss = sum(self.lambdas[k] * terms[k] for k in terms)
+        return loss, terms
+
+    def lr_lat_at(self, epoch: int) -> float:
+        """Latent LR: decays only at multiples of the interval past epoch
+        1000 and holds the last-set value in between (training.py:101-108),
+        so interval 600 holds the base LR until epoch 1200."""
+        interval = self.cfg.get("lr_decay_interval_lat")
+        if not interval:
+            return self.cfg["lr_lat"]
+        k = epoch // interval
+        if k * interval <= 1000:
+            return self.cfg["lr_lat"]
+        return self.cfg["lr_lat"] * self.cfg["lr_decay_factor_lat"] ** k
 
     def log_recs(self, epoch: int, n_recs: int = 5):
         """Export reconstruction meshes of a few train/val latents through

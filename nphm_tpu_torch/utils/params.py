@@ -26,14 +26,16 @@ def default_device() -> torch.device:
 
 
 def from_numpy_pytree(tree, device=None, dtype=torch.float32):
-    """Nested dict/list/tuple of array-likes -> same structure of tensors
-    on ``device`` (default ``default_device()``)."""
+    """Nested dict/list/tuple of array-likes (or tensors, on any device) ->
+    same structure of tensors on ``device`` (default ``default_device()``)."""
     if device is None:
         device = default_device()
     if isinstance(tree, dict):
         return {k: from_numpy_pytree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy_pytree(v, device, dtype) for v in tree)
+    if torch.is_tensor(tree):
+        return tree.detach().to(device=device, dtype=dtype)
     return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
 
 

@@ -9,8 +9,9 @@
   as JAX: vertex arrays at atol 1e-5 (nearest-neighbour matched for the
   extracted mesh, row by row for the posed meshes), face counts equal.
 - The port's main paths (fit, batched fit, identity-only fit, extract,
-  deform, identity training, the fitting CLI module; the NPM family's fit,
-  extract and deform) leave
+  streamed, sparse and backward-warp extraction, deform, identity
+  training, a deformation-training epoch, the fitting and both training
+  CLI modules; the NPM family's fit, extract and deform) leave
   ``jax`` and ``nphm_tpu`` unimported (subprocess), and no source file of
   the port, nor ``chip_smoke.py``, imports them.
 """
@@ -162,9 +163,10 @@ def test_extract_and_deform_match_jax(fitted):
 
 
 def test_main_path_never_imports_jax(tmp_path):
-    """Every module of the port imported (the fitting CLI's among them), and
-    the fit, batched fit, identity-only fit, extract, deform and
-    identity-training paths (NPHM) and the fit, extract and deform paths
+    """Every module of the port imported (the fitting and both training CLIs
+    among them), and the fit, batched fit, identity-only fit, extract,
+    streamed, sparse and backward-warp extraction, deform, identity- and
+    deformation-training paths (NPHM) and the fit, extract and deform paths
     (NPM) run on the CPU, with neither ``jax`` nor any module of
     ``nphm_tpu`` loaded."""
     code = textwrap.dedent(f"""
@@ -177,7 +179,8 @@ def test_main_path_never_imports_jax(tmp_path):
         import nphm_tpu_torch
         for mod in pkgutil.walk_packages(nphm_tpu_torch.__path__, "nphm_tpu_torch."):
             importlib.import_module(mod.name)
-        assert "nphm_tpu_torch.fitting_pointclouds" in sys.modules
+        for name in ("fitting_pointclouds", "train", "train_corresp"):
+            assert "nphm_tpu_torch." + name in sys.modules
         from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
         from nphm_tpu_torch.training.trainer import IdentityTrainer
         from nphm_tpu_torch.utils.logging_utils import MetricsLogger
@@ -210,6 +213,38 @@ def test_main_path_never_imports_jax(tmp_path):
                                   device="cpu")
         posed[0].export({str(tmp_path / "posed.ply")!r})
         assert np.isfinite(hist["loss"]).all()
+        from nphm_tpu_torch.reconstruction import extract_mesh_sparse, extract_mesh_streamed
+        from nphm_tpu_torch.reconstruction.extract import backward_grid_logits
+        streamed = extract_mesh_streamed(s, ps, ls, resolution=32, n_slabs=2, device="cpu")
+        sparse = extract_mesh_sparse(s, ps, ls, resolution=32, lip="auto", device="cpu")
+        assert len(streamed.vertices) == len(sparse.vertices) > 0
+        warped = backward_grid_logits(s, e, ps, pe, ls, np.concatenate([ls[0], le[0]]),
+                                      {MINI!r}, {MAXI!r}, 16,
+                                      anchors=anchors, device="cpu")
+        assert warped.shape == (16**3,) and np.isfinite(warped).all()
+        from nphm_tpu_torch.training.trainer_corresp import DeformationTrainer
+
+        class Scans:  # two scans of one subject
+            subject_steps, steps, subject_index = [1, 1], [0, 1], [0, 0]
+
+            def __len__(self):
+                return 2
+
+            def batch_iter(self, seed=0):
+                yield {{"points_neutral": rng.normal(size=(2, 30, 3)).astype(np.float32) * 0.4,
+                        "points_posed": rng.normal(size=(2, 30, 3)).astype(np.float32) * 0.4,
+                        "idx": np.array([[0], [1]], np.int32),
+                        "subj_ind": np.array([[0], [0]], np.int32)}}
+
+        dcfg = dict(training=dict(ckpt_interval=1, grad_clip=0.025, grad_clip_lat=0.025,
+                                  lr=1e-4, lr_lat=5e-4, weight_decay=5e-4,
+                                  lambdas=dict(corresp=100.0, lat_reg=5e-5,
+                                               loss_reg_zero=5e-5)))
+        shape_state = dict(params=ps, latents=torch.tensor(ls), latents_val=torch.tensor(ls))
+        dtr = DeformationTrainer(e, pe, s, dcfg, Scans(), Scans(), "dexp",
+                                 exp_dir={str(tmp_path)!r}, logger=MetricsLogger(quiet=True),
+                                 shape_state=shape_state, recon_resolution=16, device="cpu")
+        dtr.train_model(1)
         ds = SyntheticIdentityDataset(n_subjects=2, batch_size=2, n_face=40, n_non_face=20,
                                       n_anchors=6)
         lam = dict(lat_reg=0.01, surf_sdf=2.0, normals=0.3, space_sdf=0.01, grad=0.1,
@@ -248,6 +283,7 @@ def test_main_path_never_imports_jax(tmp_path):
     assert "FOREIGN_LOADED []" in out.stdout, out.stdout
     assert (tmp_path / "posed.ply").exists()
     assert (tmp_path / "exp" / "checkpoints" / "checkpoint_epoch_0.pkl").exists()
+    assert (tmp_path / "dexp" / "checkpoints" / "checkpoint_epoch_0.pkl").exists()
 
 
 def test_port_source_never_imports_nphm_tpu():
