@@ -57,18 +57,26 @@ Phases, in order; any failure exits non-zero:
    non-empty mesh, ``FIT_PHASE_TIMINGS`` must parse, and the child's K1,
    K2, K3, K4 and K7 counters must move.
 8. Streamed, sparse and backward-warp extraction on the fitted codes of
-   phases 4 (NPHM) and 6 (NPM) at res 256: dense at tile 1024,
-   ``extract_mesh_streamed`` (8 slabs, tile 1024) and
+   phases 4 (NPHM) and 6 (NPM) at res 256: dense at tile 1024 (K1's or
+   K7's grid copied once, cast to f16 on the host for the f16 case, as the
+   CPU tests build it), ``extract_mesh_streamed`` (8 slabs, tile 1024) and
    ``extract_mesh_sparse`` (``lip="auto"``) must emit array-equal sorted
-   vertex sets with f32 and f16 copies, both families; the streamed path
-   must launch K1 once per slab and the sparse path once per pass.  Times
-   of dense ``extract_mesh``, the streamed path (8 slabs, f32 and f16) and
-   the sparse path (f16) in this run (NPM: dense and sparse), with the
-   sparse candidate and transfer counts.  K1 at its new launch shapes (one x-slab, the sparse
-   coarse pass, the candidate blocks' fine pass, the res-64 Lipschitz
-   probe) and K7 at its new ones (one 65536-point warp chunk, the NPM
-   candidate blocks' fine pass) against their plain versions, timed and
-   bounded.  ``backward_grid_logits`` at res 256 (K7 warp, then K1) against
+   vertex sets with f32 and f16 copies, both families (an NPM decoder's
+   streamed call falls back to the f32 dense path, as in the JAX package,
+   and is held against the f32 mesh); the streamed path must launch K1
+   once per slab and the sparse path once per pass.  The NPHM sparse path
+   at the fitting CLI's ``lip=2.0`` (f16) must skip blocks in its coarse
+   pass, raise no warning and emit the dense f16 mesh.  Times of dense
+   ``extract_mesh``, the streamed path (8 slabs, f32 and f16) and the
+   sparse path (f16, lip auto and 2.0) in this run (NPM: dense and
+   sparse), with the sparse candidate and transfer counts.  K1 at its new
+   launch shapes (one x-slab at the streamed default tile 2048, the
+   sparse coarse pass, the candidate blocks' fine pass at lip auto and at
+   lip 2.0, the res-64 Lipschitz probe) and K7 at its new ones (one
+   65536-point warp chunk, the NPM candidate blocks' fine pass) against
+   their plain versions, timed and bounded; each row's launches are
+   counted where that shape is launched (``launches_by_shape``).
+   ``backward_grid_logits`` at res 256 (K7 warp, then K1) against
    ``get_logits_backward`` through the plain versions on one slab's
    points, within TOL_K1.
 9. The training pipeline through the CLIs, each in a child process on a
@@ -94,6 +102,7 @@ device record as JSON.  Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -400,12 +409,11 @@ def check_k1(shape, params, gen, device, rows):
     random points, culling on and off; timed on the 64^3 grid (the table's
     row, beside its plain version and the ``baddbmm`` chain) and on the
     res-256 extraction grid, K1's launch on the main paths (row
-    ``ensemble_sdf@res256``).  At res 256 the plain version and the chain
-    run over 2^18-point chunks of the brick-ordered grid (whole cull
-    tiles, so the plain version culls as on the whole grid; one pass
-    holds ~25 GB), timed end to end over all 64 chunks; every chunk of
-    the plain version is held against the same points of one kernel
-    launch over the whole grid."""
+    ``ensemble_sdf@res256``, through ``k1_launch_row``: the plain version
+    and the chain over 2^18-point chunks of the brick-ordered grid, whole
+    cull tiles, so the plain version culls as on the whole grid; one pass
+    holds ~25 GB).  That launch must also be bit-identical to
+    ``nphm_grid_sdf``'s."""
     import torch
 
     from nphm_tpu_torch.ops.ensemble import (
@@ -414,6 +422,7 @@ def check_k1(shape, params, gen, device, rows):
         _brick_points,
         _prepare,
         _unbrick_gather,
+        grid_axes,
         grid_tile,
         nphm_grid_sdf,
         nphm_sdf,
@@ -444,66 +453,38 @@ def check_k1(shape, params, gen, device, rows):
     ms = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64), 5)
     plain_ms = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, 64,
                                              sdf_fn=nphm_sdf_plain), 2)
-    wb = weight_bytes(params["ensemble"], cfg) // cfg.n_members * cfg.n_loc
     lib_ms = baddbmm_chain_ms(cfg, cfg.n_members, 64**3, "f", device, 2)
-    for res in (64, EXTRACT_RES):
-        # the timed grid's live (point, member) pairs, as the kernel culls them
-        tile, brick = grid_tile(res, DEFAULT_TILE)
-        axes = [torch.linspace(GRID_MIN[i], GRID_MAX[i], res, device=device)
-                for i in range(3)]
-        grid = _brick_points(axes, torch.arange(res**3, device=device), res, brick, tile)
-        with torch.no_grad():
-            _, _, _, active = _prepare(params, cfg, grid, lat, tile, CULL_EPS)
-        del grid
-        pairs = int(active.sum()) * tile
-        flops = 2.0 * nphm_fmas(cfg) * pairs
-        b = bound(flops, res**3 * 16 + wb)
-        if res == 64:
-            log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-                f"ms, baddbmm chain (all members, no culling) {lib_ms:.3f} ms; {pairs} live "
-                f"(point, member) pairs, {bound_note(flops, b)}")
-            rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                        library_ms=lib_ms, **b)
-        else:
-            ms_r = cuda_ms(lambda: nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, res),
-                           2)
-            chunk = 1 << 18
-            grid = _brick_points(axes, torch.arange(res**3, device=device), res, brick,
-                                 tile)
-            # the kernel once over the whole brick-ordered grid, as
-            # nphm_grid_sdf launches it; each plain chunk is held against
-            # its slice (the running max stays on the device, so the
-            # timed passes do not wait on it)
-            kern = nphm_sdf(params, cfg, grid, lat, tile=tile)
-            expect(torch.equal(
-                nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, res),
-                kern[_unbrick_gather(res, brick, tile, device)]),
-                "K1 over the res-256 brick grid differs from nphm_grid_sdf's launch")
-            err_r = torch.zeros((), device=device)
+    # the timed 64^3 grid's live (point, member) pairs, as the kernel culls them
+    tile, brick = grid_tile(64, DEFAULT_TILE)
+    grid = _brick_points(grid_axes(GRID_MIN, GRID_MAX, 64, device),
+                         torch.arange(64**3, device=device), 64, brick, tile)
+    with torch.no_grad():
+        _, _, _, active = _prepare(params, cfg, grid, lat, tile, CULL_EPS)
+    pairs = int(active.sum()) * tile
+    flops = 2.0 * nphm_fmas(cfg) * pairs
+    b = bound(flops, 64**3 * 16 + weight_bytes(params["ensemble"], cfg) // cfg.n_members
+              * cfg.n_loc)
+    log(f"[K1] 64^3 brick grid, cull on: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, baddbmm chain (all members, no culling) {lib_ms:.3f} ms; {pairs} live "
+        f"(point, member) pairs, {bound_note(flops, b)}")
+    rows["ensemble_sdf"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                **b)
 
-            def plain_chunks():
-                nonlocal err_r
-                for c0 in range(0, res**3, chunk):
-                    p = nphm_sdf_plain(params, cfg, grid[c0 : c0 + chunk], lat, tile=tile)
-                    err_r = torch.maximum(err_r, (p - kern[c0 : c0 + chunk]).abs().max())
-
-            plain_r = cuda_ms(plain_chunks, 1)
-            err_r = float(err_r)
-            expect(bool(torch.isfinite(kern).all()), "K1 non-finite on the res-256 grid")
-            del grid, kern
-            torch.cuda.empty_cache()
-            lib_r = baddbmm_chain_ms(cfg, cfg.n_members, chunk, "f", device,
-                                     res**3 // chunk) * (res**3 // chunk)
-            log(f"[K1] res-{res} brick grid (the extraction's launch), cull on: kernel "
-                f"{ms_r:.3f} ms ({res**3 / ms_r / 1e3:.2f} M q/s), plain over 2^18-point "
-                f"chunks {plain_r:.3f} ms, baddbmm chain over the same chunks (all members, "
-                f"no culling) {lib_r:.3f} ms; {pairs} live (point, member) pairs, "
-                f"{bound_note(flops, b)}; max|err| over all {res**3} points {err_r:.3e} "
-                f"(tol {TOL_K1:g})")
-            expect(err_r <= TOL_K1, "K1 disagrees with its plain version on the res-256 grid")
-            rows["ensemble_sdf@res256"] = dict(max_abs_err=err_r, ms=ms_r, plain_ms=plain_r,
-                                               library_ms=lib_r, **b)
-        torch.cuda.empty_cache()
+    # the res-256 extraction grid: K1 once over the whole brick-ordered
+    # grid, as nphm_grid_sdf launches it, held against its plain version
+    res = EXTRACT_RES
+    tile, brick = grid_tile(res, DEFAULT_TILE)
+    grid = _brick_points(grid_axes(GRID_MIN, GRID_MAX, res, device),
+                         torch.arange(res**3, device=device), res, brick, tile)
+    expect(torch.equal(
+        nphm_grid_sdf(params, cfg, lat, GRID_MIN, GRID_MAX, res),
+        nphm_sdf(params, cfg, grid, lat, tile=tile)[_unbrick_gather(res, brick, tile, device)]),
+        "K1 over the res-256 brick grid differs from nphm_grid_sdf's launch")
+    rows["ensemble_sdf@res256"] = k1_launch_row(
+        shape, params, lat, grid, tile, None, f"res-{res} brick grid (the extraction's launch)",
+        reps=2)
+    del grid
+    torch.cuda.empty_cache()
 
 
 def search_inputs(shape, params_shape, expr, params_expr, gen, device, B, N,
@@ -908,21 +889,17 @@ def k7_error(kernel, plain, head_bias):
 
 
 def check_k7(models, npm, device, rows):
-    """K7 on the three trunks the main paths run, each against its plain
-    version, both timed with CUDA events after a warm-up, beside the addmm
-    chain: (a) the NPM identity trunk on 2^20 points of the res-256 grid
-    (its middle x-slabs), (b) the NPM offsets trunk and (c) the NPHM
-    compress trunk on 2^19 points of a warped sphere (a mesh's vertices).
-    The table row is (a), the res-256 NPM grid's trunk."""
+    """K7 on the three trunks the main paths run, each through
+    ``k7_launch_row`` (against its plain version, both timed with CUDA
+    events after a warm-up, beside the addmm chain): (a) the NPM identity
+    trunk on 2^20 points of the res-256 grid (its middle x-slabs), (b) the
+    NPM offsets trunk and (c) the NPHM compress trunk on 2^19 points of a
+    warped sphere (a mesh's vertices).  The table row is (a), the res-256
+    NPM grid's trunk, with the largest error of the three."""
     import torch
 
     from nphm_tpu_torch.models.deformation import conditioning
     from nphm_tpu_torch.models.ensemble import predict_anchors
-    from nphm_tpu_torch.ops.trunk import (
-        deepsdf_trunk,
-        deepsdf_trunk_plain,
-        prepare_trunk_operands,
-    )
 
     shape, params_shape, expr, params_expr, gen = models
     n_shape, n_ps, n_expr, n_pe, _ = npm
@@ -947,31 +924,9 @@ def check_k7(models, npm, device, rows):
         ("(c) NPHM compress 6x512, 2^19 sphere points", params_expr["trunk"],
          expr.cfg.trunk_cfg, verts, cond_c, 5),
     )
-    err = 0.0
-    row = None
-    for tag, params, cfg, pts, cond, reps in cases:
-        k = deepsdf_trunk(params, cfg, pts, cond)
-        p = deepsdf_trunk_plain(params, cfg, pts, cond)
-        e, scale = k7_error(k, p, params["layers"][-1]["b"])
-        log(f"[K7] {tag}: max|err| {e:.3e}, relative {e / max(scale, 1e-30):.3e} "
-            f"(tol {TOL_K7:g}) to the head product's max magnitude {scale:.4f}")
-        expect(bool(torch.isfinite(k).all()), f"K7 non-finite on {tag}")
-        expect(e <= TOL_K7 * scale, f"K7 disagrees with its plain version on {tag}")
-        err = max(err, e)
-        del k, p
-        ms = cuda_ms(lambda: deepsdf_trunk(params, cfg, pts, cond), reps)
-        plain_ms = cuda_ms(lambda: deepsdf_trunk_plain(params, cfg, pts, cond), reps)
-        lib_ms = addmm_chain_ms(cfg, pts.shape[0], device, reps)
-        with torch.no_grad():
-            b = trunk_bound(cfg, pts.shape[0], prepare_trunk_operands(params, cfg, cond))
-        flops = trunk_flops(cfg, pts.shape[0])
-        log(f"[K7] {tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} fp32-equivalent "
-            f"TFLOP/s), plain {plain_ms:.3f} ms, addmm chain {lib_ms:.3f} ms "
-            f"({'kernel faster' if ms < lib_ms else 'kernel slower'}); {bound_note(flops, b)}")
-        torch.cuda.empty_cache()
-        if row is None:
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
-    rows["deepsdf_trunk"] = dict(max_abs_err=err, **row)
+    found = [k7_launch_row(params, cfg, pts, cond, tag, reps)
+             for tag, params, cfg, pts, cond, reps in cases]
+    rows["deepsdf_trunk"] = dict(found[0], max_abs_err=max(r["max_abs_err"] for r in found))
 
 
 def kernel_checks(models, npm, device):
@@ -1681,51 +1636,113 @@ def _add(total, counts):
         total[k] = total.get(k, 0) + v
 
 
-def _count_launches(launches, c_streamed, kernel, passes):
-    """Add a streamed call's K1 launches to the slab row and one launch to
-    each of the sparse passes named."""
-    if c_streamed:
-        launches["ensemble_sdf@slab"] = (launches.get("ensemble_sdf@slab", 0)
-                                         + c_streamed["ensemble_sdf"])
-    for row in passes:
-        launches[f"{kernel}@{row}"] = launches.get(f"{kernel}@{row}", 0) + 1
+@contextlib.contextmanager
+def launches_by_shape(launches, fine: str = "sparse_fine"):
+    """Count K1's and K7's launches at phase 8's launch shapes where they
+    are made: the streamed path's ``slab_logits`` (``slab_tile`` and the
+    tile, 1024 or 2048) and the sparse path's
+    ``probe_lip``, ``coarse_pass`` and ``fine_pass`` (rows ``lip_probe``,
+    ``sparse_coarse``, ``sparse_fine``; ``npm_`` before them for an NPM
+    decoder, whose passes run K7; ``fine`` names the fine pass's row) are
+    wrapped, and each outermost call adds its kernel counter's change to
+    ``launches`` (the probe's own fine pass counts as the probe)."""
+    from nphm_tpu_torch.ops.ensemble import nphm_sdf
+    from nphm_tpu_torch.ops.trunk import deepsdf_trunk
+    from nphm_tpu_torch.reconstruction import extract, sparse
+
+    depth = [0]
+
+    def counted(fn, shape_of):
+        def call(*args, **kw):
+            row, counter = shape_of(*args)
+            before = counter.launches
+            depth[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    launches[row] = launches.get(row, 0) + counter.launches - before
+        return call
+
+    def slab(params, cfg, lat, axes, res, n_slabs, brick, tile, *_):
+        return f"ensemble_sdf@slab_tile{tile}", nphm_sdf
+
+    def sparse_pass(name):
+        def shape_of(decoder, *_):
+            if decoder.kind == "nphm":
+                return f"ensemble_sdf@{name}", nphm_sdf
+            return f"deepsdf_trunk@npm_{name}", deepsdf_trunk
+        return shape_of
+
+    wrapped = [(extract, "slab_logits", slab)] + [
+        (sparse, fn, sparse_pass(name)) for fn, name in
+        (("probe_lip", "lip_probe"), ("coarse_pass", "sparse_coarse"),
+         ("fine_pass", fine))]
+    saved = [(mod, fn, getattr(mod, fn)) for mod, fn, _ in wrapped]
+    for mod, fn, shape_of in wrapped:
+        setattr(mod, fn, counted(getattr(mod, fn), shape_of))
+    try:
+        yield launches
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def dense_meshes(decoder, params, lat, device, res, total):
+    """The dense reference as the CPU tests build it: ``nphm_grid_sdf`` at
+    tile 1024 (NPHM) or ``npm_grid_sdf`` (NPM), copied once, then
+    ``mesh_from_logits`` on the f32 logits and on their f16 cast on the
+    host.  Returns {None: f32 mesh, np.float16: f16 mesh}."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.ops.ensemble import nphm_grid_sdf
+    from nphm_tpu_torch.ops.marching import mesh_from_logits
+    from nphm_tpu_torch.ops.trunk import npm_grid_sdf
+
+    lat_t = torch.tensor(np.asarray(lat, np.float32), device=device).reshape(-1)
+    reset_counters()
+    if decoder.kind == "nphm":
+        logits = nphm_grid_sdf(params, decoder.cfg, lat_t, GRID_MIN, GRID_MAX, res, tile=1024)
+    else:
+        logits = npm_grid_sdf(params, decoder.cfg, lat_t, GRID_MIN, GRID_MAX, res)
+    logits = logits.cpu().numpy()
+    _add(total, read_counters())
+    return {dt: mesh_from_logits(logits if dt is None else logits.astype(dt).astype(np.float32),
+                                 GRID_MIN, GRID_MAX, res)
+            for dt in (None, np.float16)}
 
 
 def three_paths(decoder, params, lat, device, tag, total, launches):
     """Dense (tile 1024), streamed (8 slabs, tile 1024) and sparse (lip
     "auto") extraction at res 256 must emit array-equal vertex sets, with
-    f32 and f16 copies to the host.  Counts each call's launches; returns
-    the f16 sparse call's stats."""
+    f32 and f16 copies to the host.  An NPM decoder's streamed call falls
+    back to the float32 dense path, as in the JAX package, so it is held
+    against the f32 dense mesh.  Counts each call's launches (by shape in
+    ``launches``); returns the f16 sparse call's stats and the dense meshes
+    by copy dtype."""
     import warnings
 
     import numpy as np
 
     from nphm_tpu_torch.ops.ensemble import grid_tile
-    from nphm_tpu_torch.ops.marching import mesh_from_logits
-    from nphm_tpu_torch.reconstruction.extract import (
-        _pick_n_slabs,
-        extract_mesh_streamed,
-        grid_logits,
-    )
+    from nphm_tpu_torch.reconstruction.extract import _pick_n_slabs, extract_mesh_streamed
     from nphm_tpu_torch.reconstruction.sparse import extract_mesh_sparse
 
-    kw = {"tile": 1024} if decoder.kind == "nphm" else {}
+    dense = dense_meshes(decoder, params, lat, device, EXTRACT_RES, total)
     stats = {}
     for dt, name in ((None, "f32"), (np.float16, "f16")):
         reset_counters()
-        dense = mesh_from_logits(grid_logits(decoder, params, lat, GRID_MIN, GRID_MAX,
-                                             EXTRACT_RES, dt, **kw),
-                                 GRID_MIN, GRID_MAX, EXTRACT_RES)
-        _add(total, read_counters())
-        reset_counters()
-        streamed = extract_mesh_streamed(decoder, params, lat, GRID_MIN, GRID_MAX,
-                                         EXTRACT_RES, n_slabs=8, transfer_dtype=dt, tile=1024,
-                                         device=device)
+        with launches_by_shape(launches):
+            streamed = extract_mesh_streamed(decoder, params, lat, GRID_MIN, GRID_MAX,
+                                             EXTRACT_RES, n_slabs=8, transfer_dtype=dt,
+                                             tile=1024, device=device)
         c_streamed = read_counters()
         _add(total, c_streamed)
         reset_counters()
         stats = {}
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, launches_by_shape(launches):
             warnings.simplefilter("always")
             sparse = extract_mesh_sparse(decoder, params, lat, GRID_MIN, GRID_MAX,
                                          EXTRACT_RES, lip="auto", transfer_dtype=dt,
@@ -1738,23 +1755,26 @@ def three_paths(decoder, params, lat, device, tag, total, launches):
                    "K1 once per slab")
             expect(c_sparse["ensemble_sdf"] == 3, "the sparse path did not launch K1 for "
                    "its probe, coarse and fine passes")
-            _count_launches(launches, c_streamed, "ensemble_sdf", ("sparse_coarse",
-                                                                   "sparse_fine", "lip_probe"))
+            ref_streamed = dense[dt]
         else:
             expect(c_sparse["deepsdf_trunk"] == 3, "the NPM sparse path did not launch K7 "
                    "for its probe, coarse and fine passes")
-            _count_launches(launches, {}, "deepsdf_trunk", ("npm_sparse_fine",))
-        n = [len(m.vertices) for m in (dense, streamed, sparse)]
-        vd = _sorted_vertices(dense)
-        same = (n[0] == n[1] == n[2] and np.array_equal(vd, _sorted_vertices(streamed))
-                and np.array_equal(vd, _sorted_vertices(sparse)))
+            ref_streamed = dense[None]
+        d, n = dense[dt], [len(m.vertices) for m in (dense[dt], streamed, sparse)]
+        same_streamed = (len(ref_streamed.vertices) == n[1] and np.array_equal(
+            _sorted_vertices(ref_streamed), _sorted_vertices(streamed)))
+        same_sparse = n[0] == n[2] and np.array_equal(_sorted_vertices(d),
+                                                      _sorted_vertices(sparse))
         log(f"[{tag}] res {EXTRACT_RES} {name}: dense / streamed / sparse vertices {n}, "
-            f"faces {[len(m.faces) for m in (dense, streamed, sparse)]}; array-equal sorted "
-            f"vertex sets: {same}; sparse stats {json.dumps(stats)}; warnings "
+            f"faces {[len(m.faces) for m in (d, streamed, sparse)]}; array-equal sorted "
+            f"vertex sets: streamed {same_streamed} (against the "
+            f"{'f32 dense mesh, a fallback' if ref_streamed is not d else 'dense mesh'}), "
+            f"sparse {same_sparse}; sparse stats {json.dumps(stats)}; warnings "
             f"{[str(w.message)[:120] for w in caught]}")
         expect(n[0] > 0, f"{tag}: the dense mesh is empty")
-        expect(same, f"{tag}: dense, streamed and sparse extraction differ ({name})")
-    return stats
+        expect(same_streamed and same_sparse,
+               f"{tag}: dense, streamed and sparse extraction differ ({name})")
+    return stats, dense
 
 
 def k1_launch_row(shape, params, lat, pts, tile, operands, what, reps=3):
@@ -1852,10 +1872,13 @@ def _timed(fn):
 
 def extraction_path(models, npm, fitted, npm_lat, device, rows):
     """Phase 8 on the fitted codes of phases 4 and 6: the three extraction
-    paths' vertex parity at res 256 (NPHM and NPM, f32 and f16), their
-    times beside dense ``extract_mesh`` in this run, K1's and K7's new
-    launch shapes against their plain versions, and the backward-warp grid
-    against the plain path on one slab's points."""
+    paths' vertex parity at res 256 (NPHM and NPM, f32 and f16), the NPHM
+    sparse path at the CLI's lip 2.0, their times beside dense
+    ``extract_mesh`` in this run, K1's and K7's new launch shapes against
+    their plain versions, and the backward-warp grid against the plain path
+    on one slab's points."""
+    import warnings
+
     import numpy as np
     import torch
 
@@ -1882,8 +1905,35 @@ def extraction_path(models, npm, fitted, npm_lat, device, rows):
     lat_expr, lat_shape, anchors = fitted
     total, launches = {}, {}
     res = EXTRACT_RES
-    stats = three_paths(shape, params_shape, lat_shape, device, "nphm-extract", total,
-                        launches)
+    own_rows = set(rows)
+    stats, dense = three_paths(shape, params_shape, lat_shape, device, "nphm-extract", total,
+                               launches)
+
+    # the fitting CLI's sparse setting (lip 2.0, f16): the coarse pass must
+    # skip blocks, the field must stay within lip, and the mesh must be the
+    # dense one
+    lstats = {}
+    reset_counters()
+    with warnings.catch_warnings(record=True) as caught, \
+            launches_by_shape(launches, fine="sparse_fine_lip2"):
+        warnings.simplefilter("always")
+        lmesh, t_lip2 = _timed(lambda: sp.extract_mesh_sparse(
+            shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, lip=2.0,
+            transfer_dtype=np.float16, stats=lstats, device=device))
+    _add(total, read_counters())
+    same = (len(lmesh.vertices) == len(dense[np.float16].vertices) and np.array_equal(
+        _sorted_vertices(lmesh), _sorted_vertices(dense[np.float16])))
+    log(f"[nphm-extract] res {res}, lip 2.0 (the CLI's), f16: {t_lip2:.3f} s with "
+        f"{lstats['n_candidates']} of {lstats['n_blocks']} blocks candidates "
+        f"({lstats['n_candidates'] / lstats['n_blocks']:.4f}), {lstats['n_transferred']} "
+        f"transferred, lip_observed {lstats['lip_observed']:.3f}; {len(lmesh.vertices)} "
+        f"vertices, array-equal to the dense f16 mesh: {same}; warnings "
+        f"{[str(w.message)[:120] for w in caught]}")
+    expect(not caught, "the field exceeds lip 2.0 on the fitted code")
+    expect(lstats["n_candidates"] < lstats["n_blocks"], "the coarse pass at lip 2.0 skipped "
+           "no block")
+    expect(same, "sparse extraction at lip 2.0 differs from the dense mesh")
+    del dense
 
     # the CLI's choices against the dense path, in this run
     reset_counters()
@@ -1894,19 +1944,18 @@ def extraction_path(models, npm, fitted, npm_lat, device, rows):
     streamed, t_stream = {}, {}
     for dt, name in ((None, "f32"), (np.float16, "f16")):
         reset_counters()
-        streamed[name], t_stream[name] = _timed(lambda: extract_mesh_streamed(
-            shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, transfer_dtype=dt,
-            device=device))
-        c_streamed = read_counters()
-        _add(total, c_streamed)
-        _count_launches(launches, c_streamed, "ensemble_sdf", ())
+        with launches_by_shape(launches):
+            streamed[name], t_stream[name] = _timed(lambda: extract_mesh_streamed(
+                shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, transfer_dtype=dt,
+                device=device))
+        _add(total, read_counters())
     tstats = {}
     reset_counters()
-    _, t_sparse = _timed(lambda: sp.extract_mesh_sparse(
-        shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, lip="auto",
-        transfer_dtype=np.float16, stats=tstats, device=device))
+    with launches_by_shape(launches):
+        _, t_sparse = _timed(lambda: sp.extract_mesh_sparse(
+            shape, params_shape, lat_shape, GRID_MIN, GRID_MAX, res, lip="auto",
+            transfer_dtype=np.float16, stats=tstats, device=device))
     _add(total, read_counters())
-    _count_launches(launches, {}, "ensemble_sdf", ("sparse_coarse", "sparse_fine", "lip_probe"))
     log(f"[nphm-extract] res {res}, this run: dense extract_mesh {t_dense:.3f} s (grid "
         f"{timing['grid_s']:.3f} + marching {timing['march_s']:.3f}), streamed (8 slabs, tile "
         f"2048) f32 {t_stream['f32']:.3f} s, f16 {t_stream['f16']:.3f} s; sparse (lip auto, "
@@ -1929,7 +1978,7 @@ def extraction_path(models, npm, fitted, npm_lat, device, rows):
     axes = grid_axes(GRID_MIN, GRID_MAX, res, device)
     slab = _brick_points(axes, torch.arange(per, device=device) + 3 * per, res, brick, tile)
     rows["ensemble_sdf@slab"] = k1_launch_row(shape, params_shape, lat, slab, tile, operands,
-                                              "slab (x-slab 3 of 8, tile 2048)")
+                                              f"slab (x-slab 3 of {n_slabs}, tile {tile})")
     del slab
     nb = sp._block_grid(res)
     ids = torch.arange(nb[0] * nb[1] * nb[2], device=device)
@@ -1945,6 +1994,14 @@ def extraction_path(models, npm, fitted, npm_lat, device, rows):
     rows["ensemble_sdf@sparse_fine"] = k1_launch_row(
         shape, params_shape, lat, fine, sp._TILE, operands,
         f"sparse_fine ({len(cand)} candidate blocks)")
+    del fine
+    cand2 = sp.candidates(cmm.cpu().numpy(), 2.0, h)
+    expect(len(cand2) == lstats["n_candidates"], "the lip-2.0 candidate count differs")
+    fine = sp._block_points(axes, torch.as_tensor(cand2, device=device), nb,
+                            sp._fine_offsets(device))
+    rows["ensemble_sdf@sparse_fine_lip2"] = k1_launch_row(
+        shape, params_shape, lat, fine, sp._TILE, operands,
+        f"sparse_fine_lip2 ({len(cand2)} of {len(ids)} blocks, lip 2.0)")
     del fine
     nb64 = sp._block_grid(64)
     probe = sp._block_points(grid_axes(GRID_MIN, GRID_MAX, 64, device),
@@ -1993,16 +2050,16 @@ def extraction_path(models, npm, fitted, npm_lat, device, rows):
 
     # the NPM family through the same three paths
     n_shape, n_ps = npm[0], npm[1]
-    nstats = three_paths(n_shape, n_ps, npm_lat, device, "npm-extract", total, launches)
+    nstats, _ = three_paths(n_shape, n_ps, npm_lat, device, "npm-extract", total, launches)
     reset_counters()
     (nmesh, ntiming), t_ndense = _timed(lambda: extract_mesh(
         n_shape, n_ps, npm_lat, GRID_MIN, GRID_MAX, res, device=device, return_timing=True))
     ntstats = {}
-    nsparse, t_nsparse = _timed(lambda: sp.extract_mesh_sparse(
-        n_shape, n_ps, npm_lat, GRID_MIN, GRID_MAX, res, lip="auto",
-        transfer_dtype=np.float16, stats=ntstats, device=device))
+    with launches_by_shape(launches):
+        nsparse, t_nsparse = _timed(lambda: sp.extract_mesh_sparse(
+            n_shape, n_ps, npm_lat, GRID_MIN, GRID_MAX, res, lip="auto",
+            transfer_dtype=np.float16, stats=ntstats, device=device))
     _add(total, read_counters())
-    _count_launches(launches, {}, "deepsdf_trunk", ("npm_sparse_fine",))
     log(f"[npm-extract] res {res}, this run: dense extract_mesh {t_ndense:.3f} s (grid "
         f"{ntiming['grid_s']:.3f} + marching {ntiming['march_s']:.3f}); sparse (lip auto, f16) "
         f"{t_nsparse:.3f} s with {ntstats['n_candidates']} of {ntstats['n_blocks']} blocks "
@@ -2020,10 +2077,13 @@ def extraction_path(models, npm, fitted, npm_lat, device, rows):
         reps=1)
     del nfine
     torch.cuda.empty_cache()
-    for key, n in launches.items():
-        rows[key]["launches"] = n
     log(f"[counters] extraction variants: {json.dumps(total)}; by launch shape "
         f"{json.dumps(launches)}")
+    # the slab row times the streamed path's default tile
+    counted_as = {"ensemble_sdf@slab": f"ensemble_sdf@slab_tile{tile}"}
+    for key in sorted(set(rows) - own_rows):
+        rows[key]["launches"] = launches.get(counted_as.get(key, key), 0)
+        expect(rows[key]["launches"] > 0, f"{key}: no launch at this shape in phase 8")
     return total
 
 

@@ -220,44 +220,34 @@ def backward_grid_logits(decoder_shape, decoder_expr, params_shape, params_expr,
     return sdf[_unbrick_gather(res, brick, tile, dev)].cpu().numpy()
 
 
-def grid_logits(decoder, params, encoding, mini, maxi, resolution: int,
-                transfer_dtype=None, **kernel_kw):
-    """Dense-grid logits [res^3] (natural x-major order) as float32 numpy.
-
-    transfer_dtype: cast on the device before the copy to the host (e.g.
-    ``np.float16`` halves it).  kernel_kw (NPHM): ``tile``, ``cull_eps`` of
-    ``nphm_grid_sdf``.
-    """
+def grid_logits(decoder, params, encoding, mini, maxi, resolution: int):
+    """Dense-grid logits [res^3] (natural x-major order) as float32 numpy."""
     lat = _as_lat(encoding, tree_device(params))[0]
     if decoder.kind == "nphm":
-        out = nphm_grid_sdf(params, decoder.cfg, lat, mini, maxi, int(resolution),
-                            **kernel_kw)
+        out = nphm_grid_sdf(params, decoder.cfg, lat, mini, maxi, int(resolution))
     elif decoder.kind == "npm":
         out = npm_grid_sdf(params, decoder.cfg, lat, mini, maxi, int(resolution))
     else:
         raise NotImplementedError(f"no grid logits for decoder kind {decoder.kind!r}")
-    if transfer_dtype is not None:
-        out = out.to(torch_dtype(transfer_dtype))
-    return out.cpu().numpy().astype(np.float32)
+    return out.cpu().numpy()
 
 
 def extract_mesh(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
                  maxi=(0.55, 0.75, 0.4), resolution: int = 256, device=None,
-                 return_timing: bool = False, transfer_dtype=None):
+                 return_timing: bool = False):
     """Grid-evaluate through K1 or K7 (their plain versions on the CPU), then
     march.
 
     The parameters move to ``device`` first (default ``default_device()``).
     With ``return_timing`` also returns {"grid_s", "march_s"}: the grid
     evaluation including its device->host copy, and host marching.
-    ``transfer_dtype``: as in ``grid_logits``.
     """
     dev = default_device() if device is None else torch.device(device)
     params = tree_to(params, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    logits = grid_logits(decoder, params, encoding, mini, maxi, resolution, transfer_dtype)
+    logits = grid_logits(decoder, params, encoding, mini, maxi, resolution)
     t1 = time.perf_counter()
     mesh = mesh_from_logits(logits, mini, maxi, resolution)
     t2 = time.perf_counter()
@@ -314,8 +304,8 @@ def extract_mesh_streamed(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     cells on a seam are triangulated once and the slabs weld exactly on
     global edge keys.  On the CPU the slabs are evaluated one by one.
 
-    Falls back to ``extract_mesh`` (same ``transfer_dtype``) for a decoder
-    other than NPHM, a resolution with no brick, or a single slab.
+    Falls back to ``extract_mesh`` (float32, as the JAX package does) for a
+    decoder other than NPHM, a resolution with no brick, or a single slab.
     """
     dev = _device(device)
     params = tree_to(params, dev)
@@ -323,8 +313,7 @@ def extract_mesh_streamed(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     tile, brick = grid_tile(res, tile)
     n_slabs = 1 if brick is None else _pick_n_slabs(res, brick[0], n_slabs or 8)
     if decoder.kind != "nphm" or n_slabs <= 1:
-        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev,
-                            transfer_dtype=transfer_dtype)
+        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev)
 
     lat = _as_lat(encoding, dev)[0]
     h = res // n_slabs

@@ -221,14 +221,13 @@ def extract_mesh_sparse(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     transfer_dtype: e.g. ``np.float16`` halves the (already sparse) copy.
     stats: optional dict that receives n_blocks, n_candidates,
     n_transferred, lip_observed (and lip_auto).
-    Falls back to ``extract_mesh`` (same ``transfer_dtype``) for other
-    decoders and for resolutions not divisible by 16 or below 32.
+    Falls back to ``extract_mesh`` (float32, as the JAX package does) for
+    other decoders and for resolutions not divisible by 16 or below 32.
     """
     dev = _device(device)
     res = int(resolution)
     if decoder.kind not in ("nphm", "npm") or res % 16 or res < 32:
-        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev,
-                            transfer_dtype=transfer_dtype)
+        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev)
     params = tree_to(params, dev)
     lat = _as_lat(encoding, dev)[0]
     mini = tuple(float(x) for x in mini)

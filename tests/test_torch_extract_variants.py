@@ -5,7 +5,8 @@ each other and against the JAX package (Pallas in interpret mode).
   ``extract_mesh_streamed`` (3 slabs) and ``extract_mesh_sparse``
   (``lip="auto"``) emit array-equal sorted vertex sets, f32 and f16 copies,
   NPHM and NPM (the NPM field's head bias shifted so its zero set crosses
-  the box).
+  the box; the streamed path falls back to the float32 dense path for NPM,
+  so there it matches the f32 dense mesh).
 - Slab logits, the sparse coarse (min, max) and the fine block data match
   the JAX package's ``_slab_logits_run``, ``_coarse_run`` and ``_fine_run``
   within atol 1e-5 (the tolerance of ``tests/test_torch_ensemble.py``); the
@@ -117,13 +118,17 @@ def test_dense_streamed_sparse_emit_equal_vertices(family, dtype, nphm, npm):
     sparse = sp.extract_mesh_sparse(f["td"], f["tp"], f["lat"][None], MINI, MAXI, RES,
                                     lip="auto", transfer_dtype=dtype, stats=stats,
                                     device="cpu")
+    # the streamed path falls back to the float32 dense path for NPM, as
+    # the JAX package's does
+    dense_streamed = dense_mesh(family, f, None) if family == "npm" else dense
     assert len(dense.vertices) > 1000
     assert stats["n_transferred"] <= stats["n_candidates"] <= stats["n_blocks"]
-    assert len(dense.vertices) == len(streamed.vertices) == len(sparse.vertices)
-    assert len(dense.faces) == len(streamed.faces) == len(sparse.faces)
-    vd = _sorted(dense.vertices)
-    assert np.array_equal(vd, _sorted(streamed.vertices))
-    assert np.array_equal(vd, _sorted(sparse.vertices))
+    assert len(dense_streamed.vertices) == len(streamed.vertices)
+    assert len(dense.vertices) == len(sparse.vertices)
+    assert len(dense_streamed.faces) == len(streamed.faces)
+    assert len(dense.faces) == len(sparse.faces)
+    assert np.array_equal(_sorted(dense_streamed.vertices), _sorted(streamed.vertices))
+    assert np.array_equal(_sorted(dense.vertices), _sorted(sparse.vertices))
 
 
 def test_slab_logits_match_jax(nphm):
