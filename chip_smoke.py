@@ -90,9 +90,22 @@ Phases, in order; any failure exits non-zero:
    -resolution 256`` on both (K1's coarse and fine passes, K2-K4 and K7
    must move).  Each child must exit 0, write both checkpoints and
    non-empty reconstruction logs and meshes.
+10. Evaluation and the protocol: ``nearest_neighbors(backend="device")``
+   on two seeded 250k-point clouds, both directions, against scipy's
+   cKDTree (indices equal but for near-ties, max |dist - scipy| <= NN_TOL,
+   the same result with the caller's TF32 flag on), both timed; the render
+   samples of a res-128 mesh bit-identical at one rasterizer thread and at
+   the default count; then ``python -m nphm_tpu_torch.protocol_e2e`` for
+   each family in a child at the configs' widths on a cut scale
+   (PROTOCOL_ARGS; NPM's stage 1 at its config's lr for NPM_TRAIN_EPOCHS,
+   as 2 epochs leave its field without a zero set), the two children at
+   once, each stage a grandchild that reports its launch counters: 0
+   crashes, 8 non-empty meshes, every metrics file, both CSVs finite, and
+   K5/K6 (stage 1), K2-K4 and K1 (the NPHM fit and its streamed
+   extraction) and K7 (posing, the NPM grids) launched.
 
 Each kernel's entry in the table holds its launches summed over the
-paths of phases 4-9, and under "at" its rows at other shapes (K1 on the
+paths of phases 4-10, and under "at" its rows at other shapes (K1 on the
 res-256 grid, K2-K4 at the batched shapes; K1 and K7 at phase 8's launch
 shapes, each with its own launches in phase 8).
 
@@ -102,6 +115,7 @@ device record as JSON.  Nothing here imports JAX or the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -305,7 +319,8 @@ def device_and_build():
 
     t0 = time.perf_counter()
     get_lib()
-    log(f"[build] host marching library ready in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] host library (marching, rasterizer) ready in "
+        f"{time.perf_counter() - t0:.2f} s")
     return smi
 
 
@@ -1608,6 +1623,8 @@ def cli_path(models):
         samples = os.path.join(tmp, "nphm_shape_space_samples_085")
         sample = read_ply(os.path.join(samples, "mesh_0000.ply"))
         expect(len(sample.vertices) > 0, "the -sample mesh is empty")
+        expect(os.path.getsize(os.path.join(samples, "step_0000.png")) > 0,
+               "the -sample screenshot step_0000.png is missing")
         expect(np.load(os.path.join(samples, "lat_0000.npy")).shape == (1, models[0].lat_dim),
                "the -sample latent has the wrong shape")
     log(f"[cli] demo (2 subjects x 2 expressions, one batched group) and one sample in "
@@ -2218,6 +2235,229 @@ def training_cli_path():
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: evaluation and the protocol
+# ---------------------------------------------------------------------------
+
+NN_POINTS = 250_000  # the reference's eval draws
+NN_TIE = 1e-6  # two reference points this close in distance may swap
+NN_TOL = 1e-5  # max |dist - scipy|
+PROTOCOL_ARGS = ["--fit_subjects", "2", "--n_train_subjects", "4", "--train_epochs", "2",
+                 "--def_epochs", "2", "--fit_steps", "100", "--resolution", "256",
+                 "--num_samps", "25000"]
+# At its config's lr the NPM field of 4 subjects first has a zero set by
+# epoch 51-101, depending on the init draw (PERF.md, section 6); 151
+# epochs take ~9 s on the card.
+NPM_TRAIN_EPOCHS = 151
+PROTOCOL_CHILD = """
+import json, subprocess, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as c
+import nphm_tpu_torch.protocol_e2e as p
+
+def run_cli(module, argv, env, timeout=7200):
+    code = c.CHILD.format(root={root!r}, module=module, argv=list(argv))
+    proc = subprocess.run([sys.executable, "-c", code], cwd={root!r}, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CLI failed: {{module}}\\n{{proc.stdout[-3000:]}}\\n"
+                           f"{{proc.stderr[-3000:]}}")
+    counts = [ln.split(" ", 1)[1] for ln in proc.stdout.splitlines()
+              if ln.startswith("CHILD_COUNTERS ")]
+    print("STAGE_COUNTERS " + module + " " + counts[-1], flush=True)
+    return proc.stdout
+
+p.run_cli = run_cli
+p.main({argv!r})
+"""
+
+
+def nn_clouds(seed: int, n: int):
+    """A noisy sphere of radius 10 (a head's scale in millimetres / 10)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (d * (10.0 + rng.normal(size=(n, 1)) * 0.05)).astype(np.float32)
+
+
+def nn_check():
+    """``nearest_neighbors(backend="device")`` on two seeded 250k-point
+    clouds, both directions, against scipy's cKDTree: indices equal but for
+    near-ties, distances within NN_TOL; the same result with the caller's
+    TF32 flag on, which the function neither reads nor sets."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from nphm_tpu_torch.evaluation.nn import nearest_neighbors
+
+    a, b = nn_clouds(1, NN_POINTS), nn_clouds(2, NN_POINTS)
+    out = {}
+    for tag, (q, r) in (("a->b", (a, b)), ("b->a", (b, a))):
+        t0 = time.perf_counter()
+        d_sp, i_sp = cKDTree(r).query(q)
+        scipy_s = time.perf_counter() - t0
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        d, i = nearest_neighbors(q, r, backend="device")
+        stop.record()
+        torch.cuda.synchronize()
+        card_s = start.elapsed_time(stop) / 1e3
+        flag = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            d32, i32 = nearest_neighbors(q, r, backend="device")
+            expect(torch.backends.cuda.matmul.allow_tf32, "nearest_neighbors reset the TF32 flag")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flag
+        expect(np.array_equal(d32, d) and np.array_equal(i32, i),
+               f"{tag}: the caller's TF32 flag changed the result")
+        expect(d.dtype == np.float64 and i.dtype == np.int64, f"{tag}: dtypes {d.dtype}, {i.dtype}")
+        diff = np.flatnonzero(i != i_sp)
+        ties = np.abs(np.linalg.norm(q[diff].astype(np.float64) - r[i[diff]], axis=-1)
+                      - np.linalg.norm(q[diff].astype(np.float64) - r[i_sp[diff]], axis=-1))
+        expect(bool((ties <= NN_TIE).all()), f"{tag}: {int((ties > NN_TIE).sum())} indices "
+               f"differ from scipy's beyond a {NN_TIE:g} tie")
+        err = float(np.abs(d - d_sp).max())
+        expect(err <= NN_TOL, f"{tag}: max |dist - scipy| {err:.3e} > {NN_TOL:g}")
+        out[tag] = {"max_abs_err": err, "index_ties": int(len(diff)), "card_s": card_s,
+                    "scipy_s": scipy_s, "pairs_per_s_card": len(q) * len(r) / card_s,
+                    "pairs_per_s_scipy": len(q) * len(r) / scipy_s}
+        log(f"[nn] {tag} {len(q)} x {len(r)}: max |dist - scipy| {err:.3e} (<= {NN_TOL:g}), "
+            f"{len(diff)} indices differ at ties <= {NN_TIE:g}; card {card_s:.4f} s (CUDA "
+            f"events, transfers included), scipy cKDTree {scipy_s:.4f} s (host clock, build "
+            f"and query); TF32 flag on: identical")
+    return out
+
+
+def raster_check():
+    """Render samples of a res-128 mesh: bit-identical at one rasterizer
+    thread and at the default count."""
+    import numpy as np
+
+    from nphm_tpu_torch.evaluation.render import gen_render_samples
+    from nphm_tpu_torch.ops.marching import marching_tets
+    from nphm_tpu_torch.utils.mesh_io import Mesh
+
+    res = 128
+    ax = np.linspace(-1, 1, res, dtype=np.float32)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    sdf = np.linalg.norm(np.stack([X / 0.45, Y / 0.5, Z / 0.4], -1), axis=-1) - 1.0
+    v, f = marching_tets(-sdf, 0.0)
+    mesh = Mesh((v * (2.0 / (res - 1)) - 1.0).astype(np.float32), f.astype(np.int64))
+    outs = {}
+    saved = os.environ.pop("NPHM_RASTER_THREADS", None)
+    try:
+        for threads in ("1", None):
+            if threads:
+                os.environ["NPHM_RASTER_THREADS"] = threads
+            else:
+                os.environ.pop("NPHM_RASTER_THREADS", None)
+            t0 = time.perf_counter()
+            pts, nrm = gen_render_samples(mesh, 10)
+            outs[threads or "default"] = (pts.copy(), nrm.copy(), time.perf_counter() - t0)
+    finally:
+        os.environ.pop("NPHM_RASTER_THREADS", None)
+        if saved is not None:
+            os.environ["NPHM_RASTER_THREADS"] = saved
+    (p1, n1, s1), (pd, nd, sd) = outs["1"], outs["default"]
+    expect(len(p1) > 0 and np.array_equal(p1, pd) and np.array_equal(n1, nd),
+           "render samples differ between 1 rasterizer thread and the default count")
+    log(f"[raster] res-{res} mesh ({len(mesh.faces)} faces), 10 views: {len(p1)} samples, "
+        f"bit-identical at 1 thread ({s1:.3f} s) and {os.cpu_count()} ({sd:.3f} s)")
+    return {"samples": len(p1), "one_thread_s": s1, "default_s": sd}
+
+
+def protocol_run(family: str):
+    """``python -m nphm_tpu_torch.protocol_e2e --family F`` in a child, each
+    stage a grandchild that reports its launch counters; returns the JSON
+    line and the counters by stage."""
+    import csv
+    import math
+
+    from nphm_tpu_torch import env_paths
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "proto")
+        argv = ["--family", family, "--root", root] + PROTOCOL_ARGS
+        if family == "npm":
+            argv += ["--train_epochs", str(NPM_TRAIN_EPOCHS)]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", PROTOCOL_CHILD.format(root=ROOT, argv=argv)],
+                              cwd=tmp, capture_output=True, text=True, timeout=1200)
+        wall = time.perf_counter() - t0
+        expect(proc.returncode == 0, f"protocol {family} failed (exit {proc.returncode}):\n"
+               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        stages = {}
+        for ln in lines:
+            if ln.startswith("STAGE_COUNTERS "):
+                _, module, counts = ln.split(" ", 2)
+                stages[module.rsplit(".", 1)[1]] = json.loads(counts)
+        out = json.loads(lines[-1])
+        log(f"[protocol] {family}: {lines[-1]}")
+        log(f"[protocol] {family}: {wall:.2f} s (child process included); phase walls: "
+            + ", ".join(f"{k} {out.get(k)} s" for k in ("dataset_s", "train_s", "def_train_s",
+                                                       "fit_extract_s", "eval_s", "gather_s")))
+        log(f"[protocol] {family}: counters by stage {json.dumps(stages)}")
+        expect(sorted(stages) == ["eval", "fitting_pointclouds", "gather", "train",
+                                  "train_corresp"], f"stages run: {sorted(stages)}")
+        expect(out["crashes"] == 0, f"{family}: {out['crashes']} crashes")
+        result_dir = os.path.join(root, "fitting", "forward_proto", "protocol")
+        scans = [(s, e) for s in env_paths.subjects_test[:2]
+                 for e in range(4) if e not in env_paths.invalid_expressions_test.get(s, [])]
+        expect(out["n_fitted_meshes"] == len(scans) and out["n_empty_meshes"] == 0,
+               f"{family}: {out['n_fitted_meshes']} meshes, {out['n_empty_meshes']} empty; "
+               f"expected {len(scans)} non-empty")
+        for s, e in scans:
+            head = open(os.path.join(result_dir, f"{s}_{e}.ply"), "rb").read(512)
+            expect(b"element vertex 0\n" not in head, f"{family}: {s}_{e}.ply is empty")
+            for name in ("metrics.json", "metrics_face.json"):
+                path = os.path.join(result_dir, "evaluation", str(s), f"expression_{e}", name)
+                expect(os.path.exists(path), f"{family}: no {path}")
+        for name in ("total_merics.csv", "total_metrics_face.csv"):
+            with open(os.path.join(result_dir, "evaluation", name)) as f:
+                rows = list(csv.DictReader(f))
+            expect(len(rows) == 1 and all(math.isfinite(float(v)) for v in rows[0].values()),
+                   f"{family}: {name} does not parse to one finite row")
+    moved = [("train", "train_fwd"), ("train", "train_bwd"),
+             ("fitting_pointclouds", "deepsdf_trunk")]
+    if family == "nphm":
+        moved += [("train", "ensemble_sdf"), ("fitting_pointclouds", "broyden_search"),
+                  ("fitting_pointclouds", "fit_fwd"), ("fitting_pointclouds", "fit_bwd"),
+                  ("fitting_pointclouds", "ensemble_sdf"), ("train_corresp", "deepsdf_trunk")]
+    else:  # the NPM family: its grids and posing run K7, its fit no K2
+        moved = [("train", "deepsdf_trunk"), ("train_corresp", "deepsdf_trunk"),
+                 ("fitting_pointclouds", "deepsdf_trunk")]
+        expect(stages["fitting_pointclouds"]["broyden_search"] == 0,
+               "K2 was launched on the NPM family's offsets trunk")
+    for stage, name in moved:
+        expect(stages[stage][name] > 0, f"{family}: {stage} did not launch {name}")
+    total = {}
+    for counts in stages.values():
+        _add(total, counts)
+    return out, stages, total, wall
+
+
+def evaluation_path():
+    """Phase 10: nearest neighbours on the card, the rasterizer's thread
+    invariance and the protocol of both families."""
+    nn = nn_check()
+    raster = raster_check()
+    total, runs = {}, {}
+    # the two children share the card and the host; each is a chain of
+    # short processes that leaves both mostly idle
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        results = dict(zip(("nphm", "npm"), pool.map(protocol_run, ("nphm", "npm"))))
+    for family, (out, _stages, counts, wall) in results.items():
+        runs[family] = {"wall_s": wall, **out}
+        _add(total, counts)
+    log(f"[counters] protocol children: {json.dumps(total)}")
+    return total, {"nn": nn, "raster": raster, "protocol": runs}
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -2248,8 +2488,11 @@ def run():
     cli_counts = cli_path(models)
     extract_counts = extraction_path(models, npm, fitted, npm_lat, device, rows)
     train_cli_counts = training_cli_path()
+    t0 = time.perf_counter()
+    protocol_counts, _ = evaluation_path()
+    log(f"[phase 10] {time.perf_counter() - t0:.2f} s")
     paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts, extract_counts,
-             train_cli_counts)
+             train_cli_counts, protocol_counts)
     table = []
     for name, (source, replaces) in KERNELS.items():
         # rows of the same kernel at other shapes: "ensemble_sdf@res256", ...

@@ -1,12 +1,12 @@
 """Dataset filesystem API (counterpart of ``nphm_tpu/data/manager.py``'s
 ``DataManager``).
 
-Subject and expression enumeration with the splits' curation, mesh and
-single-view point-cloud loading, landmarks and facial anchors from
-registration vertices, the throat-plane cut through three FLAME template
-vertices, the nphm <-> flame <-> raw coordinate transforms, and the
-supervision files' path scheme with random chunk selection.  Pure host
-logic over numpy and the port's PLY reader.
+Subject and expression enumeration with the splits' curation, loading of
+the raw scans, FLAME and registration meshes and single-view point clouds,
+landmarks and facial anchors from registration vertices, the throat-plane
+cut through three FLAME template vertices, the nphm <-> flame <-> raw
+coordinate transforms, and the supervision files' path scheme with random
+chunk selection.  Pure host logic over numpy and the port's PLY reader.
 
 The vertex index lists are dataset constants: which vertices of the
 upsampled FLAME registration topology serve as the 68 + extra landmarks
@@ -78,6 +78,9 @@ class DataManager:
                         if self.get_neutral_expression(s, neutral_type) is not None]
         return subjects
 
+    def get_test_subjects(self) -> List[int]:
+        return list(env_paths.subjects_test)
+
     def get_neutral_expression(self, subject: int,
                                neutral_type: Literal["open", "closed"] = "open"
                                ) -> Optional[int]:
@@ -108,6 +111,9 @@ class DataManager:
 
     def get_flame_path(self, subject: int, expression: int) -> str:
         return os.path.join(self.get_scan_dir(subject, expression), "flame.ply")
+
+    def get_raw_path(self, subject: int, expression: int) -> str:
+        return os.path.join(self.get_scan_dir(subject, expression), "scan.ply")
 
     def get_registration_path(self, subject: int, expression: int) -> str:
         return os.path.join(self.get_scan_dir(subject, expression), "registration.ply")
@@ -157,6 +163,11 @@ class DataManager:
         elif coordinate_system == "raw":
             mesh = self.transform_nphm_2_raw(mesh, subject, expression)
         return mesh
+
+    def get_raw_mesh(self, subject: int, expression: int,
+                     coordinate_system: CoordSystem = "nphm", **_) -> Mesh:
+        return self._load(self.get_raw_path(subject, expression), coordinate_system,
+                          subject, expression)
 
     def get_flame_mesh(self, subject: int, expression: int,
                        coordinate_system: CoordSystem = "nphm", **_) -> Mesh:

@@ -1,8 +1,10 @@
-"""Geometry sampling on the host (the part of ``nphm_tpu/data/sampling.py``
-the synthetic and dummy datasets use): ``uniform_ball`` draws points
-uniformly in a ball by inverse-CDF radius sampling (reference
-data/utils.py:7-19); ``sample_mesh_surface`` draws area-weighted surface
-points with interpolated vertex normals.
+"""Geometry sampling on the host (counterpart of
+``nphm_tpu/data/sampling.py``): ``uniform_ball`` draws points uniformly in a
+ball by inverse-CDF radius sampling (reference data/utils.py:7-19);
+``sample_mesh_surface`` draws area-weighted surface points with interpolated
+vertex normals; ``points_to_barycentric`` / ``barycentric_to_points`` carry
+points between meshes of one topology (reference
+sample_deformation_field.py:14-35).
 """
 
 from __future__ import annotations
@@ -51,3 +53,23 @@ def sample_mesh_surface(mesh, n_samples: int, rng=None, return_face_idx=False):
     if return_face_idx:
         return points.astype(np.float32), normals.astype(np.float32), face_idx, bary
     return points.astype(np.float32), normals.astype(np.float32)
+
+
+def points_to_barycentric(triangles: np.ndarray, points: np.ndarray) -> np.ndarray:
+    """Barycentric coordinates of points w.r.t. their triangles ([n,3,3], [n,3])."""
+    a, b, c = triangles[:, 0], triangles[:, 1], triangles[:, 2]
+    v0, v1, v2 = b - a, c - a, points - a
+    d00 = np.einsum("nd,nd->n", v0, v0)
+    d01 = np.einsum("nd,nd->n", v0, v1)
+    d11 = np.einsum("nd,nd->n", v1, v1)
+    d20 = np.einsum("nd,nd->n", v2, v0)
+    d21 = np.einsum("nd,nd->n", v2, v1)
+    denom = np.maximum(d00 * d11 - d01 * d01, 1e-20)
+    v = (d11 * d20 - d01 * d21) / denom
+    w = (d00 * d21 - d01 * d20) / denom
+    u = 1.0 - v - w
+    return np.stack([u, v, w], axis=-1)
+
+
+def barycentric_to_points(triangles: np.ndarray, bary: np.ndarray) -> np.ndarray:
+    return np.einsum("nk,nkd->nd", bary, triangles)

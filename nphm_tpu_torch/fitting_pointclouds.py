@@ -17,7 +17,8 @@ Experiments are read from ``EXPERIMENT_DIR/{name}/configs.yaml`` and
 each subject and expression ``{subj}_{expr}.ply``,
 ``{subj}_{expr}_lat_shape.npy`` and ``{subj}_{expr}_lat_expr.npy``, then
 prints one ``FIT_PHASE_TIMINGS {json}`` line.  ``-sample`` writes
-``mesh_NNNN.ply`` and ``lat_NNNN.npy`` into ``nphm_shape_space_samples_085``
+``mesh_NNNN.ply``, ``lat_NNNN.npy`` and a frontal screenshot
+``step_NNNN.png`` into ``nphm_shape_space_samples_085``
 (``npm_...`` for the NPM family) under the working directory.  Meshes are
 extracted as the JAX script extracts them: ``-sparse`` through
 ``extract_mesh_sparse`` (``-sparse_lip``), else on the card an NPHM model
@@ -47,6 +48,7 @@ from nphm_tpu_torch.config import (
     print_cfg,
 )
 from nphm_tpu_torch.data.manager import DataManager
+from nphm_tpu_torch.evaluation.render import render_screenshot
 from nphm_tpu_torch.fitting import FittingConfig, fit_joint, fit_joint_batch
 from nphm_tpu_torch.reconstruction.extract import (
     deform_mesh_batch,
@@ -107,8 +109,12 @@ def sample_shape_space(args, CFG, decoder_shape, params_shape, device):
         mesh = extract(args, decoder_shape, params_shape, lat, device, sparse=False)
         mesh.export(os.path.join(out_dir, f"mesh_{step:04d}.ply"))
         np.save(os.path.join(out_dir, f"lat_{step:04d}.npy"), lat)
-        # the JAX script also saves a screenshot step_NNNN.png, best effort
-        print("screenshot skipped: the renderer is not ported (ROADMAP A5)")
+        # the reference's plotter screenshot of each sample (its
+        # fitting_pointclouds.py:222), best effort as in the JAX script
+        try:
+            render_screenshot(mesh, os.path.join(out_dir, f"step_{step:04d}.png"))
+        except (OSError, RuntimeError, ValueError) as e:
+            print(f"screenshot failed: {e}")
         print(f"sample {step}: {len(mesh.vertices)} verts")
 
 

@@ -1,6 +1,6 @@
 """Triangle-mesh container and PLY IO (counterpart of
 ``nphm_tpu/utils/mesh_io.py``; same PLY bytes): the container with its
-vertex normals, face areas and vertex-mask submeshes, ``read_ply`` /
+face and vertex normals, face areas and vertex-mask submeshes, ``read_ply`` /
 ``load_mesh`` for the formats of the NPHM dataset and assets (ascii and
 binary_little_endian, float/uchar properties, uchar-count int-index face
 lists, polygons fan-triangulated) and ``write_ply``.
@@ -36,6 +36,12 @@ class Mesh:
     def _cross(self) -> np.ndarray:
         v, f = self.vertices, self.faces
         return np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+
+    @property
+    def face_normals(self) -> np.ndarray:
+        """Unit face normals, n / max(|n|, 1e-20): degenerate faces map to 0."""
+        n = self._cross()
+        return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
 
     @property
     def face_areas(self) -> np.ndarray:

@@ -42,6 +42,7 @@ from nphm_tpu.reconstruction.extract import (
     deform_mesh_batch as jdeform_mesh_batch,
     extract_mesh as jextract_mesh,
 )
+from nphm_tpu_torch.data.dummy import dummy_env
 from nphm_tpu_torch.fitting.inference import FittingConfig, fit_joint
 from nphm_tpu_torch.models import (
     DeformationConfig,
@@ -163,12 +164,13 @@ def test_extract_and_deform_match_jax(fitted):
 
 
 def test_main_path_never_imports_jax(tmp_path):
-    """Every module of the port imported (the fitting and both training CLIs
-    among them), and the fit, batched fit, identity-only fit, extract,
-    streamed, sparse and backward-warp extraction, deform, identity- and
-    deformation-training paths (NPHM) and the fit, extract and deform paths
-    (NPM) run on the CPU, with neither ``jax`` nor any module of
-    ``nphm_tpu`` loaded."""
+    """Every module of the port imported (the fitting, training, evaluation,
+    data-processing and protocol CLIs among them), and the fit, batched fit,
+    identity-only fit, extract, streamed, sparse and backward-warp
+    extraction, deform, identity- and deformation-training paths (NPHM), the
+    fit, extract and deform paths (NPM), an evaluation (render sampling and
+    metrics on a dummy scan) and the single-view observation CLI run on the
+    CPU, with neither ``jax`` nor any module of ``nphm_tpu`` loaded."""
     code = textwrap.dedent(f"""
         import importlib
         import pkgutil
@@ -179,7 +181,10 @@ def test_main_path_never_imports_jax(tmp_path):
         import nphm_tpu_torch
         for mod in pkgutil.walk_packages(nphm_tpu_torch.__path__, "nphm_tpu_torch."):
             importlib.import_module(mod.name)
-        for name in ("fitting_pointclouds", "train", "train_corresp"):
+        for name in ("fitting_pointclouds", "train", "train_corresp", "eval", "gather",
+                     "protocol_e2e", "data_processing.sample_surface",
+                     "data_processing.sample_deformation_field",
+                     "data_processing.generate_single_view_observations"):
             assert "nphm_tpu_torch." + name in sys.modules
         from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
         from nphm_tpu_torch.training.trainer import IdentityTrainer
@@ -272,13 +277,28 @@ def test_main_path_never_imports_jax(tmp_path):
                             device="cpu")
         posed = deform_mesh_batch(mesh, e, pe, le, lat_shape=ls, device="cpu")
         assert len(posed) == len(le)
+        from nphm_tpu_torch.data.dummy import generate_dummy_data
+        from nphm_tpu_torch.data_processing import generate_single_view_observations
+        from nphm_tpu_torch.evaluation import eval_pointcloud, gen_render_samples
+        from nphm_tpu_torch.utils.mesh_io import load_mesh
+        generate_dummy_data({str(tmp_path / "dummy")!r}, subjects=(341,), n_expressions=1,
+                            n_supervision=2000)
+        generate_single_view_observations.main(["--subjects", "341", "--n_points", "300"])
+        assert np.load({str(tmp_path / "dummy" / "single_view" / "341" / "0" / "obs.npy")!r}
+                       ).shape == (300, 3)
+        scan = load_mesh({str(tmp_path / "dummy" / "dataset" / "341" / "000" / "scan.ply")!r})
+        pts, nrm = gen_render_samples(scan, 2)
+        scores = eval_pointcloud(pts[::7], pts[3::11], nrm[::7], nrm[3::11], subject=341,
+                                 expression=0)
+        assert 0 < scores["chamfer_l1"] < 1 and scores["normals consistency"] > 0.9
         loaded = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "nphm_tpu" or m.startswith("nphm_tpu."))
         print("FOREIGN_LOADED", loaded)
     """)
+    env = {**os.environ, **dummy_env(str(tmp_path / "dummy"))}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=str(tmp_path), timeout=300)
+                         cwd=str(tmp_path), env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "FOREIGN_LOADED []" in out.stdout, out.stdout
     assert (tmp_path / "posed.ply").exists()
@@ -287,13 +307,20 @@ def test_main_path_never_imports_jax(tmp_path):
 
 
 def test_port_source_never_imports_nphm_tpu():
-    """No import of the JAX package in the port's source or the smoke script."""
+    """No import of the JAX package in the port's source or the smoke script,
+    and none of PIL in the port (the card's machine has no Pillow)."""
     pattern = re.compile(r"^\s*(import\s+nphm_tpu(\.|\s|$|,)|from\s+nphm_tpu(\.|\s))",
                          re.MULTILINE)
     files = sorted(glob.glob(os.path.join(ROOT, "nphm_tpu_torch", "**", "*.py"),
                              recursive=True))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(files) > 20
+    for name in ("evaluation/render.py", "evaluation/nn.py", "evaluation/metrics.py", "eval.py",
+                 "gather.py", "protocol_e2e.py", "data_processing/sample_surface.py",
+                 "data_processing/sample_deformation_field.py",
+                 "data_processing/generate_single_view_observations.py"):
+        assert os.path.join(ROOT, "nphm_tpu_torch", name) in files, name
+    pil = re.compile(r"^\s*(import\s+PIL\b|from\s+PIL\b)", re.MULTILINE)
     offenders = []
     for path in files:
         with open(path) as f:
@@ -302,7 +329,11 @@ def test_port_source_never_imports_nphm_tpu():
                       for m in pattern.finditer(text)]
         if re.search(r"^\s*(import|from)\s+jax\b", text, re.MULTILINE):
             offenders.append(f"{os.path.relpath(path, ROOT)}: imports jax")
+        if pil.search(text):
+            offenders.append(f"{os.path.relpath(path, ROOT)}: imports PIL")
     assert not offenders, offenders
+    assert pil.search("    from PIL import Image") and pil.search("import PIL.Image")
+    assert not pil.search("# the PNG is written without PIL")
     assert pattern.search("from nphm_tpu.ops import marching")
     assert pattern.search("import nphm_tpu")
     assert not pattern.search("from nphm_tpu_torch.ops import marching")

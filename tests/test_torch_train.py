@@ -15,7 +15,9 @@ Small NPHM config (glob 16, loc 8, 7 anchors, 3 symmetric pairs, hidden
 - ``IdentityTrainer``: 2 epochs of 2 steps from the JAX trainer's own
   initial state (bridged by ``trainer_state_from_jax``), JAX with
   ``fused_train_kernel: false``; per-epoch loss terms and the final params
-  and latent tables agree to within 1e-5 (measured: at most 2.4e-7).
+  and latent tables agree to within 1e-5 (measured: at most 2.4e-7).  Both
+  families: the NPHM ensemble above and a small NPM DeepSDF (lat 16,
+  hidden 32, 4 layers, ``local=False``: no anchor or symmetry terms).
 - Checkpoint resume: 2 epochs, a fresh trainer resumes and runs a third;
   the state equals 3 uninterrupted epochs exactly.
 """
@@ -30,13 +32,14 @@ import jax.numpy as jnp
 import torch
 
 from nphm_tpu.data.synthetic import SyntheticIdentityDataset as JSyntheticIdentityDataset
+from nphm_tpu.models import DeepSDFConfig as JDeepSDFConfig, make_npm_decoder as jmake_npm
 from nphm_tpu.models import NPHMConfig as JNPHMConfig, make_nphm_decoder as jmake_nphm
 from nphm_tpu.training import latents as jlat
 from nphm_tpu.training.losses import identity_sdf_loss as jidentity_sdf_loss
 from nphm_tpu.training.trainer import IdentityTrainer as JIdentityTrainer
 from nphm_tpu.utils.logging_utils import MetricsLogger as JMetricsLogger
 from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
-from nphm_tpu_torch.models import NPHMConfig, make_nphm_decoder
+from nphm_tpu_torch.models import DeepSDFConfig, NPHMConfig, make_nphm_decoder, make_npm_decoder
 from nphm_tpu_torch.ops.train_fields import apply_nphm_train
 from nphm_tpu_torch.training import latents as tlat
 from nphm_tpu_torch.training.losses import identity_sdf_loss
@@ -49,6 +52,7 @@ CFG = dict(lat_dim_glob=16, lat_dim_loc=8, n_loc=7, n_symm_pairs=3, hidden_dim=4
 LAMBDAS = {"lat_reg": 0.01, "surf_sdf": 2.0, "normals": 0.3, "space_sdf": 0.01,
            "grad": 0.1, "anchors": 7.5, "symm_dist": 0.01, "middle_dist": 0.0}
 DATA = dict(n_face=100, n_non_face=50, n_anchors=7)
+NPM_CFG = dict(lat_dim=16, hidden_dim=32, n_layers=4, radius_init=0.4)
 
 
 def train_cfg(**kw):
@@ -68,6 +72,12 @@ def models():
     td = make_nphm_decoder(NPHMConfig(**CFG), anchors)
     jp = jd.init(jax.random.PRNGKey(0))
     return jd, jp, td
+
+
+@pytest.fixture(scope="module")
+def npm_models():
+    jd = jmake_npm(JDeepSDFConfig(**NPM_CFG))
+    return jd, jd.init(jax.random.PRNGKey(0)), make_npm_decoder(DeepSDFConfig(**NPM_CFG))
 
 
 def np_tree(tree):
@@ -178,8 +188,9 @@ def capture(logger):
     return history
 
 
-def test_identity_trainer_matches_jax(models, tmp_path):
-    jd, jp, td = models
+@pytest.mark.parametrize("family", ["nphm", "npm"])
+def test_identity_trainer_matches_jax(models, npm_models, family, tmp_path):
+    jd, jp, td = models if family == "nphm" else npm_models
     jtr = JIdentityTrainer(jd, jax.tree_util.tree_map(jnp.array, jp), train_cfg(), JSyntheticIdentityDataset(
         n_subjects=4, batch_size=2, seed=0, **DATA), JSyntheticIdentityDataset(
         n_subjects=2, batch_size=2, seed=5, **DATA), "j", exp_dir=str(tmp_path),
