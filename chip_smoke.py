@@ -103,9 +103,19 @@ Phases, in order; any failure exits non-zero:
    crashes, 8 non-empty meshes, every metrics file, both CSVs finite, and
    K5/K6 (stage 1), K2-K4 and K1 (the NPHM fit and its streamed
    extraction) and K7 (posing, the NPM grids) launched.
+11. The synthetic quality run: ``python -m nphm_tpu_torch.synthetic_e2e``
+   in a child at the production widths (``NPHMConfig()``,
+   ``DeformationConfig()``) on a cut schedule (SYNTH_ARGS): stage 1 on 16
+   ellipsoid heads, the train subject's reconstruction at res 128 in the
+   +-0.7 box, ``fit_identity`` of a held-out head, compress-mode stage 2,
+   posing, ``fit_joint`` from posed clouds.  Exit 0, one JSON line with the
+   JAX script's keys, every Chamfer finite, the posed mesh closer to the
+   posed surface than the neutral one, and K1-K7 launched in the child
+   (K5/K6 stage 1, K1 the extractions, K3/K4 both fits, K2 the joint fit,
+   K7 the posing).
 
 Each kernel's entry in the table holds its launches summed over the
-paths of phases 4-10, and under "at" its rows at other shapes (K1 on the
+paths of phases 4-11, and under "at" its rows at other shapes (K1 on the
 res-256 grid, K2-K4 at the batched shapes; K1 and K7 at phase 8's launch
 shapes, each with its own launches in phase 8).
 
@@ -2458,6 +2468,46 @@ def evaluation_path():
     return total, {"nn": nn, "raster": raster, "protocol": runs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the synthetic quality run at production widths
+# ---------------------------------------------------------------------------
+
+# The full run is 1500 / 300 epochs and 500 fit steps; cut here to keep the
+# phase near a minute.  Stage 2 keeps a third of its epochs: the posed mesh
+# must already be closer to the posed surface than the neutral one.
+SYNTH_ARGS = ["--epochs", "200", "--def_epochs", "100", "--fit_steps", "100"]
+SYNTH_KEYS = ("backend", "production_dims", "train_s", "train_steps", "recon_extract_s",
+              "recon_chamfer", "fit_s", "heldout_fit_chamfer", "def_train_s",
+              "def_neutral_chamfer_vs_posed", "def_deformed_chamfer_vs_posed",
+              "joint_fit_s", "joint_canonical_chamfer", "joint_posed_chamfer", "total_s")
+
+
+def synthetic_path():
+    """Phase 11: ``synthetic_e2e`` at production widths in a child that
+    reports its launch counters."""
+    import math
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, counts, steps = run_child("nphm_tpu_torch.synthetic_e2e", SYNTH_ARGS, {}, tmp)
+    rows = [ln for ln in lines if ln.startswith("{")]
+    expect(len(rows) == 1, f"synthetic_e2e printed {len(rows)} JSON lines")
+    out = json.loads(rows[0])
+    log(f"[synthetic] {rows[0]}")
+    expect(sorted(out) == sorted(SYNTH_KEYS), f"synthetic_e2e keys {sorted(out)}")
+    expect(out["production_dims"] is True, "synthetic_e2e did not run at production widths")
+    chamfers = [k for k in SYNTH_KEYS if "chamfer" in k]
+    expect(all(math.isfinite(out[k]) for k in chamfers),
+           f"non-finite Chamfer: {[(k, out[k]) for k in chamfers]}")
+    expect(out["def_deformed_chamfer_vs_posed"] < out["def_neutral_chamfer_vs_posed"],
+           "the posed mesh is no closer to the posed surface than the neutral one")
+    for name in KERNELS:
+        expect(counts[name] > 0, f"synthetic_e2e did not launch {name}")
+    log(f"[synthetic] stage-1 step ms: first {[round(t, 2) for t in steps[:3]]}, "
+        f"last {[round(t, 2) for t in steps[-3:]]}")
+    log(f"[counters] synthetic_e2e child: {json.dumps(counts)}")
+    return counts
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -2491,8 +2541,11 @@ def run():
     t0 = time.perf_counter()
     protocol_counts, _ = evaluation_path()
     log(f"[phase 10] {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    synthetic_counts = synthetic_path()
+    log(f"[phase 11] {time.perf_counter() - t0:.2f} s")
     paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts, extract_counts,
-             train_cli_counts, protocol_counts)
+             train_cli_counts, protocol_counts, synthetic_counts)
     table = []
     for name, (source, replaces) in KERNELS.items():
         # rows of the same kernel at other shapes: "ensemble_sdf@res256", ...

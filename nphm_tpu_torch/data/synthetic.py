@@ -1,10 +1,12 @@
-"""Synthetic analytic identity dataset (ellipsoid "heads"; the identity part
-of ``nphm_tpu/data/synthetic.py``).
+"""Synthetic analytic datasets (ellipsoid "heads"; counterpart of
+``nphm_tpu/data/synthetic.py``).
 
-Batches carry the schema of ``IdentityDataset``, and for the same seed they
-are bit-identical to the JAX package's: the same numpy draws in the same
-order.  They serve the port's tests and its smoke run without the real
-(license-gated) NPHM dataset.
+``SyntheticIdentityDataset`` batches carry the schema of ``IdentityDataset``,
+``SyntheticDeformationDataset`` (per-scan affine warps of those heads) the
+schema of ``DeformationDataset``.  For the same seeds both are bit-identical
+to the JAX package's: the same numpy draws in the same order.  They serve
+the port's accuracy gates, ``synthetic_e2e`` and its smoke run without the
+real (license-gated) NPHM dataset.
 """
 
 from __future__ import annotations
@@ -87,4 +89,61 @@ class SyntheticIdentityDataset(_BatchedDataset):
         }
         if self.n_anchors:
             item["gt_anchors"] = self.anchors_of(idx).astype(np.float32)
+        return item
+
+
+class SyntheticDeformationDataset(_BatchedDataset):
+    """Per-(subject, expression) affine warps with correspondence batches."""
+
+    def __init__(
+        self,
+        identity: SyntheticIdentityDataset,
+        n_expressions: int = 3,
+        n_points: int = 500,
+        batch_size: int = 4,
+        seed: int = 1,
+        warp_scale: float = 0.05,
+    ):
+        rng = np.random.default_rng(seed)
+        self.identity = identity
+        self.batch_size = batch_size
+        self.n_points = n_points
+        n_sub = len(identity)
+        self.subject_steps, self.steps, self.subject_index = [], [], []
+        for i in range(n_sub):
+            for e in range(n_expressions):
+                self.subject_steps.append(i)
+                self.steps.append(e)
+                self.subject_index.append(i)
+        self.neutral_expr_index = {i: 0 for i in range(n_sub)}
+        # expression warp: small translation + anisotropic scale per scan
+        self.t = (rng.normal(size=(len(self.steps), 3)) * warp_scale).astype(
+            np.float32
+        )
+        self.a = (rng.normal(size=(len(self.steps), 3)) * warp_scale).astype(
+            np.float32
+        )
+
+    def __len__(self):
+        return len(self.steps)
+
+    def warp(self, scan_idx: int, pts: np.ndarray) -> np.ndarray:
+        return pts * (1 + self.a[scan_idx]) + self.t[scan_idx]
+
+    def _load_item(self, idx: int, rng: np.random.Generator):
+        subj = self.subject_steps[idx]
+        radii = self.identity.radii[subj]
+        center = self.identity.centers[subj]
+        neutral, _ = _ellipsoid_surface(radii, center, self.n_points, rng)
+        posed = self.warp(idx, neutral)
+        item = {
+            "points_neutral": neutral.astype(np.float32),
+            "points_posed": posed.astype(np.float32),
+            "idx": np.array([idx], np.int32),
+            "iden": np.array([subj], np.int32),
+            "expr": np.array([self.steps[idx]], np.int32),
+            "subj_ind": np.array([self.subject_index[idx]], np.int32),
+        }
+        if self.identity.n_anchors:
+            item["gt_anchors"] = self.identity.anchors_of(subj).astype(np.float32)
         return item

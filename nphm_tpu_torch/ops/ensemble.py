@@ -40,6 +40,7 @@ from nphm_tpu_torch.ops.fit_fields import check_widths
 
 DEFAULT_TILE = 2048  # cull-tile size: points sharing one member predicate
 CULL_EPS = 1e-10
+PLAIN_CHUNK_CPU = 1 << 16  # points of one member's CPU pass in nphm_sdf_plain
 SQRT2 = 1.4142135623730951
 POINTS = 64  # points per K1 block: csrc/tc_tile.cuh kRows
 
@@ -127,18 +128,22 @@ def _blend_weight(raw, inv_var):
 @torch.no_grad()
 def nphm_sdf_plain(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TILE,
                    cull_eps: float = CULL_EPS, operands=None):
-    """Plain PyTorch version of K1: same folding, cull mask, pad and order."""
+    """Plain PyTorch version of K1: same folding, cull mask, pad and order.
+
+    On the card every member runs on every point and a dead one adds 0.0.
+    On the CPU a member runs, as in K1, only on the cull tiles where it is
+    live, in chunks of ``PLAIN_CHUNK_CPU`` points whose activations stay in
+    cache; the sums are the same bit for bit.
+    """
     n = xyz.shape[0]
     xyz, layers, anchors, active = _prepare(params, cfg, xyz, lat, tile, cull_eps, operands)
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
     inv_var = 1.0 / cfg.blend_var
     bg_w = float(np.exp(cfg.blend_background_dist / cfg.blend_var))
-    live = active.repeat_interleave(tile, dim=0).bool()  # [Np, K]
-    num = torch.full((xyz.shape[0],), bg_w, device=xyz.device)
-    den = torch.full((xyz.shape[0],), bg_w, device=xyz.device)
-    for k in range(cfg.n_loc):
-        raw = xyz - anchors[k]
+    dev = xyz.device
+
+    def member(k, raw):
         h = None
         for i in range(L):
             lay = layers[i]
@@ -150,9 +155,27 @@ def nphm_sdf_plain(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TIL
                 z = h @ lay["w"][k].T + lay["b"][k]
             if i < L - 1:
                 h = softplus_beta(z, cfg.beta)
-        w = _blend_weight(raw, inv_var)
-        num = num + torch.where(live[:, k], w * z[:, 0], 0.0)
-        den = den + torch.where(live[:, k], w, 0.0)
+        return z[:, 0], _blend_weight(raw, inv_var)
+
+    num = torch.full((xyz.shape[0],), bg_w, device=dev)
+    den = torch.full((xyz.shape[0],), bg_w, device=dev)
+    if dev.type != "cpu":
+        live = active.repeat_interleave(tile, dim=0).bool()  # [Np, K]
+        for k in range(cfg.n_loc):
+            z, w = member(k, xyz - anchors[k])
+            num = num + torch.where(live[:, k], w * z, 0.0)
+            den = den + torch.where(live[:, k], w, 0.0)
+        return (num / (den + 1e-6))[:n]
+    live = active.bool().numpy()  # [n_tiles, K]
+    chunk = max(1, PLAIN_CHUNK_CPU // tile)
+    offs = torch.arange(tile)
+    for k in range(cfg.n_loc):
+        tiles = np.flatnonzero(live[:, k])
+        for c in range(0, len(tiles), chunk):
+            rows = (torch.as_tensor(tiles[c : c + chunk])[:, None] * tile + offs).reshape(-1)
+            z, w = member(k, xyz[rows] - anchors[k])
+            num[rows] += w * z
+            den[rows] += w
     return (num / (den + 1e-6))[:n]
 
 

@@ -41,6 +41,7 @@ SQRT2 = 1.4142135623730951
 SCRATCH_BYTES = 1 << 31
 # Leading dims of every matrix the kernel reads by TMA: rows of 16 bytes.
 LD_ALIGN = 4
+PLAIN_CHUNK_CPU = 1 << 16  # points of one CPU pass in deepsdf_trunk_plain
 
 
 def prepare_trunk_operands(params, cfg: DeepSDFConfig, cond):
@@ -82,22 +83,31 @@ def _act(z, beta: float):
 @torch.no_grad()
 def deepsdf_trunk_plain(params, cfg: DeepSDFConfig, xyz, cond=None):
     """Plain PyTorch version of K7: the same folded operands, ``torch.matmul``
-    and softplus.  xyz [N, input_dim] -> [N, out_dim]."""
+    and softplus.  xyz [N, input_dim] -> [N, out_dim].  On the CPU the points
+    go through in chunks of ``PLAIN_CHUNK_CPU``, whose activations stay in
+    cache (a row's result does not depend on the chunk)."""
     pe = positional_encoding(xyz.to(torch.float32), cfg.num_freq_bands)
     layers = prepare_trunk_operands(params, cfg, cond)
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
-    h = None
-    for i, lay in enumerate(layers):
-        if i == 0:
-            z = pe @ lay["wp"].T + lay["b"]
-        elif i == skip_in:
-            z = h @ lay["w"].T + pe @ lay["wp"].T + lay["b"]
-        else:
-            z = h @ lay["w"].T + lay["b"]
-        if i < L - 1:
-            h = _act(z, cfg.beta)
-    return z
+
+    def run(pe):
+        h = None
+        for i, lay in enumerate(layers):
+            if i == 0:
+                z = pe @ lay["wp"].T + lay["b"]
+            elif i == skip_in:
+                z = h @ lay["w"].T + pe @ lay["wp"].T + lay["b"]
+            else:
+                z = h @ lay["w"].T + lay["b"]
+            if i < L - 1:
+                h = _act(z, cfg.beta)
+        return z
+
+    if pe.is_cuda or pe.shape[0] <= PLAIN_CHUNK_CPU:
+        return run(pe)
+    return torch.cat([run(pe[s : s + PLAIN_CHUNK_CPU])
+                      for s in range(0, pe.shape[0], PLAIN_CHUNK_CPU)])
 
 
 def chunk_points(ldh: int, tile: int) -> int:

@@ -59,7 +59,9 @@ def test_nphm_sdf_matches_eval_decoder(pair):
 
 
 @pytest.mark.parametrize("res,cull_eps", [(16, 1e-3), (20, ens.CULL_EPS)])
-def test_grid_sdf_matches_pallas(pair, res, cull_eps):
+def test_grid_sdf_matches_pallas(pair, res, cull_eps, monkeypatch):
+    """Also with the plain version's CPU chunks cut to two tiles, so a
+    member's live tiles go through in several chunks."""
     jd, jp, td, tp, lat = pair
     ref = jens.nphm_grid_sdf_pallas(jp, jd.cfg, jnp.asarray(lat), MINI, MAXI, res,
                                     tile=1024, cull_eps=cull_eps, interpret=True)
@@ -67,6 +69,10 @@ def test_grid_sdf_matches_pallas(pair, res, cull_eps):
                             tile=1024, cull_eps=cull_eps)
     assert out.shape == (res**3,)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    monkeypatch.setattr(ens, "PLAIN_CHUNK_CPU", 2048)
+    chunked = ens.nphm_grid_sdf(tp, td.cfg, torch.tensor(lat), MINI, MAXI, res,
+                                tile=1024, cull_eps=cull_eps)
+    assert torch.equal(chunked, out)
 
 
 @pytest.mark.parametrize("res,tile", [(256, 2048), (400, 2048), (64, 1024), (20, 1024)])
@@ -93,11 +99,12 @@ def test_cpu_tensors_take_the_plain_version(pair):
 
 
 @pytest.mark.parametrize("cull_eps", [0.0, ens.CULL_EPS, 1e-2])
-def test_work_list_blend_matches_plain_and_pallas(pair, cull_eps):
+def test_work_list_blend_matches_plain_and_pallas(pair, cull_eps, monkeypatch):
     """K1's schedule in plain PyTorch (the compacted list of live (tile,
     member) pairs, each tile's members blended in the list's order) equals
     nphm_sdf_plain and the Pallas kernel in interpret mode, with culling
-    off, at the default eps and at 1e-2 (most pairs culled)."""
+    off, at the default eps and at 1e-2 (most pairs culled).  The plain
+    version gives the same bits with its CPU chunks cut to one tile."""
     jd, jp, td, tp, lat = pair
     xyz = (np.random.default_rng(3).normal(size=(3000, 3)) * 0.3).astype(np.float32)
     xyz = xyz[np.argsort(xyz[:, 0])]  # tiles of nearby points, so culling fires
@@ -110,6 +117,10 @@ def test_work_list_blend_matches_plain_and_pallas(pair, cull_eps):
     assert out.shape == (3000,)
     np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=ATOL)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    monkeypatch.setattr(ens, "PLAIN_CHUNK_CPU", 1)
+    chunked = ens.nphm_sdf_plain(tp, td.cfg, torch.tensor(xyz), torch.tensor(lat),
+                                 tile=1024, cull_eps=cull_eps)
+    assert torch.equal(chunked, plain)
 
 
 def test_work_list_order():

@@ -182,7 +182,8 @@ def test_main_path_never_imports_jax(tmp_path):
         for mod in pkgutil.walk_packages(nphm_tpu_torch.__path__, "nphm_tpu_torch."):
             importlib.import_module(mod.name)
         for name in ("fitting_pointclouds", "train", "train_corresp", "eval", "gather",
-                     "protocol_e2e", "data_processing.sample_surface",
+                     "protocol_e2e", "synthetic_e2e", "train_soak",
+                     "data_processing.sample_surface",
                      "data_processing.sample_deformation_field",
                      "data_processing.generate_single_view_observations"):
             assert "nphm_tpu_torch." + name in sys.modules
@@ -316,7 +317,8 @@ def test_port_source_never_imports_nphm_tpu():
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(files) > 20
     for name in ("evaluation/render.py", "evaluation/nn.py", "evaluation/metrics.py", "eval.py",
-                 "gather.py", "protocol_e2e.py", "data_processing/sample_surface.py",
+                 "gather.py", "protocol_e2e.py", "synthetic_e2e.py", "train_soak.py",
+                 "data/synthetic.py", "data_processing/sample_surface.py",
                  "data_processing/sample_deformation_field.py",
                  "data_processing/generate_single_view_observations.py"):
         assert os.path.join(ROOT, "nphm_tpu_torch", name) in files, name

@@ -11,7 +11,9 @@ Small NPHM config (glob 16, loc 8, 7 anchors, 3 symmetric pairs, hidden
   ``clip_global_norm`` at 1e-7; ``lr_at`` / ``lr_lat_at`` exact for
   epochs 0-12000 at decay intervals 600 and 5000.
 - ``SyntheticIdentityDataset.batch_iter``: bit-identical batches for seeds
-  0 and 3.
+  0 and 3; ``SyntheticDeformationDataset``: bit-identical batches, warp
+  parameters and ``warp`` output for seeds 0, 3, 9, with and without
+  anchors.
 - ``IdentityTrainer``: 2 epochs of 2 steps from the JAX trainer's own
   initial state (bridged by ``trainer_state_from_jax``), JAX with
   ``fused_train_kernel: false``; per-epoch loss terms and the final params
@@ -31,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from nphm_tpu.data.synthetic import SyntheticDeformationDataset as JSyntheticDeformationDataset
 from nphm_tpu.data.synthetic import SyntheticIdentityDataset as JSyntheticIdentityDataset
 from nphm_tpu.models import DeepSDFConfig as JDeepSDFConfig, make_npm_decoder as jmake_npm
 from nphm_tpu.models import NPHMConfig as JNPHMConfig, make_nphm_decoder as jmake_nphm
@@ -38,7 +41,7 @@ from nphm_tpu.training import latents as jlat
 from nphm_tpu.training.losses import identity_sdf_loss as jidentity_sdf_loss
 from nphm_tpu.training.trainer import IdentityTrainer as JIdentityTrainer
 from nphm_tpu.utils.logging_utils import MetricsLogger as JMetricsLogger
-from nphm_tpu_torch.data.synthetic import SyntheticIdentityDataset
+from nphm_tpu_torch.data.synthetic import SyntheticDeformationDataset, SyntheticIdentityDataset
 from nphm_tpu_torch.models import DeepSDFConfig, NPHMConfig, make_nphm_decoder, make_npm_decoder
 from nphm_tpu_torch.ops.train_fields import apply_nphm_train
 from nphm_tpu_torch.training import latents as tlat
@@ -175,6 +178,34 @@ def test_synthetic_batches_bit_identical(seed):
         for k in a:
             assert a[k].dtype == b[k].dtype
             np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("n_anchors", [None, 39])
+@pytest.mark.parametrize("seed", [0, 3, 9])
+def test_synthetic_deformation_batches_bit_identical(seed, n_anchors):
+    ident = dict(n_subjects=5, batch_size=2, n_face=250, n_non_face=125, n_anchors=n_anchors,
+                 seed=seed)
+    kw = dict(n_expressions=3, n_points=500, batch_size=4, seed=seed + 1, warp_scale=0.08)
+    ours = SyntheticDeformationDataset(SyntheticIdentityDataset(**ident), **kw)
+    ref = JSyntheticDeformationDataset(JSyntheticIdentityDataset(**ident), **kw)
+    for attr in ("subject_steps", "steps", "subject_index", "neutral_expr_index"):
+        assert getattr(ours, attr) == getattr(ref, attr), attr
+    for attr in ("t", "a"):
+        assert getattr(ours, attr).dtype == getattr(ref, attr).dtype
+        np.testing.assert_array_equal(getattr(ours, attr), getattr(ref, attr))
+    pts = np.random.default_rng(seed).normal(size=(64, 3)).astype(np.float32)
+    for scan in range(len(ref)):
+        a, b = ours.warp(scan, pts), ref.warp(scan, pts)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    batches, jbatches = list(ours.batch_iter(seed=seed)), list(ref.batch_iter(seed=seed))
+    assert len(batches) == len(jbatches) == 4
+    for a, b in zip(batches, jbatches):
+        assert sorted(a) == sorted(b)
+        assert ("gt_anchors" in a) == bool(n_anchors)
+        for k in a:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def datasets():

@@ -138,10 +138,11 @@ def test_unconditioned_trunk_matches_pallas(out_dim, beta):
     assert_matches(out.numpy(), ref, tp, cfg, xyz, None)
 
 
-def test_trunk_plain_matches_decoder_and_operand_fold():
+def test_trunk_plain_matches_decoder_and_operand_fold(monkeypatch):
     """The CPU wrapper is the plain version, which equals the unfolded
-    ``apply_deepsdf``; the fold puts 1/sqrt(2) into the skip weights and
-    the conditioning into the layer-0 and skip biases."""
+    ``apply_deepsdf``, also in CPU chunks of 100 points (the last one
+    short); the fold puts 1/sqrt(2) into the skip weights and the
+    conditioning into the layer-0 and skip biases."""
     from nphm_tpu_torch.models import apply_deepsdf
 
     _jd, _jp, cfg, tp = npm_pair(lat_dim=12, hidden_dim=40, n_layers=6)
@@ -150,8 +151,12 @@ def test_trunk_plain_matches_decoder_and_operand_fold():
     lat = torch.tensor((rng.normal(size=(12,)) * 0.2).astype(np.float32))
     ref = apply_deepsdf(tp, cfg, xyz[None], lat[None])[0]
     torch.testing.assert_close(trunk.deepsdf_trunk(tp, cfg, xyz, lat), ref, atol=ATOL, rtol=0)
-    torch.testing.assert_close(trunk.deepsdf_trunk_plain(tp, cfg, xyz, lat), ref,
-                               atol=ATOL, rtol=0)
+    plain = trunk.deepsdf_trunk_plain(tp, cfg, xyz, lat)
+    torch.testing.assert_close(plain, ref, atol=ATOL, rtol=0)
+    monkeypatch.setattr(trunk, "PLAIN_CHUNK_CPU", 100)
+    chunked = trunk.deepsdf_trunk_plain(tp, cfg, xyz, lat)
+    torch.testing.assert_close(chunked, ref, atol=ATOL, rtol=0)
+    assert torch.equal(chunked, plain)
     layers = trunk.prepare_trunk_operands(tp, cfg, lat)
     _shapes, skip = cfg.layer_shapes
     w = tp["layers"][skip]["w"]
