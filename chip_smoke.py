@@ -113,11 +113,28 @@ Phases, in order; any failure exits non-zero:
    posed surface than the neutral one, and K1-K7 launched in the child
    (K5/K6 stage 1, K1 the extractions, K3/K4 both fits, K2 the joint fit,
    K7 the posing).
+12. The GNN and interpolate deformation modes: phase 2's NPHM identity
+   with a seeded field of each mode at the widths of
+   ``configs/nphm_def.yaml`` (GNN conditions the trunk on 400 columns, so
+   its third layer is 109 wide).  Under GNN, K2 at the batched shape (40
+   rows x 1000) and K7 on a 65 536-point posing chunk against their plain
+   versions, timed and bounded.  Per mode: 20 ``DeformationTrainer``
+   steps at B=32 x 1000 on ``SyntheticDeformationDataset`` (the loss of a
+   fixed batch finite and falling); ``fit_joint_batch`` on 8 subjects x 20 scans x 2500
+   points for 50 steps, ``extract_mesh`` at res 256 and
+   ``deform_mesh_batch``: GNN must launch K1-K4 and K7 and hold 5 batched
+   steps through the kernels against the plain path; interpolate must
+   launch K1, K3 and K4 and neither K2 nor K7 (its per-point conditioning
+   takes the plain search and posing).  Then ``train_corresp -mode GNN``
+   (1 epoch) and ``fitting_pointclouds -demo -batch_subjects 2 -n_steps
+   20 -resolution 128`` in children on phase 9's tree: exit 0, non-empty
+   meshes, the children's K2 and K7 launched.
 
 Each kernel's entry in the table holds its launches summed over the
-paths of phases 4-11, and under "at" its rows at other shapes (K1 on the
+paths of phases 4-12, and under "at" its rows at other shapes (K1 on the
 res-256 grid, K2-K4 at the batched shapes; K1 and K7 at phase 8's launch
-shapes, each with its own launches in phase 8).
+shapes, each with its own launches in phase 8; K2 and K7 under GNN, with
+their launches in phase 12's GNN fit and posing).
 
 The second-to-last line is the kernel table as JSON, the last line the
 device record as JSON.  Nothing here imports JAX or the JAX package.
@@ -1344,11 +1361,21 @@ def batch_observations():
 def check_batched_kernels(models, device, rows):
     """K2, K3 and K4 at the batched fit's launch shapes: 8 subjects x 5
     scans = 40 rows of 1000 points, each subject's shape code conditioning
-    its 5 rows; K2's lanes in 8 per-subject groups of 5000, each padded to
-    5024 (157 tiles).  K2 cold at budget 15 (the table's row, as in phase
-    3) then warm at budget 3 from the plain result (the fit's launch after
-    its first step), each against its plain version with phase 3's
-    tolerances, per-subject iterations within one, two calls bit-identical."""
+    its 5 rows (``check_k2_batched``, then ``check_k3_k4``)."""
+    check_k2_batched(models, device, rows, "broyden_search@S8")
+    check_k3_k4(models[0], models[1], models[4], device, rows, B=5 * BATCH_SUBJECTS,
+                subjects=BATCH_SUBJECTS, suffix="@S8")
+
+
+def check_k2_batched(models, device, rows, key, tag=""):
+    """K2 at the batched fit's launch shape, row ``key``: 8 subjects x 5
+    scans = 40 rows of 1000 points, each subject's shape code conditioning
+    its 5 rows through the field's row-constant conditioning; K2's lanes in
+    8 per-subject groups of 5000, each padded to 5024 (157 tiles).  Cold at
+    budget 15 (the row's time, as in phase 3) then warm at budget 3 from
+    the plain result (the fit's launch after its first step), each against
+    its plain version with phase 3's tolerances, per-subject iterations
+    within one, two calls bit-identical."""
     import torch
 
     from nphm_tpu_torch.ops.search import (
@@ -1370,6 +1397,7 @@ def check_batched_kernels(models, device, rows):
     wbytes = 4 * sum(lay["w"].numel() + lay["b"].numel() for lay in trunk["layers"])
     n_pad, g_pad, g_real = lane_layout(B * N, S)
     real = [min(TILE, max(0, g_real - (t * TILE) % g_pad)) for t in range(n_pad // TILE)]
+    name = f"[K2x{S}{tag}]"
     err, warm = 0.0, None
     for budget in (15, 3):
         x0, j0 = (obs, eye) if warm is None else (warm["result"], warm["j_inv"])
@@ -1384,36 +1412,35 @@ def check_batched_kernels(models, device, rows):
         ej = float((k["j_inv"] - p["j_inv"]).abs()[both].max()) if both.any() else 0.0
         nk, np_ = int(k["valid_ids"].sum()), int(p["valid_ids"].sum())
         gk, gp = k["group_iters"].tolist(), p["group_iters"].tolist()
-        log(f"[K2x{S}] budget {budget}, {B} rows x {N} (8 groups of {g_real} lanes padded "
+        log(f"{name} budget {budget}, {B} rows x {N} (8 groups of {g_real} lanes padded "
             f"to {g_pad}): n_valid kernel {nk} plain {np_}; per-subject iterations kernel "
             f"{gk} plain {gp}; valid-in-both max|dx| {ex:.3e} max|dbn| {eb:.3e} (tol "
             f"{TOL_K2_X:g}) max|dJ| {ej:.3e} (tol {TOL_K2_J:g}); two calls bit-identical")
-        expect(bool(torch.isfinite(k["diff"]).all()), "batched K2 non-finite residuals")
+        expect(bool(torch.isfinite(k["diff"]).all()), f"{name} non-finite residuals")
         expect(ex <= TOL_K2_X and eb <= TOL_K2_X and ej <= TOL_K2_J,
-               "batched K2 disagrees with its plain version")
-        expect(abs(nk - np_) <= TOL_K2_NVALID * B * N, "batched K2 n_valid disagrees")
+               f"{name} disagrees with its plain version")
+        expect(abs(nk - np_) <= TOL_K2_NVALID * B * N, f"{name} n_valid disagrees")
         expect(all(abs(a - b) <= 1 for a, b in zip(gk, gp)),
-               "batched K2's per-subject iterations differ from the plain search's by more "
+               f"{name}'s per-subject iterations differ from the plain search's by more "
                "than one")
-        expect(all(torch.equal(k[key], k2[key]) for key in k),
-               "two batched K2 calls on the same inputs differ")
+        expect(all(torch.equal(k[key_], k2[key_]) for key_ in k),
+               f"two {name} calls on the same inputs differ")
         err = max(err, ex, eb)
         evals = sum(r * (1 + i) for r, i in zip(real, k["tile_iters"].cpu().tolist()))
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(lambda: run(broyden_search_plain), 3)
         flops = 2.0 * fmas * evals
         b = bound(flops, B * N * 4 * (15 + 14) + wbytes)
-        log(f"[K2x{S}] budget {budget}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+        log(f"{name} budget {budget}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
             f"{n_pad // TILE} tiles, {evals} trunk evaluations, {bound_note(flops, b)}")
         if budget == 15:
-            rows["broyden_search@S8"] = dict(ms=ms, plain_ms=plain_ms, **b)
+            rows[key] = dict(ms=ms, plain_ms=plain_ms, **b)
         else:
-            rows["broyden_search@S8"]["warm_budget3_ms"] = ms
+            rows[key]["warm_budget3_ms"] = ms
         warm = p
-    rows["broyden_search@S8"]["max_abs_err"] = err
+    rows[key]["max_abs_err"] = err
     del obs, cond, eye, k, k2, p, warm
     torch.cuda.empty_cache()
-    check_k3_k4(models[0], params_shape, gen, device, rows, B=B, subjects=S, suffix="@S8")
 
 
 def batch_path(models, device, serial_it_s: float):
@@ -1456,6 +1483,33 @@ def batch_path(models, device, serial_it_s: float):
     return counts
 
 
+def fit_batch(models, subjects, device, mode, n, start, draws):
+    """``fit_joint_batch`` for n steps on the given (sel, idx) draws from the
+    shape codes ``start`` (None: zero), kernels "auto" or plain "off"."""
+    from nphm_tpu_torch.fitting import FittingConfig, fit_joint_batch
+
+    shape, params_shape, expr, params_expr, _gen = models
+    cfg = FittingConfig(n_steps=n, fused_search=mode, fused_shape_fields=mode)
+    return fit_joint_batch(shape, params_shape, expr, params_expr, subjects, cfg=cfg,
+                           device=device, verbose=False,
+                           sample_draws=tuple(d[:n] for d in draws), lat_shape_init=start)
+
+
+def fit_diffs(x, y):
+    """({term: max |x - y|}, all within TOL_FIT_*) of two batched fits."""
+    import numpy as np
+
+    (le, ls, _, h), (rle, rls, _, rh) = x, y
+    pairs = [("lat_shape", a, b) for a, b in zip(ls, rls)]
+    pairs += [("lat_expr", a, b) for a, b in zip(le, rle)]
+    pairs.append(("loss", h["loss"], rh["loss"]))
+    errs = {}
+    for key, a, b in pairs:
+        errs[key] = max(errs.get(key, 0.0), float(np.abs(a - b).max()))
+    close = all(np.allclose(a, b, rtol=TOL_FIT_RTOL, atol=TOL_FIT_ATOL) for _, a, b in pairs)
+    return errs, close
+
+
 def check_batch_reference(models, subjects, device):
     """5 batched steps through K2-K4 against the plain path (``"off"``) on
     the same draws, then the same draws through ``fit_joint`` for two
@@ -1475,7 +1529,7 @@ def check_batch_reference(models, subjects, device):
     each subject's rows in another order."""
     import numpy as np
 
-    from nphm_tpu_torch.fitting import FittingConfig, fit_joint, fit_joint_batch
+    from nphm_tpu_torch.fitting import FittingConfig, fit_joint
 
     shape, params_shape, expr, params_expr, _gen = models
     steps, nb, npp, S = 5, 5, 1000, len(subjects)
@@ -1486,27 +1540,11 @@ def check_batch_reference(models, subjects, device):
     perm = rng.permutation(nb)
 
     def batch(mode, n=steps, start=init, draws=(sel, idx)):
-        cfg = FittingConfig(n_steps=n, fused_search=mode, fused_shape_fields=mode)
-        return fit_joint_batch(shape, params_shape, expr, params_expr, subjects, cfg=cfg,
-                               device=device, verbose=False,
-                               sample_draws=tuple(d[:n] for d in draws),
-                               lat_shape_init=start)
-
-    def diffs(x, y):
-        (le, ls, _, h), (rle, rls, _, rh) = x, y
-        pairs = [("lat_shape", a, b) for a, b in zip(ls, rls)]
-        pairs += [("lat_expr", a, b) for a, b in zip(le, rle)]
-        pairs.append(("loss", h["loss"], rh["loss"]))
-        errs = {}
-        for key, a, b in pairs:
-            errs[key] = max(errs.get(key, 0.0), float(np.abs(a - b).max()))
-        close = all(np.allclose(a, b, rtol=TOL_FIT_RTOL, atol=TOL_FIT_ATOL)
-                    for _, a, b in pairs)
-        return errs, close
+        return fit_batch(models, subjects, device, mode, n, start, draws)
 
     out = {mode: batch(mode) for mode in ("auto", "off")}
     (le, ls, _, h), (_, _, _, rh) = out["auto"], out["off"]
-    errs, close = diffs(out["auto"], out["off"])
+    errs, close = fit_diffs(out["auto"], out["off"])
     log(f"[batch-check] {steps} steps x {S} subjects, kernels vs plain path: max|diff| "
         f"{json.dumps(errs)}; n_valid {h['n_valid'].sum(axis=1).tolist()} vs "
         f"{rh['n_valid'].sum(axis=1).tolist()}; iterations kernel "
@@ -1535,8 +1573,8 @@ def check_batch_reference(models, subjects, device):
     reordered = (sel[:, :, perm], idx[:, :, perm])
     for n in (1, steps):
         plain = batch("off", n, None)
-        k_vs_p, close = diffs(batch("auto", n, None), plain)
-        p_vs_p, _ = diffs(plain, batch("off", n, None, reordered))
+        k_vs_p, close = fit_diffs(batch("auto", n, None), plain)
+        p_vs_p, _ = fit_diffs(plain, batch("off", n, None, reordered))
         log(f"[batch-check] zero start, {n} step(s) x {S} subjects: kernels vs plain path "
             f"max|diff| {json.dumps(k_vs_p)}; plain vs plain with each subject's rows "
             f"reordered {perm.tolist()} max|diff| {json.dumps(p_vs_p)}")
@@ -2158,13 +2196,16 @@ def run_child(module, argv, env, cwd):
     return lines, counts[0], steps[0] if steps else []
 
 
-def training_cli_path():
+def training_cli_path(tmp):
     """``python -m nphm_tpu_torch.train -local`` -> ``train_corresp -mode
     compress`` -> ``fitting_pointclouds -demo -sparse -batch_subjects 2
     -n_steps 50 -resolution 256``, each in a child process on a dummy tree
     of 32 training subjects and one validation subject (2 expressions
     each), at the widths of configs/nphm.yaml and configs/nphm_def.yaml,
-    2 epochs, a checkpoint every epoch."""
+    2 epochs, a checkpoint every epoch.  The tree, the experiments and the
+    configs stay in the directory ``tmp`` for phase 12; returns (the
+    children's counters, {"env", "def"}: the tree's environment and the
+    stage-2 config's path)."""
     import numpy as np
     import yaml
 
@@ -2173,67 +2214,66 @@ def training_cli_path():
     from nphm_tpu_torch.utils.mesh_io import read_ply
 
     total = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "dummy")
-        generate_dummy_data(root, subjects=TRAIN_SUBJECTS + (199,), n_expressions=2,
-                            n_supervision=4000)
-        env = dummy_env(root)
-        exp = env["NPHM_EXPERIMENT_DIR"]
-        id_cfg = load_yaml(os.path.join(ROOT, "configs", "nphm.yaml"))
-        id_cfg["training"].update(nepochs=2, ckpt_interval=1)
-        def_cfg = load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml"))
-        # the stage-1 model's own decoder block (configs/nphm_def.yaml's
-        # id_decoder has another anchor-MLP width than configs/nphm.yaml)
-        def_cfg["id_decoder"] = dict(id_cfg["decoder"])
-        def_cfg["training"].update(nepochs=2, ckpt_interval=1, shape_exp_name="smoke_id",
-                                   shape_ckpt=1)
-        fit_cfg = {"exp_name_shape": "smoke_id", "checkpoint_shape": 1, "mode": "compress",
-                   "local_shape": True, "local_expr": False, "exp_name_expr": "smoke_def",
-                   "checkpoint_expr": 1}
-        paths = {}
-        for name, cfg in (("id", id_cfg), ("def", def_cfg), ("fit", fit_cfg)):
-            paths[name] = os.path.join(tmp, f"{name}.yaml")
-            with open(paths[name], "w") as f:
-                yaml.safe_dump(cfg, f)
+    root = os.path.join(tmp, "dummy")
+    generate_dummy_data(root, subjects=TRAIN_SUBJECTS + (199,), n_expressions=2,
+                        n_supervision=4000)
+    env = dummy_env(root)
+    exp = env["NPHM_EXPERIMENT_DIR"]
+    id_cfg = load_yaml(os.path.join(ROOT, "configs", "nphm.yaml"))
+    id_cfg["training"].update(nepochs=2, ckpt_interval=1)
+    def_cfg = load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml"))
+    # the stage-1 model's own decoder block (configs/nphm_def.yaml's
+    # id_decoder has another anchor-MLP width than configs/nphm.yaml)
+    def_cfg["id_decoder"] = dict(id_cfg["decoder"])
+    def_cfg["training"].update(nepochs=2, ckpt_interval=1, shape_exp_name="smoke_id",
+                               shape_ckpt=1)
+    fit_cfg = {"exp_name_shape": "smoke_id", "checkpoint_shape": 1, "mode": "compress",
+               "local_shape": True, "local_expr": False, "exp_name_expr": "smoke_def",
+               "checkpoint_expr": 1}
+    paths = {}
+    for name, cfg in (("id", id_cfg), ("def", def_cfg), ("fit", fit_cfg)):
+        paths[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
 
-        _, c1, steps1 = run_child("nphm_tpu_torch.train",
-                                  ["-exp_name", "smoke_id", "-cfg_file", paths["id"], "-local"],
-                                  env, tmp)
-        for name in ("train_fwd", "train_bwd", "ensemble_sdf"):
-            expect(c1[name] > 0, f"kernel {name} was not launched by the stage-1 CLI")
-        _, c2, steps2 = run_child("nphm_tpu_torch.train_corresp",
-                                  ["-exp_name", "smoke_def", "-cfg_file", paths["def"],
-                                   "-mode", "compress"], env, tmp)
-        for name in ("deepsdf_trunk", "ensemble_sdf"):
-            expect(c2[name] > 0, f"kernel {name} was not launched by the stage-2 CLI")
-        lines, c3, _ = run_child("nphm_tpu_torch.fitting_pointclouds",
-                                 ["-cfg_file", paths["fit"], "-exp_name", "smoke_train",
-                                  "-exp_tag", "demo", "-demo", "-sparse", "-batch_subjects",
-                                  "2", "-n_steps", str(CLI_STEPS), "-resolution",
-                                  str(EXTRACT_RES)], env, tmp)
-        for name in ("broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
-            expect(c3[name] > 0, f"kernel {name} was not launched by the sparse fitting CLI")
-        expect(c3["ensemble_sdf"] >= 4, "the sparse fitting CLI did not launch K1's coarse "
-               "and fine passes for both subjects")
-        for name in ("smoke_id", "smoke_def"):
-            ckpts = sorted(os.listdir(os.path.join(exp, name, "checkpoints")))
-            expect(ckpts == ["checkpoint_epoch_0.pkl", "checkpoint_epoch_1.pkl"],
-                   f"{name}: checkpoints {ckpts}")
-        recs = {}
-        for name, sub in (("smoke_id", "epoch_1"), ("smoke_def", "val_epoch_1")):
-            d = os.path.join(exp, name, "recs", sub)
-            recs[name] = {f: len(read_ply(os.path.join(d, f)).vertices)
-                          for f in sorted(os.listdir(d))}
-            expect(bool(recs[name]) and all(n > 0 for n in recs[name].values()),
-                   f"{name}: empty reconstruction logs {recs[name]}")
-        out_dir = os.path.join(env["NPHM_FITTING_DIR"], "forward_smoke_train", "demo")
-        n_verts = []
-        for subj in (351, 365):
-            for e in (0, 1):
-                mesh = read_ply(os.path.join(out_dir, f"{subj}_{e}.ply"))
-                expect(len(mesh.vertices) > 0 and bool(np.isfinite(mesh.vertices).all()),
-                       f"empty or non-finite sparse-extracted mesh {subj}_{e}.ply")
-                n_verts.append(len(mesh.vertices))
+    _, c1, steps1 = run_child("nphm_tpu_torch.train",
+                              ["-exp_name", "smoke_id", "-cfg_file", paths["id"], "-local"],
+                              env, tmp)
+    for name in ("train_fwd", "train_bwd", "ensemble_sdf"):
+        expect(c1[name] > 0, f"kernel {name} was not launched by the stage-1 CLI")
+    _, c2, steps2 = run_child("nphm_tpu_torch.train_corresp",
+                              ["-exp_name", "smoke_def", "-cfg_file", paths["def"],
+                               "-mode", "compress"], env, tmp)
+    for name in ("deepsdf_trunk", "ensemble_sdf"):
+        expect(c2[name] > 0, f"kernel {name} was not launched by the stage-2 CLI")
+    lines, c3, _ = run_child("nphm_tpu_torch.fitting_pointclouds",
+                             ["-cfg_file", paths["fit"], "-exp_name", "smoke_train",
+                              "-exp_tag", "demo", "-demo", "-sparse", "-batch_subjects",
+                              "2", "-n_steps", str(CLI_STEPS), "-resolution",
+                              str(EXTRACT_RES)], env, tmp)
+    for name in ("broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
+        expect(c3[name] > 0, f"kernel {name} was not launched by the sparse fitting CLI")
+    expect(c3["ensemble_sdf"] >= 4, "the sparse fitting CLI did not launch K1's coarse "
+           "and fine passes for both subjects")
+    for name in ("smoke_id", "smoke_def"):
+        ckpts = sorted(os.listdir(os.path.join(exp, name, "checkpoints")))
+        expect(ckpts == ["checkpoint_epoch_0.pkl", "checkpoint_epoch_1.pkl"],
+               f"{name}: checkpoints {ckpts}")
+    recs = {}
+    for name, sub in (("smoke_id", "epoch_1"), ("smoke_def", "val_epoch_1")):
+        d = os.path.join(exp, name, "recs", sub)
+        recs[name] = {f: len(read_ply(os.path.join(d, f)).vertices)
+                      for f in sorted(os.listdir(d))}
+        expect(bool(recs[name]) and all(n > 0 for n in recs[name].values()),
+               f"{name}: empty reconstruction logs {recs[name]}")
+    out_dir = os.path.join(env["NPHM_FITTING_DIR"], "forward_smoke_train", "demo")
+    n_verts = []
+    for subj in (351, 365):
+        for e in (0, 1):
+            mesh = read_ply(os.path.join(out_dir, f"{subj}_{e}.ply"))
+            expect(len(mesh.vertices) > 0 and bool(np.isfinite(mesh.vertices).all()),
+                   f"empty or non-finite sparse-extracted mesh {subj}_{e}.ply")
+            n_verts.append(len(mesh.vertices))
     for c in (c1, c2, c3):
         _add(total, c)
     mean2 = float(np.mean(steps2[1:])) if len(steps2) > 1 else float("nan")
@@ -2242,7 +2282,7 @@ def training_cli_path():
         f"excluded); reconstruction logs (vertices) {json.dumps(recs)}; sparse-extracted "
         f"posed meshes {n_verts} vertices")
     log(f"[counters] training CLIs: {json.dumps(total)}")
-    return total
+    return total, {"env": env, "def": paths["def"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2508,6 +2548,267 @@ def synthetic_path():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the GNN and interpolate deformation modes
+# ---------------------------------------------------------------------------
+
+MODES = {"GNN": SEED + 20, "interpolate": SEED + 21}  # mode: its field's init seed
+MODE_TRAIN_STEPS = 20
+MODE_FIT_STEPS = 50
+K7_POSE_POINTS = 1 << 16  # one posing chunk
+
+
+def build_mode_models(models, device):
+    """Phase 2's NPHM identity with a seeded GNN and interpolate field each,
+    at the widths of configs/nphm_def.yaml; {mode: models tuple}."""
+    import torch
+
+    from nphm_tpu_torch.config import deformation_config_from_yaml, load_yaml
+    from nphm_tpu_torch.models import make_deformation_decoder
+
+    shape, params_shape = models[0], models[1]
+    cfg = load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml"))
+    out = {}
+    for mode, seed in MODES.items():
+        expr = make_deformation_decoder(deformation_config_from_yaml(cfg, mode))
+        gen = torch.Generator().manual_seed(seed)
+        out[mode] = (shape, params_shape, expr, expr.init(gen, device), gen)
+        log(f"[models] {mode} deformation field: trunk layers "
+            f"{expr.cfg.trunk_cfg.layer_shapes[0]}")
+    return out
+
+
+def check_gnn_kernels(models, device, rows):
+    """K2 at the batched fit's shape (``check_k2_batched``, row
+    ``broyden_search@gnn_batched``) and K7 on a 65 536-point posing chunk
+    (row ``deepsdf_trunk@gnn_pose``) under a GNN field's conditioning,
+    whose 400 columns make the trunk's third layer 109 wide."""
+    import torch
+
+    from nphm_tpu_torch.models.deformation import conditioning
+    from nphm_tpu_torch.models.ensemble import predict_anchors
+
+    check_k2_batched(models, device, rows, "broyden_search@gnn_batched", " GNN")
+    shape, params_shape, expr, params_expr, gen = models
+    pts = torch.tensor(observations(1, K7_POSE_POINTS, SEED + 22)[0], device=device)
+    lat_s = (torch.randn((1, shape.lat_dim), generator=gen) * 0.01).to(device)
+    lat_e = (torch.randn((1, expr.lat_dim), generator=gen) * 0.01).to(device)
+    with torch.no_grad():
+        anchors = predict_anchors(params_shape, shape.cfg, lat_s)
+        cond = conditioning(params_expr, expr.cfg, torch.cat([lat_s, lat_e], -1), anchors)[0]
+    rows["deepsdf_trunk@gnn_pose"] = k7_launch_row(
+        params_expr["trunk"], expr.cfg.trunk_cfg, pts, cond, "GNN 6x512, posing chunk", 5)
+
+
+def mode_train_steps(models, device, mode):
+    """MODE_TRAIN_STEPS ``DeformationTrainer`` steps at B=32 scans x 1000
+    points on ``SyntheticDeformationDataset`` (32 ellipsoid heads, one
+    warp each: every step sees the same scans, the points drawn anew),
+    frozen identity codes drawn from the seed.  The loss of one fixed batch
+    must be finite and fall over the steps."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.config import load_yaml
+    from nphm_tpu_torch.data.synthetic import (
+        SyntheticDeformationDataset,
+        SyntheticIdentityDataset,
+    )
+    from nphm_tpu_torch.training.trainer_corresp import DeformationTrainer
+
+    shape, params_shape, expr, params_expr, gen = models
+    train = SyntheticDeformationDataset(SyntheticIdentityDataset(n_subjects=32, seed=SEED),
+                                        n_expressions=1, n_points=1000, batch_size=32,
+                                        warp_scale=0.08)
+    val = SyntheticDeformationDataset(SyntheticIdentityDataset(n_subjects=2, seed=SEED + 1),
+                                      n_expressions=1, n_points=1000, batch_size=2, seed=9)
+    cfg = load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml"))
+    shape_state = {"params": params_shape,
+                   "latents": torch.randn((32, shape.lat_dim), generator=gen) * 0.01,
+                   "latents_val": torch.randn((2, shape.lat_dim), generator=gen) * 0.01}
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = DeformationTrainer(expr, params_expr, shape, cfg, train, val, f"smoke_{mode}",
+                                exp_dir=tmp, shape_state=shape_state, seed=SEED,
+                                device=device)
+        fixed = tr._batch(next(iter(train.batch_iter(seed=0))))
+
+        def fixed_loss():
+            with torch.no_grad():
+                return float(tr._loss(tr.params, tr.latents, fixed, val=False)[0])
+
+        before = fixed_loss()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [tr._train_step(tr._batch(b), tr.lr_at(0), tr.lr_lat_at(0))["loss"]
+                  for epoch in range(MODE_TRAIN_STEPS) for b in train.batch_iter(seed=epoch)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = fixed_loss()
+    losses = [float(x) for x in losses]
+    log(f"[{mode}] {len(losses)} stage-2 steps at B=32 x 1000 in {wall:.2f} s: step losses "
+        f"{[round(x, 6) for x in losses]}; loss of one fixed batch {before:.6f} -> "
+        f"{after:.6f}")
+    expect(len(losses) == MODE_TRAIN_STEPS and bool(np.isfinite(losses + [after]).all()),
+           f"{mode}: stage-2 loss not finite")
+    expect(after < before, f"{mode}: the stage-2 loss did not fall")
+
+
+def mode_path(models, device, mode):
+    """Phase 12 for one mode: ``mode_train_steps``; ``fit_joint_batch`` on
+    8 subjects x 20 scans x 2500 points for MODE_FIT_STEPS steps;
+    ``extract_mesh`` at res 256 of subject 0 and ``deform_mesh_batch`` over
+    its 20 expressions.  GNN must launch K1-K4 and K7 and hold 5 batched
+    steps through the kernels against the plain path; interpolate must
+    launch K1, K3 and K4 and neither K2 nor K7 (its per-point conditioning
+    runs the plain search and the plain posing, decided from the config).
+    Returns the launch counters and, for GNN, K2's and K7's launches."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.fitting import FittingConfig, fit_joint_batch
+    from nphm_tpu_torch.reconstruction.extract import deform_mesh_batch, extract_mesh
+
+    shape, params_shape, expr, params_expr, _gen = models
+    mode_train_steps(models, device, mode)
+    subjects = batch_observations()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat_exprs, lat_shapes, anchors, hist = fit_joint_batch(
+        shape, params_shape, expr, params_expr, subjects,
+        cfg=FittingConfig(n_steps=MODE_FIT_STEPS, seed=SEED), device=device, verbose=False)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    fit_counts = read_counters()
+    loss = hist["loss"]
+    expect(bool(np.isfinite(loss).all()), f"{mode}: batched fit loss not finite")
+    expect(all(np.isfinite(x).all() for x in lat_exprs + lat_shapes + anchors),
+           f"{mode}: batched fit latents not finite")
+    t0 = time.perf_counter()
+    mesh = extract_mesh(shape, params_shape, lat_shapes[0], GRID_MIN, GRID_MAX, EXTRACT_RES,
+                        device=device)
+    t_ext = time.perf_counter() - t0
+    expect(len(mesh.vertices) > 0, f"{mode}: extracted mesh is empty")
+    before = read_counters()["deepsdf_trunk"]
+    t0 = time.perf_counter()
+    posed = deform_mesh_batch(mesh, expr, params_expr, lat_exprs[0], anchors=anchors[0],
+                              lat_shape=lat_shapes[0], device=device)
+    t_def = time.perf_counter() - t0
+    counts = read_counters()
+    moved = float(np.abs(posed[0].vertices - mesh.vertices).max())
+    expect(len(posed) == len(subjects[0]) and all(np.isfinite(m.vertices).all()
+                                                   for m in posed),
+           f"{mode}: posed meshes missing or not finite")
+    log(f"[{mode}] batched fit {BATCH_SUBJECTS} subjects x {MODE_FIT_STEPS} steps in "
+        f"{t_fit:.2f} s (steady {hist['steady_subject_steps_s']:.2f} subject-steps/s); loss "
+        f"mean {float(loss[0].mean()):.5f} -> {float(loss[-1].mean()):.5f}; Broyden "
+        f"iterations mean {float(hist['broyden_iters'].mean()):.2f}; res-{EXTRACT_RES} "
+        f"extraction {t_ext:.2f} s, {len(mesh.vertices)} vertices; {len(posed)} expressions "
+        f"posed in {t_def:.2f} s (largest offset {moved:.4f})")
+    log(f"[counters] {mode}: fit {json.dumps(fit_counts)}; fit, extraction and posing "
+        f"{json.dumps(counts)}")
+    if mode == "interpolate":
+        for name in ("ensemble_sdf", "fit_fwd", "fit_bwd"):
+            expect(counts[name] > 0, f"interpolate: kernel {name} was not launched")
+        for name in ("broyden_search", "deepsdf_trunk"):
+            expect(counts[name] == 0, f"interpolate: kernel {name} was launched "
+                   f"{counts[name]} times on per-point conditioning")
+        return counts, {}
+    for name in ("ensemble_sdf", "broyden_search", "fit_fwd", "fit_bwd", "deepsdf_trunk"):
+        expect(counts[name] > 0, f"GNN: kernel {name} was not launched")
+    steps, nb, npp = 5, 5, 1000
+    rng = np.random.default_rng(SEED + 23)
+    draws = (rng.integers(0, len(subjects[0]), size=(steps, BATCH_SUBJECTS, nb)),
+             rng.integers(0, len(subjects[0][0]), size=(steps, BATCH_SUBJECTS, nb, npp)))
+    init = (rng.normal(size=(BATCH_SUBJECTS, shape.lat_dim)) * LAT_INIT_STD).astype(np.float32)
+    out = {m: fit_batch(models, subjects, device, m, steps, init, draws)
+           for m in ("auto", "off")}
+    errs, close = fit_diffs(out["auto"], out["off"])
+    h, rh = out["auto"][3], out["off"][3]
+    log(f"[GNN] {steps} batched steps, kernels vs plain path: max|diff| {json.dumps(errs)}; "
+        f"iterations kernel {h['broyden_iters'].tolist()} plain "
+        f"{rh['broyden_iters'].tolist()} (rtol {TOL_FIT_RTOL:g}, atol {TOL_FIT_ATOL:g})")
+    expect(close, "GNN: the batched kernel fit disagrees with the plain path")
+    expect(bool(np.all(np.abs(h["n_valid"] - rh["n_valid"]) <= TOL_K2_NVALID * nb * npp)),
+           "GNN: the batched kernel fit's n_valid disagrees with the plain path's")
+    return counts, {"broyden_search@gnn_batched": fit_counts["broyden_search"],
+                    "deepsdf_trunk@gnn_pose": counts["deepsdf_trunk"] - before}
+
+
+def mode_cli_path(tmp, tree):
+    """``train_corresp -mode GNN`` for 1 epoch on phase 9's tree and
+    stage-1 experiment, then ``fitting_pointclouds -demo -batch_subjects 2
+    -n_steps 20 -resolution 128`` on it, each in a child: exit 0, a config
+    snapshot in GNN mode, non-empty ``log_recs`` and fitted meshes, and
+    the children's K2 and K7 launched."""
+    import numpy as np
+    import yaml
+
+    from nphm_tpu_torch.config import load_yaml
+    from nphm_tpu_torch.utils.mesh_io import read_ply
+
+    env = tree["env"]
+    exp = env["NPHM_EXPERIMENT_DIR"]
+    def_cfg = load_yaml(tree["def"])
+    def_cfg["training"].update(nepochs=1)
+    fit_cfg = {"exp_name_shape": "smoke_id", "checkpoint_shape": 1, "local_shape": True,
+               "local_expr": False, "exp_name_expr": "smoke_gnn", "checkpoint_expr": 0}
+    paths = {}
+    for name, cfg in (("def_gnn", def_cfg), ("fit_gnn", fit_cfg)):
+        paths[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    _, c1, _ = run_child("nphm_tpu_torch.train_corresp",
+                         ["-exp_name", "smoke_gnn", "-cfg_file", paths["def_gnn"], "-mode",
+                          "GNN"], env, tmp)
+    _, c2, _ = run_child("nphm_tpu_torch.fitting_pointclouds",
+                         ["-cfg_file", paths["fit_gnn"], "-exp_name", "smoke_gnn_fit",
+                          "-exp_tag", "demo", "-demo", "-batch_subjects", "2", "-n_steps",
+                          "20", "-resolution", "128"], env, tmp)
+    with open(os.path.join(exp, "smoke_gnn", "configs.yaml")) as f:
+        expect(yaml.safe_load(f)["ex_decoder"]["mode"] == "GNN", "no GNN config snapshot")
+    expect(os.listdir(os.path.join(exp, "smoke_gnn", "checkpoints"))
+           == ["checkpoint_epoch_0.pkl"], "train_corresp -mode GNN wrote no checkpoint")
+    d = os.path.join(exp, "smoke_gnn", "recs", "val_epoch_0")
+    recs = {f: len(read_ply(os.path.join(d, f)).vertices) for f in sorted(os.listdir(d))}
+    expect(bool(recs) and all(n > 0 for n in recs.values()), f"GNN log_recs empty: {recs}")
+    out_dir = os.path.join(env["NPHM_FITTING_DIR"], "forward_smoke_gnn_fit", "demo")
+    n_verts = []
+    for subj in (351, 365):
+        for e in (0, 1):
+            mesh = read_ply(os.path.join(out_dir, f"{subj}_{e}.ply"))
+            expect(len(mesh.vertices) > 0 and bool(np.isfinite(mesh.vertices).all()),
+                   f"GNN fitting CLI: empty or non-finite mesh {subj}_{e}.ply")
+            n_verts.append(len(mesh.vertices))
+    expect(c1["deepsdf_trunk"] > 0, "train_corresp -mode GNN did not launch K7 (log_recs)")
+    expect(c2["broyden_search"] > 0 and c2["deepsdf_trunk"] > 0,
+           "the GNN fitting CLI did not launch K2 and K7")
+    log(f"[GNN-cli] log_recs (vertices) {json.dumps(recs)}; fitted posed meshes {n_verts} "
+        "vertices")
+    total = {}
+    for c in (c1, c2):
+        _add(total, c)
+    return total
+
+
+def modes_path(models, device, rows, tree_dir, tree):
+    """Phase 12: ``check_gnn_kernels``, ``mode_path`` per mode, then
+    ``mode_cli_path``; returns the summed launch counters.  The GNN rows
+    of the table carry their own launches (the GNN fit's K2, its posing's
+    K7)."""
+    mode_models = build_mode_models(models, device)
+    check_gnn_kernels(mode_models["GNN"], device, rows)
+    total = {}
+    for mode in MODES:
+        counts, own = mode_path(mode_models[mode], device, mode)
+        _add(total, counts)
+        for key, n in own.items():
+            rows[key]["launches"] = n
+    _add(total, mode_cli_path(tree_dir, tree))
+    log(f"[counters] phase 12: {json.dumps(total)}")
+    return total
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -2537,15 +2838,19 @@ def run():
     batch_counts = batch_path(models, device, serial_it_s)
     cli_counts = cli_path(models)
     extract_counts = extraction_path(models, npm, fitted, npm_lat, device, rows)
-    train_cli_counts = training_cli_path()
-    t0 = time.perf_counter()
-    protocol_counts, _ = evaluation_path()
-    log(f"[phase 10] {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    synthetic_counts = synthetic_path()
-    log(f"[phase 11] {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tree_dir:
+        train_cli_counts, tree = training_cli_path(tree_dir)
+        t0 = time.perf_counter()
+        protocol_counts, _ = evaluation_path()
+        log(f"[phase 10] {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        synthetic_counts = synthetic_path()
+        log(f"[phase 11] {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        mode_counts = modes_path(models, device, rows, tree_dir, tree)
+        log(f"[phase 12] {time.perf_counter() - t0:.2f} s")
     paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts, extract_counts,
-             train_cli_counts, protocol_counts, synthetic_counts)
+             train_cli_counts, protocol_counts, synthetic_counts, mode_counts)
     table = []
     for name, (source, replaces) in KERNELS.items():
         # rows of the same kernel at other shapes: "ensemble_sdf@res256", ...

@@ -3,9 +3,10 @@
 The JAX package ``nphm_tpu`` is the reference; this package mirrors its
 module layout so each counterpart is easy to find:
 
-- ``models``: the NPHM ensemble decoder and the forward deformation field,
-  as plain functions over dicts of tensors (same key paths as the JAX
-  parameter pytrees; ``utils.params`` bridges the two).
+- ``models``: the NPHM ensemble decoder, the forward deformation field in
+  all five modes and the field calculus, as plain functions over dicts of
+  tensors (same key paths as the JAX parameter pytrees; ``utils.params``
+  bridges the two).
 - ``ops``: the hand-written CUDA kernels (``csrc/*.cu``) with their plain
   PyTorch versions beside them: ensemble grid evaluation (``ops.ensemble``),
   the fused Broyden search (``ops.search``), the fit field forward and

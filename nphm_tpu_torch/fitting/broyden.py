@@ -16,23 +16,8 @@ from typing import Callable, Optional
 
 import torch
 
+from nphm_tpu_torch.models.fields import point_jacobian
 from nphm_tpu_torch.utils.math import inv3x3
-
-
-def point_jacobian(fn: Callable, x):
-    """Per-point Jacobian of a point-wise map fn: [B, N, 3] -> [B, N, 3].
-
-    Returns [B, N, 3, 3] with J[..., i, j] = d fn_i / d x_j (three reverse
-    sweeps; points are independent, so summing over them is exact).
-    """
-    with torch.enable_grad():
-        x = x.detach().requires_grad_(True)
-        y = fn(x)
-        rows = [
-            torch.autograd.grad(y[..., i].sum(), x, retain_graph=i < 2)[0]
-            for i in range(3)
-        ]
-    return torch.stack(rows, dim=-2)
 
 
 @torch.no_grad()
@@ -128,7 +113,7 @@ def search(decoder_expr, params_expr, obs, cond, anchors: Optional[torch.Tensor]
                 xc_init.shape[:-1] + (3, 3)
             )
         else:
-            j_inv_init = inv3x3(point_jacobian(warp, xc_init))
+            j_inv_init = inv3x3(point_jacobian(warp, xc_init, create_graph=False))
 
     def g(x_flat):
         x = x_flat.reshape(n_batch, -1, 3)
@@ -175,7 +160,7 @@ def ift_correction(decoder_expr, params_expr, xc_opt, cond, anchors, j_inv=None)
                 params_expr, x, cond.detach(),
                 None if anchors is None else anchors.detach(),
             )[0],
-            xc_opt,
+            xc_opt, create_graph=False,
         ))
     j_inv = j_inv.detach()
     correction = preds_posed - preds_posed.detach()

@@ -20,7 +20,9 @@ Kernel routing: on a CUDA device the correspondence search runs as K2
 "on" selects the same wrappers everywhere (on the CPU they run the kernels'
 plain versions); "off" selects the plain ``fitting.broyden.search`` and
 ``apply_nphm``.  "auto" skips K2 when its shared memory exceeds the card's
-limit (the NPM family's 8x1024 offsets trunk).  The NPM family's shape
+limit (the NPM family's 8x1024 offsets trunk) and for an ``interpolate``
+deformation field, whose conditioning is per point (as in the JAX
+package); "on" raises for the latter.  The NPM family's shape
 field is the plain ``apply_deepsdf`` with autograd, as in the JAX package;
 its fit has no anchors.
 """
@@ -236,7 +238,8 @@ def _use_fused_search(decoder_expr, cfg: FittingConfig, device) -> bool:
     """Gate for K2: warm path with an explicit J^-1 init, exact any(active)
     exit semantics, and a kernel-eligible deformation trunk.  "auto" also
     needs the kernel's shared memory to fit one block (decided from the
-    trunk's shape, before any launch)."""
+    trunk's shape, before any launch) and skips a trunk K2 cannot run (an
+    ``interpolate`` field's per-point conditioning); "on" raises for one."""
     mode = cfg.fused_search
     if mode == "off" or not mode:
         return False
@@ -247,6 +250,9 @@ def _use_fused_search(decoder_expr, cfg: FittingConfig, device) -> bool:
     from nphm_tpu_torch.ops.search import search_fits, search_fusable
 
     if not search_fusable(decoder_expr):
+        if mode == "on":
+            raise ValueError("fused_search='on', but K2 cannot run this expression "
+                             "decoder's trunk (an interpolate field conditions per point)")
         return False
     if mode == "auto":
         return device.type == "cuda" and search_fits(decoder_expr)

@@ -17,6 +17,15 @@ from nphm_tpu_torch.models.ensemble import (
     init_nphm,
     predict_anchors,
 )
+from nphm_tpu_torch.models.fields import (
+    divergence,
+    laplace,
+    point_hessian,
+    point_jacobian,
+    spatial_gradient,
+    value_and_spatial_gradient,
+    warp_jacobian,
+)
 
 __all__ = [
     "DeepSDFConfig",
@@ -34,4 +43,11 @@ __all__ = [
     "make_nphm_decoder",
     "make_deformation_decoder",
     "make_npm_decoder",
+    "spatial_gradient",
+    "value_and_spatial_gradient",
+    "point_jacobian",
+    "warp_jacobian",
+    "point_hessian",
+    "divergence",
+    "laplace",
 ]

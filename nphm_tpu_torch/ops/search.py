@@ -294,11 +294,14 @@ broyden_search.launches = 0
 
 def _trunk_of(decoder_expr):
     """The DeepSDF trunk config K2 would run: the deformation field's trunk,
-    or the NPM offsets network itself; None when K2 cannot run it."""
+    or the NPM offsets network itself; None when K2 cannot run it (an
+    ``interpolate`` field's conditioning is per point, K2's per row)."""
     kind = getattr(decoder_expr, "kind", None)
     if kind == "deformation_npm":
         tcfg = decoder_expr.cfg
     elif kind == "deformation":
+        if decoder_expr.cfg.per_point:
+            return None
         tcfg = decoder_expr.cfg.trunk_cfg
     else:
         return None

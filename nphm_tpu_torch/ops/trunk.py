@@ -18,7 +18,7 @@ keeps activations point-major, each as its two halves.  Its wrappers:
 
 - ``npm_sdf``: the NPM identity SDF over points;
 - ``deformation``: eval-mode offsets of a ``DeformationConfig`` field
-  (modes ``compress``, ``glob_only``, ``expr_only``);
+  (every mode with row-constant conditioning: all but ``interpolate``);
 - ``npm_grid_sdf``: the dense NPM grid, points generated on the device in
   natural x-major order.
 """
@@ -211,8 +211,11 @@ def npm_sdf(params, cfg: DeepSDFConfig, xyz, lat, *, trunk_fn=deepsdf_trunk):
 def deformation(params, dcfg: DeformationConfig, xyz, lat, anchors=None):
     """Eval-mode forward-deformation offsets [N, 3] at xyz [N, 3].
 
-    lat: [lat_dim_shape_full + lat_dim_expr]; anchors [K, 3] (compress mode).
-    The conditioning is ``models.deformation.conditioning`` without noise.
+    lat: [lat_dim_shape_full + lat_dim_expr]; anchors [K, 3] (compress and
+    GNN).  The conditioning is ``models.deformation.conditioning`` without
+    noise, row-constant in every mode but ``interpolate``, for which it
+    raises: that mode's per-point conditioning goes through the decoder's
+    plain ``apply`` (``reconstruction.extract``), as in the JAX package.
     """
     anc = None if anchors is None else anchors.reshape(1, -1, 3)
     cond = conditioning(params, dcfg, lat.reshape(1, -1), anc)[0]

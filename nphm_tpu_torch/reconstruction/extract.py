@@ -5,8 +5,9 @@ Grid logits come from K1's brick-ordered dense-grid evaluation for the NPHM
 ensemble (``ops.ensemble.nphm_grid_sdf``) and from K7 for the NPM family's
 DeepSDF (``ops.trunk.npm_grid_sdf``); marching runs on the host through the
 port's C++ ``ops.marching.mesh_from_logits``.  Deformation pushes mesh
-vertices through the row-constant deformation trunk: K7 on the GPU
-(``ops.trunk``), the decoder's plain chunked ``apply`` on the CPU.
+vertices through the deformation trunk: K7 on the GPU (``ops.trunk``) for
+every field whose conditioning is row-constant, the decoder's plain chunked
+``apply`` on the CPU and for an ``interpolate`` field on any device.
 
 Also here, as in the JAX package:
 
@@ -111,10 +112,23 @@ def eval_sdf(decoder, params, pts, lat):
     raise NotImplementedError(f"no SDF evaluation for decoder kind {decoder.kind!r}")
 
 
+def per_point_conditioning(deformer) -> bool:
+    """Is this an ``interpolate`` deformation field?  Its conditioning is per
+    point, while K7 folds a row-constant one into biases, so its offsets go
+    through the decoder's plain ``apply`` on every device (the JAX
+    package's route for it too).  Decided from the config, before any
+    launch."""
+    return deformer.kind == "deformation" and deformer.cfg.per_point
+
+
 def eval_offsets(deformer, params, pts, lat, anchors=None):
     """Eval-mode offsets [N, 3] of a deformation decoder at pts [N, 3] for
-    one latent [D] (anchors [K, 3] in compress mode): K7 for CUDA tensors,
-    its plain version otherwise."""
+    one latent [D] (anchors [K, 3] for the compress, GNN and interpolate
+    modes): K7 for CUDA tensors, its plain version otherwise; an
+    ``interpolate`` field through its plain ``apply``."""
+    if per_point_conditioning(deformer):
+        anc = None if anchors is None else anchors.reshape(1, -1, 3)
+        return deformer.apply(params, pts[None], lat.reshape(1, -1), anc)[0][0]
     if deformer.kind == "deformation":
         return deformation(params, deformer.cfg, pts, lat, anchors)
     if deformer.kind == "deformation_npm":
@@ -381,18 +395,14 @@ def extract_mesh_streamed(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
 
 @torch.no_grad()
 def _deltas(deformer, params, verts, lats, anchors, chunk_size):
-    """Deformation offsets [E, M, 3] of vertices [M, 3] under lats [E, 1, L]:
-    K7 for CUDA tensors (it chunks the points itself), the decoder's plain
-    ``apply`` in chunks otherwise."""
+    """Deformation offsets [E, M, 3] of vertices [M, 3] under lats [E, 1, L]
+    and anchors [1, K, 3] or None: K7 for CUDA tensors (it chunks the points
+    itself), the decoder's plain ``apply`` in chunks otherwise and for an
+    ``interpolate`` field (``per_point_conditioning``)."""
     out = torch.empty((lats.shape[0],) + verts.shape, device=verts.device)
-    if verts.is_cuda:
+    if verts.is_cuda and not per_point_conditioning(deformer):
         for e in range(lats.shape[0]):
-            if deformer.kind == "deformation":
-                out[e] = deformation(params, deformer.cfg, verts, lats[e, 0], anchors)
-            elif deformer.kind == "deformation_npm":
-                out[e] = deepsdf_trunk(params, deformer.cfg, verts, lats[e, 0])[:, :3]
-            else:
-                raise NotImplementedError(f"no posing for decoder kind {deformer.kind!r}")
+            out[e] = eval_offsets(deformer, params, verts, lats[e, 0], anchors)
         return out
     for e in range(lats.shape[0]):
         for s in range(0, verts.shape[0], chunk_size):

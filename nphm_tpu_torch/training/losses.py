@@ -1,14 +1,16 @@
-"""Training losses (counterpart of ``identity_sdf_loss``,
-``latent_pair_consistency`` and ``deformation_loss`` in
-``nphm_tpu/training/losses.py``; its ``joint_loss``, which the reference's
-pipelines never call, is not ported).
+"""Training losses (counterpart of ``nphm_tpu/training/losses.py``).
 
-Behavioural spec: reference ``src/NPHM/models/loss_functions.py``
-``actual_compute_loss`` (:20-110): |sdf| on surface points, normal
-alignment (clamped at 0.75 and halved for non-face points), eikonal
-|grad| - 1 everywhere, exp(-10|sdf|) repulsion at far points, latent L2,
-anchor MSE, and symmetric / middle latent-pair consistency.  The four point
-sets are concatenated into one field evaluation, as in the JAX package.
+Behavioural spec: reference ``src/NPHM/models/loss_functions.py``.
+
+- ``identity_sdf_loss`` == ``actual_compute_loss`` (:20-110): |sdf| on
+  surface points, normal alignment (clamped at 0.75 and halved for non-face
+  points), eikonal |grad| - 1 everywhere, exp(-10|sdf|) repulsion at far
+  points, latent L2, anchor MSE, and symmetric / middle latent-pair
+  consistency.  The four point sets are concatenated into one field
+  evaluation, as in the JAX package.
+- ``deformation_loss`` == ``compute_loss_corresp_forward`` (:282-322).
+- ``joint_loss`` == ``loss_joint`` (:113-279), the joint two-network loss,
+  which the reference's pipelines never call; plain torch, no kernel.
 """
 
 from __future__ import annotations
@@ -145,3 +147,130 @@ def deformation_loss(decoder_expr, params_expr, batch: Dict[str, torch.Tensor], 
                                       noise=noise("noise_reg"))
     return {"corresp": corresp, "lat_reg": lat_reg,
             "loss_reg_zero": torch.mean(delta_reg**2)}
+
+
+def _masked_concat_mean(parts):
+    """Mean over a virtual concatenation of (values, mask) groups: the
+    reference's ``torch.cat([...]).mean()`` over data-dependent row subsets.
+    values [B, ...]; mask [B] (bool) or None (every row counts)."""
+    total, count = 0.0, 0.0
+    for values, mask in parts:
+        if mask is None:
+            total = total + values.sum()
+            count = count + values.numel()
+        else:
+            per_row = values.reshape(values.shape[0], -1)
+            m = mask.reshape(-1, 1).to(per_row.dtype)
+            total = total + (per_row * m).sum()
+            count = count + m.sum() * per_row.shape[1]
+    count = torch.as_tensor(count, dtype=total.dtype, device=total.device)
+    return total / torch.clamp(count, min=1.0)
+
+
+def joint_loss(decoder_shape, params_shape, decoder_expr, params_expr,
+               batch: Dict[str, torch.Tensor], lat_shape, lat_expr, epoch: int, *,
+               training: bool = True, gen: Optional[torch.Generator] = None,
+               draws: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """Joint two-network training loss (reference loss_functions.py:113-279
+    ``loss_joint``), the terms of the JAX package's ``joint_loss``.
+
+    The identity SDF is supervised through the backward composition
+    ``shape(posed + expr_delta(posed))`` on posed surface points, with
+    neutral-scan-only back-of-head and off-surface terms, an off-surface
+    SDF target, canonical far-space eikonal and repulsion, latent and
+    symmetry regularizers, anchor supervision, the correspondence loss
+    gated by epoch (x0.25 after epoch 750, off from 3000), the
+    zero-deformation prior and a neutral-scan zero-deformation term.  As in
+    the reference, the expression field gets no anchors, so it must be an
+    anchor-free mode (``expr_only``, ``glob_only``) or the NPM family's
+    offsets network, and draws no noise.
+
+    batch keys: points_surface / normals_surface [B,N,3],
+    points_surface_outer / normals_surface_outer [B,No,3],
+    points_off_surface / normals_off_surface [B,Nf,3], sdfs_off_surface
+    [B,Nf,1], sup_grad_far [B,Fa,3], gt_anchors, corresp_posed /
+    corresp_neutral [B,Nc,3], is_neutral [B,1].  The one random draw, the
+    prior's U[0, 1) points before they are mapped to [-1.25, 1.25]^3, goes
+    through ``draws("samples", shape, device)`` (default
+    ``generator_draws(gen)``), so a caller can hand in the JAX loss's.
+    """
+    draws = draws or generator_draws(gen)
+    cond = torch.cat([lat_shape, lat_expr], dim=-1)
+    # rows of neutral scans; with none, each masked mean is 0 / 1 = 0
+    neutral = batch["is_neutral"].reshape(-1) == 1
+
+    def expr_delta(pts):
+        return decoder_expr.apply(params_expr, pts, cond, None, training=training)[0]
+
+    def surf_terms(pts):
+        """(sdf [B,N,1], its gradient, the offsets, anchors) of the composition
+        at posed points pts, from one forward pass."""
+        extra = {}
+
+        def field(p):
+            delta = expr_delta(p)
+            sdf, anchors = decoder_shape.apply(params_shape, p + delta, lat_shape,
+                                               training=training)
+            extra.update(delta=delta, anchors=anchors)
+            return sdf
+
+        sdf, grads = value_and_spatial_gradient(field, pts)
+        return sdf, grads, extra["delta"], extra["anchors"]
+
+    def normal_eik(grads, normals):
+        return safe_l2norm(grads - normals), torch.abs(safe_l2norm(grads, dim=-1) - 1.0)
+
+    # on surface, face (all scans)
+    sdf_s, g_s, delta_s, anchors = surf_terms(batch["points_surface"])
+    nrm_s, eik_s = normal_eik(g_s, batch["normals_surface"])
+    sdf_s = sdf_s[..., 0].abs()
+    # on surface, back of head (neutral scans only)
+    sdf_o, g_o, delta_o, _ = surf_terms(batch["points_surface_outer"])
+    nrm_o, eik_o = normal_eik(g_o, batch["normals_surface_outer"])
+    sdf_o = sdf_o[..., 0].abs()
+    nrm_o = torch.clamp(nrm_o, max=0.75 * 100) / 2  # (sic: reference :154)
+    # off surface with SDF targets (neutral scans only)
+    sdf_f, g_f, delta_f, _ = surf_terms(batch["points_off_surface"])
+    nrm_f, eik_f = normal_eik(g_f, batch["normals_off_surface"])
+    sdf_f = (sdf_f - batch["sdfs_off_surface"])[..., 0].abs()
+    nrm_f = torch.clamp(nrm_f, max=0.75 * 100) / 2
+
+    # off surface, canonical space only (all scans)
+    sdf_far, g_far = value_and_spatial_gradient(
+        lambda p: decoder_shape.apply(params_shape, p, lat_shape, training=training)[0],
+        batch["sup_grad_far"])
+    eik_far = torch.abs(safe_l2norm(g_far, dim=-1) - 1.0)
+
+    out = {
+        "surf_sdf_loss": _masked_concat_mean(
+            [(sdf_s, None), (sdf_o, neutral), (sdf_f, neutral)]),
+        "normal_loss": _masked_concat_mean(
+            [(nrm_s, None), (nrm_o, neutral), (nrm_f, neutral)]),
+        "space_sdf_loss": torch.mean(torch.exp(-10.0 * sdf_far[..., 0].abs())),
+        "eik_loss": _masked_concat_mean(
+            [(eik_far, None), (eik_s, None), (eik_o, neutral), (eik_f, neutral)]),
+        "reg_shape": torch.mean(sq_norm(lat_shape)),
+        "reg_expr": torch.mean(sq_norm(lat_expr)),
+    }
+    if anchors is not None and "gt_anchors" in batch:
+        out["anchors"] = torch.mean((anchors - batch["gt_anchors"]) ** 2)
+    if decoder_shape.lat_dim_glob is not None:
+        out["symm_dist"], out["middle_dist"] = latent_pair_consistency(decoder_shape,
+                                                                       lat_shape)
+
+    # correspondences, gated by epoch (reference :246-256)
+    posed = batch["corresp_posed"]
+    corresp = torch.mean((posed + expr_delta(posed) - batch["corresp_neutral"]) ** 2)
+    out["corresp"] = corresp * (1.0 if epoch <= 750 else (0.25 if epoch < 3000 else 0.0))
+
+    # zero-deformation prior at uniform points in [-1.25, 1.25]^3
+    samps = (draws("samples", (lat_shape.shape[0], min(100, posed.shape[1]), 3),
+                   posed.device) - 0.5) * 2.5
+    out["loss_reg_zero"] = torch.mean(expr_delta(samps) ** 2)
+
+    # neutral scans: small deformations on all three point sets (three
+    # separate neutral-row means, summed: reference :263-266)
+    out["loss_neutral_zero"] = (_masked_concat_mean([(delta_s**2, neutral)])
+                                + _masked_concat_mean([(delta_o**2, neutral)])
+                                + _masked_concat_mean([(delta_f**2, neutral)]))
+    return out

@@ -12,7 +12,9 @@ tensors) and back:
   ``mlp_pos.{0,2,4}.{weight,bias}``.
 - NPM / expression DeepSDF (deepSDF.py:6): ``lin{i}.{weight,bias}``.
 - DeformationNetwork (deepSDF.py:118): the trunk under ``defDeepSDF.lin{i}.*``
-  plus the compress mode's ``compressor.0.*`` (the port has no GNN mode).
+  plus the compress mode's ``compressor.0.*`` or the GNN mode's
+  ``{pos_enc,local_combiner,global_combiner}.{0,2}.*`` (two Linears around a
+  ReLU each, kept as two-element lists).
 - Trainer checkpoints (training.py:190-201): ``decoder_state_dict`` and
   ``latent_codes[_val]_state_dict`` (``Embedding.weight`` tables).
 
@@ -29,6 +31,8 @@ import torch
 from nphm_tpu_torch.models.deepsdf import DeepSDFConfig
 from nphm_tpu_torch.models.deformation import DeformationConfig
 from nphm_tpu_torch.models.ensemble import NPHMConfig
+
+GNN_MLPS = ("pos_enc", "local_combiner", "global_combiner")  # the GNN mode's MLPs
 
 
 def _np(v) -> np.ndarray:
@@ -104,6 +108,9 @@ def deformation_params_from_state_dict(sd: Mapping, cfg: DeformationConfig) -> D
                                                       prefix="defDeepSDF.")}
     if cfg.mode == "compress":
         params["compressor"] = _linear(sd, "compressor.0")
+    elif cfg.mode == "GNN":
+        for name in GNN_MLPS:
+            params[name] = [_linear(sd, f"{name}.{j}") for j in (0, 2)]
     return params
 
 
@@ -132,4 +139,8 @@ def deformation_state_dict_from_params(params) -> Dict[str, np.ndarray]:
     if "compressor" in params:
         sd["compressor.0.weight"] = _np(params["compressor"]["w"])
         sd["compressor.0.bias"] = _np(params["compressor"]["b"])
+    for name in GNN_MLPS:
+        for j, lin in zip((0, 2), params.get(name, ())):
+            sd[f"{name}.{j}.weight"] = _np(lin["w"])
+            sd[f"{name}.{j}.bias"] = _np(lin["b"])
     return sd

@@ -94,8 +94,16 @@ def test_predict_anchors_matches_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
-@pytest.mark.parametrize("mode", ["compress", "glob_only", "expr_only"])
-def test_apply_deformation_matches_jax(mode):
+DEFORM_CASES = [pytest.param(m, False, id=m) for m in
+                ("compress", "glob_only", "expr_only", "interpolate", "GNN")]
+DEFORM_CASES += [pytest.param(m, True, id=f"{m}-train") for m in ("interpolate", "GNN")]
+
+
+@pytest.mark.parametrize("mode,training", DEFORM_CASES)
+def test_apply_deformation_matches_jax(mode, training):
+    """Every mode in eval mode; GNN and interpolate at train time too, which
+    adds no noise in either (only compress draws it, tested with the loss in
+    ``test_torch_train_corresp.py``)."""
     jd, jp, td, tp = deform_pair(mode)
     rng = np.random.default_rng(4)
     cfg = jd.cfg
@@ -103,15 +111,11 @@ def test_apply_deformation_matches_jax(mode):
     lat = (rng.normal(size=(2, cfg.lat_dim_shape_full + cfg.lat_dim_expr)) * 0.1)
     lat = lat.astype(np.float32)
     anchors = (rng.normal(size=(2, cfg.n_loc, 3)) * 0.3).astype(np.float32)
-    ref, _ = jd.apply(jp, jnp.asarray(xyz), jnp.asarray(lat), jnp.asarray(anchors))
-    out, _ = td.apply(tp, torch.tensor(xyz), torch.tensor(lat), torch.tensor(anchors))
+    ref, _ = jd.apply(jp, jnp.asarray(xyz), jnp.asarray(lat), jnp.asarray(anchors),
+                      training=training, rng=jax.random.PRNGKey(0) if training else None)
+    out, _ = td.apply(tp, torch.tensor(xyz), torch.tensor(lat), torch.tensor(anchors),
+                      training=training)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
-
-
-@pytest.mark.parametrize("mode", ["interpolate", "GNN"])
-def test_unported_deformation_modes_raise(mode):
-    with pytest.raises(NotImplementedError):
-        DeformationConfig(mode=mode)
 
 
 def test_weight_bridge_round_trip():

@@ -4,7 +4,10 @@ search / IFT correction vs the JAX XLA path.
 ``broyden_search`` on CPU tensors runs ``broyden_search_plain``; it is held
 against ``broyden_search_pallas(interpret=True)`` cold (identity J^-1 at
 the observations) and warm (resuming an earlier search), with a runtime
-budget and point counts that are not tile multiples.  Tolerances: roots
+budget and point counts that are not tile multiples, on compress fields and
+on a GNN field (whose row-constant conditioning K2 runs too); an
+interpolate field conditions per point, so the gate keeps it on the plain
+search ("auto") or raises ("on").  Tolerances: roots
 and residual norms atol 1e-5 (fp32, summation order only); validity masks
 identical up to one lane flipped at the 1e-6 threshold; executed
 iterations equal.
@@ -177,6 +180,55 @@ def test_fused_search_gates():
     assert not _use_fused_search(
         td, FittingConfig(fused_search="on", warm_jacobian_store=False), cpu)
     assert not _use_fused_search(td, FittingConfig(fused_search="off"), cuda)
+
+
+def test_gnn_search_matches_pallas():
+    """A GNN field's row-constant conditioning (400 of 403 trunk inputs at
+    production widths) through the plain K2 twin, cold then warm, and
+    ``search_fused`` against ``search_pallas``: the same tolerances."""
+    jd, jp, td, tp, obs, cond, anchors = setup("GNN", cond_scale=1.0, gain=10.0)
+    c = trunk_cond(jd, jp, obs, cond, anchors)
+    np.testing.assert_allclose(
+        conditioning(tp, td.cfg, torch.tensor(cond), torch.tensor(anchors)).numpy(), c,
+        atol=ATOL)
+    args = (jp["trunk"], jd.cfg.trunk_cfg, jnp.asarray(c), jnp.asarray(obs))
+    ref = broyden_search_pallas(*args, jnp.asarray(obs), jnp.asarray(eye(obs)), 8, tile=512,
+                                interpret=True)
+    out = broyden_search(tp["trunk"], td.cfg.trunk_cfg, torch.tensor(c), torch.tensor(obs),
+                         torch.tensor(obs), torch.tensor(eye(obs)), 8)
+    assert_same(ref, out)
+    x0, j0 = out["result"].numpy(), out["j_inv"].numpy()
+    ref = broyden_search_pallas(*args, jnp.asarray(x0), jnp.asarray(j0), 3, tile=256,
+                                interpret=True)
+    out = broyden_search(tp["trunk"], td.cfg.trunk_cfg, torch.tensor(c), torch.tensor(obs),
+                         torch.tensor(x0), torch.tensor(j0), 3)
+    assert_same(ref, out)
+    xr, rr = search_pallas(jd, jp, jnp.asarray(obs), jnp.asarray(cond), jnp.asarray(anchors),
+                           max_steps=8, xc_init=jnp.asarray(obs),
+                           j_inv_init=jnp.asarray(eye(obs)), tile=512, interpret=True)
+    xo, ro = search_fused(td, tp, torch.tensor(obs), torch.tensor(cond),
+                          torch.tensor(anchors), max_steps=8, xc_init=torch.tensor(obs),
+                          j_inv_init=torch.tensor(eye(obs)))
+    np.testing.assert_allclose(xo.numpy(), np.asarray(xr), atol=ATOL)
+    assert np.sum(ro["valid_ids"].numpy() != np.asarray(rr["valid_ids"])) <= 1
+    assert int(ro["iters"]) == int(rr["iters"])
+
+
+def test_interpolate_takes_the_plain_search():
+    """An interpolate field conditions per point: K2 refuses it from its
+    config, so "auto" picks the plain search on any device and "on" raises;
+    GNN stays eligible."""
+    _jd, _jp, td, tp, obs, cond, anchors = setup("interpolate")
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert not search_fusable(td)
+    assert not _use_fused_search(td, FittingConfig(), cuda)
+    assert not _use_fused_search(td, FittingConfig(fused_search="off"), cpu)
+    with pytest.raises(ValueError, match="interpolate"):
+        _use_fused_search(td, FittingConfig(fused_search="on"), cpu)
+    with pytest.raises(ValueError, match="per-point"):
+        conditioning(tp, td.cfg, torch.tensor(cond), torch.tensor(anchors))
+    gnn = setup("GNN")[2]
+    assert search_fusable(gnn) and _use_fused_search(gnn, FittingConfig(), cuda)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -165,7 +165,7 @@ def test_extract_and_deform_match_jax(fitted):
 
 def test_main_path_never_imports_jax(tmp_path):
     """Every module of the port imported (the fitting, training, evaluation,
-    data-processing and protocol CLIs among them), and the fit, batched fit,
+    data-processing, dataset and protocol CLIs among them), and the fit, batched fit,
     identity-only fit, extract, streamed, sparse and backward-warp
     extraction, deform, identity- and deformation-training paths (NPHM), the
     fit, extract and deform paths (NPM), an evaluation (render sampling and
@@ -182,7 +182,8 @@ def test_main_path_never_imports_jax(tmp_path):
         for mod in pkgutil.walk_packages(nphm_tpu_torch.__path__, "nphm_tpu_torch."):
             importlib.import_module(mod.name)
         for name in ("fitting_pointclouds", "train", "train_corresp", "eval", "gather",
-                     "protocol_e2e", "synthetic_e2e", "train_soak",
+                     "protocol_e2e", "synthetic_e2e", "train_soak", "make_dummy_data",
+                     "example_usage",
                      "data_processing.sample_surface",
                      "data_processing.sample_deformation_field",
                      "data_processing.generate_single_view_observations"):

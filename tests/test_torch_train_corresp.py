@@ -14,10 +14,11 @@ data from the port's dummy tree (``data/dummy.py``), read by both packages.
   three train steps and one validation step on the same batches and draws;
   the loss terms of every step agree within rtol 1e-5, the params and both
   latent tables after them within atol 1e-6 (lr 1e-4: a step moves a
-  weight by at most ~1e-4).  ``lr_at`` / ``lr_lat_at`` equal JAX's.  Both
-  modes: ``compress`` on the NPHM decoder above and ``npm``, the NPM
-  family's DeepSDF offsets network (lat 16 + 8, hidden 32, 4 layers) on a
-  small NPM DeepSDF identity decoder (lat 16, hidden 32, 4 layers).
+  weight by at most ~1e-4).  ``lr_at`` / ``lr_lat_at`` equal JAX's.  Four
+  fields: ``compress``, ``GNN`` and ``interpolate`` on the NPHM decoder
+  above (the last two draw no noise) and ``npm``, the NPM family's DeepSDF
+  offsets network (lat 16 + 8, hidden 32, 4 layers) on a small NPM
+  DeepSDF identity decoder (lat 16, hidden 32, 4 layers).
 - ``IdentityTrainer`` as the protocol runs stage 1: the ``training`` block
   of ``configs/npm.yaml`` / ``nphm.yaml`` with the protocol's lr 0.002,
   the configs' layouts at small widths (NPM: 8 layers, skip at 4),
@@ -208,16 +209,22 @@ def test_identity_trainer_on_dummy_tree_matches_jax(tree, family, tmp_path, monk
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=key)
 
 
-@pytest.fixture(scope="module")
-def models():
+def nphm_models(mode="compress"):
+    """The tiny NPHM identity decoder and a deformation field in ``mode``."""
     rng = np.random.default_rng(3)
     anchors = (rng.normal(size=(SHAPE_KW["n_loc"], 3)) * 0.25).astype(np.float32)
+    kw = dict(DEF_KW, mode=mode)
     js = jmake_nphm(JNPHMConfig(**SHAPE_KW), anchors)
-    je = jmake_deformation(JDeformationConfig(**DEF_KW))
+    je = jmake_deformation(JDeformationConfig(**kw))
     jps, jpe = js.init(jax.random.PRNGKey(0)), je.init(jax.random.PRNGKey(1))
     return dict(js=js, je=je, jps=jps, jpe=jpe,
                 ts=make_nphm_decoder(NPHMConfig(**SHAPE_KW), anchors),
-                te=make_deformation_decoder(DeformationConfig(**DEF_KW)))
+                te=make_deformation_decoder(DeformationConfig(**kw)))
+
+
+@pytest.fixture(scope="module")
+def models():
+    return nphm_models()
 
 
 @pytest.fixture(scope="module")
@@ -316,10 +323,10 @@ def trainers(m, root, tmp_path):
     return jtr, tr, jds, tds
 
 
-@pytest.mark.parametrize("mode", ["compress", "npm"])
+@pytest.mark.parametrize("mode", ["compress", "npm", "GNN", "interpolate"])
 def test_deformation_trainer_steps_match_jax(tree, models, npm_models, mode, tmp_path):
     root, _ = tree
-    m = models if mode == "compress" else npm_models
+    m = {"compress": models, "npm": npm_models}.get(mode) or nphm_models(mode)
     jtr, tr, jds, tds = trainers(m, root, tmp_path)
     for e in (0, 1, 599, 600, 1200, 5000):
         assert tr.lr_at(e) == jtr.lr_at(e) and tr.lr_lat_at(e) == jtr.lr_lat_at(e)

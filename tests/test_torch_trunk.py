@@ -107,7 +107,7 @@ def test_npm_grid_sdf_matches_pallas():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
-@pytest.mark.parametrize("mode", ["compress", "glob_only", "expr_only"])
+@pytest.mark.parametrize("mode", ["compress", "glob_only", "expr_only", "GNN"])
 def test_deformation_matches_pallas(mode):
     kw = dict(mode=mode, lat_dim_glob_shape=16, lat_dim_loc_shape=8, n_loc=7,
               lat_dim_expr=8, lat_dim_id=8, hidden_dim=48, n_layers=4)
