@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``nphm_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dp    # phase 13 alone, on every card up to 4
 
 Phases, in order; any failure exits non-zero:
 
@@ -129,9 +130,30 @@ Phases, in order; any failure exits non-zero:
    (1 epoch) and ``fitting_pointclouds -demo -batch_subjects 2 -n_steps
    20 -resolution 128`` in children on phase 9's tree: exit 0, non-empty
    meshes, the children's K2 and K7 launched.
+13. Data parallelism (``nphm_tpu_torch.parallel``): two ranks spawned on
+   card 0 over gloo (NCCL refuses two ranks on one device), each building
+   phase 2's models.  3 ``IdentityTrainer`` steps at B=32 (16 rows a rank
+   through K5/K6) and a validation step, then the same for the
+   compress-mode ``DeformationTrainer``, each against rank 0's
+   one-process steps from the same start (TOL_TRAIN_UPDATE,
+   TOL_TRAIN_TERMS) with every rank's state bit-equal to rank 0's;
+   ``fit_joint_batch(mesh=)`` on phase 7's 8 subjects for 50 steps (4
+   subjects a rank through K2-K4) from zero and from phase 7's seeded
+   shape codes, their divergence from the one-process fits logged, and 5
+   steps from the seeded codes held against one process (TOL_FIT_*, as
+   phase 7's kernel check: the shards round in another order, which Adam
+   grows over tens of steps); sharded dense ``extract_mesh``, ``extract_mesh_streamed``
+   and ``extract_mesh_sparse`` (lip 2.0, f16) on phase 4's code at res 256,
+   array-equal to phase 8's one-process meshes (K1 per rank);
+   ``deform_mesh_batch(device_mesh=)`` of phase 4's 20 expressions within
+   TOL_K7 of the one-process posing (K7 per rank).  Each rank's counters
+   must move where its path launches a kernel, and each rank's peak device
+   memory, step times and walls are logged beside the one-process ones.
+   With two cards or more the same runs over NCCL, one rank a card (up to
+   4); with one card the log says NCCL was not run.
 
 Each kernel's entry in the table holds its launches summed over the
-paths of phases 4-12, and under "at" its rows at other shapes (K1 on the
+paths of phases 4-13 (phase 13's over its ranks), and under "at" its rows at other shapes (K1 on the
 res-256 grid, K2-K4 at the batched shapes; K1 and K7 at phase 8's launch
 shapes, each with its own launches in phase 8; K2 and K7 under GNN, with
 their launches in phase 12's GNN fit and posing).
@@ -2149,7 +2171,7 @@ def extraction_path(models, npm, fitted, npm_lat, device, rows):
     for key in sorted(set(rows) - own_rows):
         rows[key]["launches"] = launches.get(counted_as.get(key, key), 0)
         expect(rows[key]["launches"] > 0, f"{key}: no launch at this shape in phase 8")
-    return total
+    return total, {"dense": mesh, "streamed": streamed["f32"], "sparse_lip2": lmesh}
 
 
 # ---------------------------------------------------------------------------
@@ -2809,6 +2831,431 @@ def modes_path(models, device, rows, tree_dir, tree):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: data parallelism
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3  # training steps of each trainer, DP against one process
+DP_FIT_STEPS = 50
+DP_FIT_CHECK_STEPS = 5  # phase 7's: the sharded fit held elementwise against one process
+DP_DEVICE = "cuda"  # the ranks' device type ("cpu" rehearses phase 13 off the card)
+DP_TRAIN_KEYS = ("params", "latents", "latents_val")
+
+
+def _quiet_logger():
+    from nphm_tpu_torch.utils.logging_utils import MetricsLogger
+
+    return MetricsLogger(quiet=True)
+
+
+def _replica_equal(flat, mesh) -> bool:
+    """Is this rank's flat tensor bit-equal to rank 0's?"""
+    import torch
+    import torch.distributed as dist
+
+    flat = flat.to(mesh.device)
+    ref = flat.clone()
+    dist.broadcast(ref, src=0, group=mesh.group)
+    return bool(torch.equal(flat, ref))
+
+
+def _state_flats(tr):
+    import torch
+
+    state = tr.state_dict()
+    return {k: torch.as_tensor(_flat_leaves(state[k])) for k in DP_TRAIN_KEYS}
+
+
+def _dp_steps(make, batches, val_batch, mesh):
+    """DP_STEPS train steps and a validation step of the trainer ``make(mesh)``
+    builds; (state flats before and after, one-device loss terms per step,
+    step ms, launch counts)."""
+    import torch
+
+    from nphm_tpu_torch.parallel import all_reduce_mean
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = make(mesh, tmp)
+        before = _state_flats(tr)
+        lr, lr_lat = tr.lr_at(0), tr.lr_lat_at(0)
+        reset_counters()
+        terms, times = [], []
+        for b in batches + [val_batch]:
+            batch = tr._batch(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if b is val_batch:
+                t = tr._val_step(batch, lr_lat)
+            else:
+                t = tr._train_step(batch, lr, lr_lat)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            keys = sorted(t)
+            vec = torch.stack([t[k].reshape(()) for k in keys])
+            if mesh is not None:
+                all_reduce_mean(vec, mesh)
+            terms.append(dict(zip(keys, vec.tolist())))
+        counts = read_counters()
+        return before, _state_flats(tr), terms, times, counts
+
+
+def _dp_against_single(make, batches, val_batch, mesh):
+    """Every rank's DP steps, then rank 0's one-process steps from the same
+    start: replicas bit-equal, the change of each state against the
+    one-process change (|d_dp - d_1| / |d_1|), the loss terms."""
+    import numpy as np
+
+    before, after, terms, times, counts = _dp_steps(make, batches, val_batch, mesh)
+    out = {"counts": counts, "step_ms": times,
+           "replicas_equal": all(_replica_equal(after[k], mesh) for k in DP_TRAIN_KEYS)}
+    if mesh.rank == 0:
+        b1, a1, terms1, times1, _ = _dp_steps(make, batches, val_batch, None)
+        out["same_start"] = all(bool((before[k] == b1[k]).all()) for k in DP_TRAIN_KEYS)
+        out["rel_update"] = {k: float(np.linalg.norm((after[k] - before[k] - a1[k] + b1[k])
+                                                     .numpy())
+                                      / max(np.linalg.norm((a1[k] - b1[k]).numpy()), 1e-30))
+                             for k in DP_TRAIN_KEYS}
+        out["rel_terms"] = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                               for a, b in zip(terms, terms1) for k in b)
+        out["single_step_ms"] = times1
+    return out
+
+
+def dp_identity(models, device, mesh):
+    """DP_STEPS ``IdentityTrainer`` steps at B=32 (K5/K6 on each rank's 32/W
+    rows) and a validation step at B=32, against one process."""
+    from nphm_tpu_torch.training.trainer import IdentityTrainer
+
+    shape, params_shape = models[0], models[1]
+    train_ds, val_ds = identity_sets(64, 32, 32)
+    batches = [next(iter(train_ds.batch_iter(seed=e))) for e in range(DP_STEPS)]
+    val_batch = next(iter(val_ds.batch_iter(seed=0)))
+
+    def make(m, tmp):
+        tr = IdentityTrainer(shape, params_shape, train_config(ckpt_interval=10**9), train_ds,
+                             val_ds, "dp", exp_dir=tmp, logger=_quiet_logger(),
+                             recon_resolution=32, seed=SEED, device=device, mesh=m)
+        expect(tr._fields_fn is not None, "the DP trainer did not route to K5/K6")
+        return tr
+
+    return _dp_against_single(make, batches, val_batch, mesh)
+
+
+def dp_deformation(models, device, mesh):
+    """DP_STEPS compress-mode ``DeformationTrainer`` steps at B=32 scans x
+    1000 points (``mode_train_steps``'s data) and a validation step at
+    B=32, against one process; the noise comes from the trainer's
+    generator, drawn for the whole batch on every rank."""
+    import torch
+
+    from nphm_tpu_torch.config import load_yaml
+    from nphm_tpu_torch.data.synthetic import (
+        SyntheticDeformationDataset,
+        SyntheticIdentityDataset,
+    )
+    from nphm_tpu_torch.training.trainer_corresp import DeformationTrainer
+
+    shape, params_shape, expr, params_expr, _gen = models
+    sets = [SyntheticDeformationDataset(SyntheticIdentityDataset(n_subjects=32, seed=seed),
+                                        n_expressions=1, n_points=1000, batch_size=32,
+                                        warp_scale=0.08, seed=seed + 1)
+            for seed in (SEED, SEED + 5)]
+    batches = [next(iter(sets[0].batch_iter(seed=e))) for e in range(DP_STEPS)]
+    val_batch = next(iter(sets[1].batch_iter(seed=0)))
+    cfg = load_yaml(os.path.join(ROOT, "configs", "nphm_def.yaml"))
+    gen = torch.Generator().manual_seed(SEED + 30)
+    shape_state = {"params": params_shape,
+                   "latents": torch.randn((32, shape.lat_dim), generator=gen) * 0.01,
+                   "latents_val": torch.randn((32, shape.lat_dim), generator=gen) * 0.01}
+
+    def make(m, tmp):
+        return DeformationTrainer(expr, params_expr, shape, cfg, *sets, "dp_def", exp_dir=tmp,
+                                  logger=_quiet_logger(), shape_state=shape_state, seed=SEED,
+                                  device=device, mesh=m)
+
+    return _dp_against_single(make, batches, val_batch, mesh)
+
+
+def dp_fit(models, device, mesh):
+    """``fit_joint_batch(mesh=)`` on BATCH_SUBJECTS subjects x 20 scans x
+    2500 points for DP_FIT_STEPS steps, each rank's subjects through its
+    own K2-K4 launches, beside the one-process batched fit, from zero
+    (what users run) and from phase 7's seeded shape codes: their
+    divergence is logged; DP_FIT_CHECK_STEPS steps from the seeded codes
+    are held elementwise (TOL_FIT_*), as phase 7 holds the kernels
+    against the plain path.  The shards' launches round in another order
+    than one launch, and over tens of steps Adam grows that noise (from
+    zero the fastest: the codes of each symmetric member pair coincide
+    and symm_dist's gradient direction is set by rounding,
+    ``check_batch_reference``)."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.fitting import FittingConfig, fit_joint_batch
+
+    shape, params_shape, expr, params_expr, _gen = models
+    subjects = batch_observations()
+    rng = np.random.default_rng(SEED + 7)
+    init = list((rng.normal(size=(len(subjects), shape.lat_dim)) * LAT_INIT_STD)
+                .astype(np.float32))
+
+    def fit(m, start=None, steps=DP_FIT_STEPS):
+        cfg = FittingConfig(n_steps=steps, seed=SEED)
+        return _timed(lambda: fit_joint_batch(shape, params_shape, expr, params_expr,
+                                              subjects, cfg=cfg, device=device,
+                                              verbose=False, mesh=m, lat_shape_init=start))
+
+    reset_counters()
+    dp, wall = fit(mesh)
+    out = {"counts": read_counters(), "wall_s": wall,
+           "steady_subject_steps_s": dp[3]["steady_subject_steps_s"]}
+    seeded, _ = fit(mesh, init)
+    short, _ = fit(mesh, init, DP_FIT_CHECK_STEPS)
+    runs = (dp, seeded, short)
+    flat = torch.as_tensor(_flat_leaves([r[:2] + (r[3]["loss"],) for r in runs]))
+    out["replicas_equal"] = _replica_equal(flat, mesh)
+    out["finite"] = bool(np.isfinite(flat.numpy()).all())
+    if mesh.rank == 0:
+        single, out["single_wall_s"] = fit(None)
+        out["errs_zero"], _ = fit_diffs(dp, single)
+        out["errs_seeded"], _ = fit_diffs(seeded, fit(None, init)[0])
+        d = np.abs(dp[3]["loss"] - single[3]["loss"]).max(axis=1)
+        out["loss_diff_by_step"] = {j: float(d[j]) for j in (0, 4, 9, 24, DP_FIT_STEPS - 1)
+                                    if j < DP_FIT_STEPS}
+        out["errs"], out["close"] = fit_diffs(short, fit(None, init, DP_FIT_CHECK_STEPS)[0])
+        out["single_subject_steps_s"] = single[3]["steady_subject_steps_s"]
+        out["loss"] = [float(dp[3]["loss"][0].mean()), float(dp[3]["loss"][-1].mean())]
+    return out
+
+
+def _same_mesh(a, vertices, faces) -> bool:
+    import numpy as np
+
+    return (a.vertices.shape == vertices.shape and a.faces.shape == faces.shape
+            and bool(np.array_equal(a.vertices, vertices))
+            and bool(np.array_equal(a.faces, faces)))
+
+
+def dp_extract(models, device, mesh, refs):
+    """Sharded dense ``extract_mesh``, ``extract_mesh_streamed`` (8 slabs,
+    f32) and ``extract_mesh_sparse`` (lip 2.0, f16) at res 256 on phase 4's
+    fitted code, each held array-equal (vertices and faces) to phase 8's
+    one-process mesh at the same tile; rank 0 also times one-process dense
+    extraction here."""
+    import numpy as np
+
+    from nphm_tpu_torch.reconstruction.extract import extract_mesh, extract_mesh_streamed
+    from nphm_tpu_torch.reconstruction.sparse import extract_mesh_sparse
+
+    shape, params_shape = models[0], models[1]
+    lat = refs["lat_shape"]
+    box = (GRID_MIN, GRID_MAX, EXTRACT_RES)
+    calls = {
+        "dense": lambda m: extract_mesh(shape, params_shape, lat, *box, device=device,
+                                        device_mesh=m),
+        "streamed": lambda m: extract_mesh_streamed(shape, params_shape, lat, *box,
+                                                    device=device, device_mesh=m),
+        "sparse_lip2": lambda m: extract_mesh_sparse(shape, params_shape, lat, *box, lip=2.0,
+                                                     transfer_dtype=np.float16, device=device,
+                                                     device_mesh=m),
+    }
+    out = {"counts": {}, "wall_s": {}, "equal": {}, "vertices": {}}
+    for name, call in calls.items():
+        reset_counters()
+        got, out["wall_s"][name] = _timed(lambda: call(mesh))
+        out["counts"][name] = read_counters()
+        out["equal"][name] = _same_mesh(got, refs[f"{name}_v"], refs[f"{name}_f"])
+        out["vertices"][name] = len(got.vertices)
+    if mesh.rank == 0:
+        _, out["single_dense_wall_s"] = _timed(lambda: calls["dense"](None))
+    return out
+
+
+def dp_pose(models, device, mesh, refs):
+    """``deform_mesh_batch(device_mesh=)`` of phase 4's 20 expressions on the
+    dense mesh (each rank's vertices through K7), against the one-process
+    posing: max |offset difference| over the largest offset."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.reconstruction.extract import deform_mesh_batch
+    from nphm_tpu_torch.utils.mesh_io import Mesh as TriMesh
+
+    _shape, _ps, expr, params_expr, _gen = models
+    base = TriMesh(refs["dense_v"], refs["dense_f"])
+
+    def pose(m):
+        return _timed(lambda: deform_mesh_batch(base, expr, params_expr, refs["lat_expr"],
+                                                anchors=refs["anchors"],
+                                                lat_shape=refs["lat_shape"], device=device,
+                                                device_mesh=m))
+
+    reset_counters()
+    posed, wall = pose(mesh)
+    out = {"counts": read_counters(), "wall_s": wall, "expressions": len(posed)}
+    flat = torch.as_tensor(np.stack([p.vertices for p in posed]))
+    out["replicas_equal"] = _replica_equal(flat, mesh)
+    if mesh.rank == 0:
+        single, out["single_wall_s"] = pose(None)
+        offsets = np.stack([p.vertices for p in single]) - base.vertices[None]
+        diff = np.abs(flat.numpy() - np.stack([p.vertices for p in single])).max()
+        out["err"] = float(diff / max(float(np.abs(offsets).max()), 1e-30))
+    return out
+
+
+def dp_rank(rank, world, backend, run_dir):
+    """One rank of phase 13 (a ``torch.multiprocessing.spawn`` target): joins
+    the group through a file store in ``run_dir``, runs every DP path and
+    writes its results to ``run_dir/rank{rank}.json``.  Nothing is caught:
+    a failure ends the rank, and the spawn raises it in the parent."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nphm_tpu_torch.parallel import get_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(DP_DEVICE, rank if backend == "nccl" else 0)
+    mesh = get_device_mesh(rank=rank, world_size=world, backend=backend, device=device,
+                           init_method="file://" + os.path.join(run_dir, "store"))
+    try:
+        refs = dict(np.load(os.path.join(run_dir, "refs.npz")))
+        models = build_models(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = {"rank": rank, "device": str(device)}
+        for name, fn in (("identity", dp_identity), ("deformation", dp_deformation),
+                         ("fit", dp_fit)):
+            t0 = time.perf_counter()
+            out[name] = fn(models, device, mesh)
+            out[name]["phase_s"] = time.perf_counter() - t0
+        for name, fn in (("extract", dp_extract), ("pose", dp_pose)):
+            t0 = time.perf_counter()
+            out[name] = fn(models, device, mesh, refs)
+            out[name]["phase_s"] = time.perf_counter() - t0
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_run(world, backend, refs):
+    """Spawn ``world`` ranks of ``dp_rank``, check what they report; returns
+    the launch counts of their DP paths summed over the ranks."""
+    import numpy as np
+    import torch
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        np.savez(os.path.join(run_dir, "refs.npz"), **refs)
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(dp_rank, args=(world, backend, run_dir), nprocs=world,
+                                    join=True)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    tag = f"[dp {backend} W={world}]"
+    log(f"{tag} {world} ranks on {[r['device'] for r in ranks]} in {wall:.2f} s (spawn, "
+        f"imports and model builds included); peak device memory per rank (GiB) "
+        f"{[round(r['peak_gib'], 3) for r in ranks]}; seconds per part on rank 0 "
+        f"{json.dumps({k: round(v['phase_s'], 2) for k, v in ranks[0].items() if isinstance(v, dict)})}")
+    r0 = ranks[0]
+    for name in ("identity", "deformation"):
+        got = r0[name]
+        log(f"{tag} {name}: {DP_STEPS} steps + 1 validation step at B=32, DP step ms per "
+            f"rank {[[round(t, 3) for t in r[name]['step_ms']] for r in ranks]} against one "
+            f"process {[round(t, 3) for t in got['single_step_ms']]}; |d_dp - d_1| / |d_1| "
+            + ", ".join(f"{k} {got['rel_update'][k]:.3e} (tol {TOL_TRAIN_UPDATE[k]:g})"
+                        for k in DP_TRAIN_KEYS)
+            + f"; loss terms max relative {got['rel_terms']:.3e} (tol {TOL_TRAIN_TERMS:g}); "
+            f"replicas bit-equal {[r[name]['replicas_equal'] for r in ranks]}; counters per "
+            f"rank {[r[name]['counts'] for r in ranks]}")
+        expect(got["same_start"], f"{tag} {name}: DP and one process start apart")
+        expect(all(r[name]["replicas_equal"] for r in ranks),
+               f"{tag} {name}: the replicas differ across ranks")
+        expect(all(got["rel_update"][k] <= TOL_TRAIN_UPDATE[k] for k in DP_TRAIN_KEYS),
+               f"{tag} {name}: the DP steps disagree with the one-process steps")
+        expect(got["rel_terms"] <= TOL_TRAIN_TERMS, f"{tag} {name}: the DP loss terms differ")
+    for r in ranks:
+        for k in ("train_fwd", "train_bwd"):
+            expect(r["identity"]["counts"][k] > 0, f"{tag} rank {r['rank']}: {k} not launched")
+    fit = r0["fit"]
+    log(f"{tag} fit: {BATCH_SUBJECTS} subjects x {DP_FIT_STEPS} steps, wall per rank "
+        f"{[round(r['fit']['wall_s'], 3) for r in ranks]} s against one process "
+        f"{fit['single_wall_s']:.3f} s; steady subject-steps/s per rank "
+        f"{[round(r['fit']['steady_subject_steps_s'], 2) for r in ranks]} against "
+        f"{fit['single_subject_steps_s']:.2f}; loss mean {fit['loss'][0]:.5f} -> "
+        f"{fit['loss'][1]:.5f}; max|DP - one process| after {DP_FIT_STEPS} steps from zero "
+        f"{json.dumps(fit['errs_zero'])} (of the loss by step "
+        f"{json.dumps(fit['loss_diff_by_step'])}), from the seeded codes "
+        f"{json.dumps(fit['errs_seeded'])}; after {DP_FIT_CHECK_STEPS} steps from the "
+        f"seeded codes {json.dumps(fit['errs'])} (rtol {TOL_FIT_RTOL:g}, atol "
+        f"{TOL_FIT_ATOL:g}); "
+        f"replicas bit-equal {[r['fit']['replicas_equal'] for r in ranks]}; counters per "
+        f"rank {[r['fit']['counts'] for r in ranks]}")
+    expect(fit["close"], f"{tag} the sharded fit disagrees with the one-process fit")
+    expect(all(r["fit"]["replicas_equal"] and r["fit"]["finite"] for r in ranks),
+           f"{tag} fit results differ by rank or are not finite")
+    for r in ranks:
+        for k in ("broyden_search", "fit_fwd", "fit_bwd"):
+            expect(r["fit"]["counts"][k] > 0, f"{tag} rank {r['rank']}: {k} not launched")
+    ext = r0["extract"]
+    log(f"{tag} extraction at res {EXTRACT_RES}: wall s per rank "
+        f"{[r['extract']['wall_s'] for r in ranks]}, one-process dense "
+        f"{ext['single_dense_wall_s']:.3f} s; vertices {ext['vertices']}; array-equal to "
+        f"phase 8's one-process meshes per rank {[r['extract']['equal'] for r in ranks]}; K1 "
+        f"launches per rank {[{k: c['ensemble_sdf'] for k, c in r['extract']['counts'].items()} for r in ranks]}")
+    for r in ranks:
+        for name, same in r["extract"]["equal"].items():
+            expect(same, f"{tag} rank {r['rank']}: sharded {name} mesh differs from phase 8's")
+            expect(r["extract"]["counts"][name]["ensemble_sdf"] > 0,
+                   f"{tag} rank {r['rank']}: {name} launched no K1")
+    pose = r0["pose"]
+    log(f"{tag} posing: {pose['expressions']} expressions of {len(refs['dense_v'])} vertices, "
+        f"wall per rank {[round(r['pose']['wall_s'], 3) for r in ranks]} s against one process "
+        f"{pose['single_wall_s']:.3f} s; max|DP - one process| / max|offset| "
+        f"{pose['err']:.3e} (tol {TOL_K7:g}); replicas bit-equal "
+        f"{[r['pose']['replicas_equal'] for r in ranks]}; K7 launches per rank "
+        f"{[r['pose']['counts']['deepsdf_trunk'] for r in ranks]}")
+    expect(pose["err"] <= TOL_K7, f"{tag} sharded posing disagrees with one process")
+    for r in ranks:
+        expect(r["pose"]["replicas_equal"], f"{tag} posing differs on rank {r['rank']}")
+        expect(r["pose"]["counts"]["deepsdf_trunk"] > 0,
+               f"{tag} rank {r['rank']}: posing launched no K7")
+    total = {}
+    for r in ranks:
+        for part in ("identity", "deformation", "fit", "pose"):
+            _add(total, r[part]["counts"])
+        for counts in r["extract"]["counts"].values():
+            _add(total, counts)
+    return total
+
+
+def dp_path(fitted, meshes):
+    """Phase 13: two ranks on card 0 over gloo, then, with two cards or more,
+    one rank a card over NCCL (up to 4).  ``fitted``: phase 4's codes;
+    ``meshes``: phase 8's one-process dense, streamed and lip-2.0 sparse
+    meshes at res 256."""
+    import torch
+
+    lat_expr, lat_shape, anchors = fitted
+    refs = {"lat_expr": lat_expr, "lat_shape": lat_shape, "anchors": anchors}
+    for name, m in meshes.items():
+        refs[f"{name}_v"], refs[f"{name}_f"] = m.vertices, m.faces
+    torch.cuda.empty_cache()
+    total = dp_run(2, "gloo", refs)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        _add(total, dp_run(min(n, 4), "nccl", refs))
+    else:
+        log(f"[dp] NCCL not run: {n} card (NCCL refuses two ranks on one device; the gloo "
+            f"ranks above shared card 0)")
+    log(f"[counters] phase 13: {json.dumps(total)}")
+    return total
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -2837,7 +3284,7 @@ def run():
     check_batched_kernels(models, device, rows)
     batch_counts = batch_path(models, device, serial_it_s)
     cli_counts = cli_path(models)
-    extract_counts = extraction_path(models, npm, fitted, npm_lat, device, rows)
+    extract_counts, dp_meshes = extraction_path(models, npm, fitted, npm_lat, device, rows)
     with tempfile.TemporaryDirectory() as tree_dir:
         train_cli_counts, tree = training_cli_path(tree_dir)
         t0 = time.perf_counter()
@@ -2849,8 +3296,11 @@ def run():
         t0 = time.perf_counter()
         mode_counts = modes_path(models, device, rows, tree_dir, tree)
         log(f"[phase 12] {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dp_counts = dp_path(fitted, dp_meshes)
+    log(f"[phase 13] {time.perf_counter() - t0:.2f} s")
     paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts, extract_counts,
-             train_cli_counts, protocol_counts, synthetic_counts, mode_counts)
+             train_cli_counts, protocol_counts, synthetic_counts, mode_counts, dp_counts)
     table = []
     for name, (source, replaces) in KERNELS.items():
         # rows of the same kernel at other shapes: "ensemble_sdf@res256", ...
@@ -2868,10 +3318,46 @@ def run():
     }}), flush=True)
 
 
+def dp_only():
+    """``python3 chip_smoke.py --dp``: phase 13 alone, on every card of the
+    host up to 4 (NCCL) after the two gloo ranks on card 0.  Its inputs
+    come first: phases 1 and 2, phase 4's fit for the codes, and the
+    one-process dense, streamed and lip-2.0 sparse meshes at res 256 that
+    phase 8 would give."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.fitting.inference import FittingConfig, fit_joint
+    from nphm_tpu_torch.reconstruction.extract import extract_mesh, extract_mesh_streamed
+    from nphm_tpu_torch.reconstruction.sparse import extract_mesh_sparse
+
+    smi = device_and_build()
+    device = torch.device("cuda", 0)
+    shape, params_shape, expr, params_expr, _gen = build_models(device)
+    fitted = fit_joint(shape, params_shape, expr, params_expr, observations(20, 2500, SEED + 3),
+                       cfg=FittingConfig(n_steps=FIT_STEPS, seed=SEED), device=device,
+                       verbose=False)[:3]
+    box = (GRID_MIN, GRID_MAX, EXTRACT_RES)
+    lat = fitted[1]
+    meshes = {"dense": extract_mesh(shape, params_shape, lat, *box, device=device),
+              "streamed": extract_mesh_streamed(shape, params_shape, lat, *box, device=device),
+              "sparse_lip2": extract_mesh_sparse(shape, params_shape, lat, *box, lip=2.0,
+                                                 transfer_dtype=np.float16, device=device)}
+    t0 = time.perf_counter()
+    dp_path(fitted, meshes)
+    log(f"[phase 13] {time.perf_counter() - t0:.2f} s")
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
 def main():
     sys.path.insert(0, ROOT)
     try:
-        run()
+        dp_only() if sys.argv[1:] == ["--dp"] else run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -38,6 +38,13 @@ import torch
 
 from nphm_tpu_torch.fitting.broyden import ift_correction, search
 from nphm_tpu_torch.models.ensemble import predict_anchors
+from nphm_tpu_torch.parallel.mesh import (
+    data_parallel,
+    device_of,
+    gather_rows,
+    is_main,
+    shard_rows,
+)
 from nphm_tpu_torch.utils.math import safe_l2norm, sq_norm
 from nphm_tpu_torch.utils.params import default_device, tree_to
 
@@ -478,6 +485,7 @@ def fit_joint_batch(
     sample_draws=None,
     lat_shape_init: Optional[List[np.ndarray]] = None,
     lat_expr_init: Optional[List[np.ndarray]] = None,
+    mesh=None,
 ):
     """Fit many subjects at once: each step folds the S subjects' nb
     observations into S * nb rows of one search (K2, a subject's lanes
@@ -498,8 +506,19 @@ def fit_joint_batch(
     [T, S] (``loss``, ``broyden_iters``, ...), ``elapsed_s``,
     ``first_step_s`` and ``steady_subject_steps_s`` (subject-steps after
     the first step over their wall time).
+
+    ``mesh`` (a ``parallel.DataMesh`` of W > 1 ranks): the subject axis is
+    padded with dummy subjects to a multiple of W and rank r fits its
+    contiguous block through its own K2 launch and K3/K4 calls.  Every
+    rank makes the one-device call's draws and keeps its subjects' rows,
+    so a subject draws the same points at every W (its trajectory differs
+    only by rounding: the ranks' launches sum in another order); no
+    collective runs in the step loop.  The codes and the history are gathered at the end, so
+    every rank returns what the one-device call returns (the timings are
+    the rank's own).
     """
-    device = default_device() if device is None else torch.device(device)
+    device = device_of(device, mesh)
+    mesh = data_parallel(mesh)
     params_shape = tree_to(params_shape, device)
     params_expr = tree_to(params_expr, device)
     lam_keys, lr_arr, lam_mat, clamp_arr = _schedules(
@@ -508,20 +527,24 @@ def fit_joint_batch(
     total = cfg.total_steps
     nb, npp = cfg.n_obs_per_batch, cfg.n_points_per_obs
     S = len(subjects_obs)
+    S_draw = max(S, pad_subjects_to)  # the one-device call's subjects: its draws
+    W = 1 if mesh is None else mesh.size
     padded_np, lens_np, n_obs_np = _pad_subjects(subjects_obs, pad_obs_to, pad_points_to,
-                                                 pad_subjects_to)
+                                                 -(-S_draw // W) * W)
     S_pad, o_max = padded_np.shape[:2]
-    padded = torch.as_tensor(padded_np, device=device)
-    lens = torch.as_tensor(lens_np, device=device)
+    own = shard_rows(S_pad, mesh)  # this rank's subjects
+    S_loc = own.stop - own.start
+    padded = torch.as_tensor(padded_np[own], device=device)
     # the draws' bounds: observations a subject has (as float), and its last
-    n_obs = torch.as_tensor(n_obs_np, device=device)[:, None]
+    n_obs = torch.as_tensor(n_obs_np[:S_draw], device=device)[:, None]
     n_obs_f, n_obs_last = n_obs.to(torch.float32), n_obs - 1
-    lens_flat = lens.reshape(-1)
-    subj_row = torch.arange(S_pad, device=device)[:, None] * o_max
+    lens = torch.as_tensor(lens_np[:S_draw], device=device)
+    subj_row = torch.arange(S_loc, device=device)[:, None] * o_max
     points = padded.reshape(-1, 3)
     p_max = padded.shape[2]
 
-    # the expression codes of all subjects' (padded) observations, flattened
+    # the expression codes of this rank's subjects' (padded) observations,
+    # flattened
     lat_expr = torch.zeros((S_pad * o_max, decoder_expr.lat_dim), device=device)
     lat_shape = torch.zeros((S_pad, decoder_shape.lat_dim), device=device)
     for s, init in enumerate(() if lat_shape_init is None else lat_shape_init):
@@ -529,6 +552,8 @@ def fit_joint_batch(
     for s, init in enumerate(() if lat_expr_init is None else lat_expr_init):
         lat_expr[s * o_max : s * o_max + n_obs_np[s]] = torch.as_tensor(
             np.asarray(init, np.float32).reshape(n_obs_np[s], -1))
+    lat_expr = lat_expr[own.start * o_max : own.stop * o_max].clone()
+    lat_shape = lat_shape[own].clone()
     opt_s, opt_e = _Adam(lat_shape), _Adam(lat_expr)
 
     warm = cfg.warm_start_corresp
@@ -550,25 +575,34 @@ def fit_joint_batch(
                              device=device) for a in sample_draws]
         for d, a in zip(draws, sample_draws):
             d[:, :S] = torch.as_tensor(np.asarray(a), dtype=torch.int64)
+        draws = [d[:, own] for d in draws]
     else:
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    hist = torch.zeros((total, len(_JOINT_HIST_KEYS), S_pad), device=device)
+
+        def draw():
+            """The one-device call's draws (sel [S_draw, nb], idx [S_draw, nb,
+            npp]) and this rank's rows of them; dummy subjects draw zeros."""
+            u = torch.rand((S_draw, nb), generator=gen, device=device)
+            sel = torch.minimum((u * n_obs_f).to(torch.int64), n_obs_last)
+            n_pts = lens.gather(1, sel)[..., None]
+            u = torch.rand((S_draw, nb, npp), generator=gen, device=device)
+            idx = torch.minimum((u * n_pts).to(torch.int64), n_pts - 1)
+            if mesh is None:
+                return sel, idx
+            return tuple(torch.cat([t, t.new_zeros((S_pad - S_draw,) + t.shape[1:])])[own]
+                         for t in (sel, idx))
+    hist = torch.zeros((total, len(_JOINT_HIST_KEYS), S_loc), device=device)
 
     clock = _StepClock(device)
     for j in range(total):
-        # obs_row: the drawn observations' rows of the flattened [S_pad *
+        # obs_row: the drawn observations' rows of the flattened [S_loc *
         # o_max] observations; pt: their points' rows of the flattened
-        # [S_pad * o_max * p_max] points and warm stores (one index, not three)
+        # [S_loc * o_max * p_max] points and warm stores (one index, not three)
         if sample_draws is not None:
             sel, idx = draws[0][j], draws[1][j]
-            obs_row = subj_row + sel
         else:
-            u = torch.rand((S_pad, nb), generator=gen, device=device)
-            sel = torch.minimum((u * n_obs_f).to(torch.int64), n_obs_last)
-            obs_row = subj_row + sel
-            n_pts = lens_flat[obs_row][..., None]
-            u = torch.rand((S_pad, nb, npp), generator=gen, device=device)
-            idx = torch.minimum((u * n_pts).to(torch.int64), n_pts - 1)
+            sel, idx = draw()
+        obs_row = subj_row + sel
         pt = obs_row[..., None] * p_max + idx
         at = pt.reshape(-1)
         xc0 = store.view(-1, 3).index_select(0, at) if warm else None
@@ -587,16 +621,20 @@ def fit_joint_batch(
         opt_s.step(lat_shape, g_s, float(lr_arr[j]))
         opt_e.step(lat_expr, g_e, float(lr_arr[j]))
         with torch.no_grad():
-            hist[j] = torch.stack([torch.as_tensor(aux[k], device=device).expand(S_pad)
+            hist[j] = torch.stack([torch.as_tensor(aux[k], device=device).expand(S_loc)
                                    for k in _JOINT_HIST_KEYS])
         clock.step_done(j)
     timing = clock.finish(total)
+    if mesh is not None:
+        lat_shape = gather_rows(lat_shape, S_pad, mesh)
+        lat_expr = gather_rows(lat_expr, S_pad * o_max, mesh, granule=o_max)
+        hist = gather_rows(hist, S_pad, mesh, dim=2)
 
     hist_np = hist.cpu().numpy()
     history = {k: hist_np[:, i, :S] for i, k in enumerate(_JOINT_HIST_KEYS)}
     history.update(elapsed_s=timing["elapsed_s"], first_step_s=timing["first_step_s"],
                    steady_subject_steps_s=timing["steady_it_s"] * S)
-    if verbose:
+    if verbose and is_main(mesh):
         print(f"[fit_joint_batch] {S} subjects x {total} steps in "
               f"{timing['elapsed_s']:.1f}s ({history['steady_subject_steps_s']:.1f} "
               f"subject-steps/s after the first step, mean Broyden iters "

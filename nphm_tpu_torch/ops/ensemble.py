@@ -37,6 +37,7 @@ from nphm_tpu_torch.models.ensemble import NPHMConfig, _split_cond, predict_anch
 from nphm_tpu_torch.models.mlp import softplus_beta
 from nphm_tpu_torch.ops import _build
 from nphm_tpu_torch.ops.fit_fields import check_widths
+from nphm_tpu_torch.parallel.mesh import data_parallel, gather_rows, shard_rows
 
 DEFAULT_TILE = 2048  # cull-tile size: points sharing one member predicate
 CULL_EPS = 1e-10
@@ -412,17 +413,24 @@ def grid_axes(mini, maxi, res: int, device):
 @torch.no_grad()
 def nphm_grid_sdf(params, cfg: NPHMConfig, lat, mini, maxi, res: int, *,
                   tile: int = DEFAULT_TILE, cull_eps: float = CULL_EPS,
-                  sdf_fn=nphm_sdf):
+                  sdf_fn=nphm_sdf, device_mesh=None):
     """Dense-grid SDF [res^3] in natural (x-major, z fastest) order.
 
     Points are generated on the latent's device in brick order so every
     cull tile is a compact brick; ``sdf_fn`` (``nphm_sdf`` or
-    ``nphm_sdf_plain``) evaluates them.
+    ``nphm_sdf_plain``) evaluates them.  With a ``device_mesh`` (the JAX
+    package's ``device_mesh=``) each rank evaluates its block of whole
+    tiles of the brick order, one K1 launch, and every rank returns the
+    gathered grid.
     """
     device = lat.device
     tile, brick = grid_tile(res, tile)
     axes = grid_axes(mini, maxi, res, device)
-    lin = torch.arange(res * res * res, dtype=torch.int64, device=device)
+    n = res * res * res
+    own = shard_rows(n, device_mesh, granule=tile)
+    lin = torch.arange(own.start, own.stop, dtype=torch.int64, device=device)
     pts = _brick_points(axes, lin, res, brick, tile)
     sdf = sdf_fn(params, cfg, pts, lat, tile=tile, cull_eps=cull_eps)
+    if data_parallel(device_mesh) is not None:
+        sdf = gather_rows(sdf, n, device_mesh, granule=tile)
     return sdf[_unbrick_gather(res, brick, tile, device)]

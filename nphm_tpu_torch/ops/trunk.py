@@ -32,6 +32,7 @@ from nphm_tpu_torch.models.deformation import DeformationConfig, conditioning
 from nphm_tpu_torch.models.mlp import positional_encoding, softplus_beta
 from nphm_tpu_torch.ops import _build
 from nphm_tpu_torch.ops.tf32 import split_tf32
+from nphm_tpu_torch.parallel.mesh import data_parallel, gather_rows, shard_rows
 
 SQRT2 = 1.4142135623730951
 # Activation scratch of one point chunk: the ping-pong of layer inputs and
@@ -224,13 +225,20 @@ def deformation(params, dcfg: DeformationConfig, xyz, lat, anchors=None):
 
 @torch.no_grad()
 def npm_grid_sdf(params, cfg: DeepSDFConfig, lat, mini, maxi, res: int, *,
-                 trunk_fn=deepsdf_trunk):
+                 trunk_fn=deepsdf_trunk, device_mesh=None):
     """Dense-grid NPM SDF [res^3] in natural (x-major, z fastest) order, the
-    points generated on the latent's device."""
+    points generated on the latent's device.  With a ``device_mesh`` each
+    rank evaluates its block of the grid (K7) and every rank returns all of
+    it."""
     dev = lat.device
     axes = [torch.linspace(float(mini[i]), float(maxi[i]), res, dtype=torch.float32,
                            device=dev) for i in range(3)]
-    lin = torch.arange(res * res * res, dtype=torch.int64, device=dev)
+    n = res * res * res
+    own = shard_rows(n, device_mesh)
+    lin = torch.arange(own.start, own.stop, dtype=torch.int64, device=dev)
     pts = torch.stack([axes[0][lin // (res * res)], axes[1][(lin // res) % res],
                        axes[2][lin % res]], dim=-1)
-    return npm_sdf(params, cfg, pts, lat, trunk_fn=trunk_fn)
+    sdf = npm_sdf(params, cfg, pts, lat, trunk_fn=trunk_fn)
+    if data_parallel(device_mesh) is not None:
+        sdf = gather_rows(sdf, n, device_mesh)
+    return sdf

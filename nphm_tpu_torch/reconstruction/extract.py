@@ -24,7 +24,14 @@ Also here, as in the JAX package:
   behind a CUDA event, and slab k-1 marched in worker threads while the
   card computes slab k; the seams weld on global edge keys.
 
-Multi-device arguments (``mesh``, ``device_mesh``) are left out.
+Data parallelism (``mesh=`` / ``device_mesh=``, a ``parallel.DataMesh``
+of more than one rank, as in the JAX package): the point evaluator splits
+its points in whole chunks over the ranks, the dense grid and each
+streamed slab split their brick-order range in whole cull tiles (so every
+point is evaluated with the tile it has on one device), posing splits the
+vertices; the ranks' results are gathered on every rank.  Rank 0 marches
+the gathered logits and broadcasts the mesh, so every rank returns the
+same mesh.
 """
 
 from __future__ import annotations
@@ -48,8 +55,16 @@ from nphm_tpu_torch.ops.ensemble import (
 )
 from nphm_tpu_torch.ops.marching import marching_tets_window, mesh_from_logits
 from nphm_tpu_torch.ops.trunk import deepsdf_trunk, deformation, npm_grid_sdf, npm_sdf
+from nphm_tpu_torch.parallel.mesh import (
+    broadcast_arrays,
+    data_parallel,
+    device_of,
+    gather_rows,
+    is_main,
+    shard_rows,
+)
 from nphm_tpu_torch.utils.mesh_io import Mesh as TriMesh
-from nphm_tpu_torch.utils.params import default_device, tree_device, tree_to
+from nphm_tpu_torch.utils.params import tree_device, tree_to
 
 DEFAULT_CHUNK = 1 << 16
 
@@ -58,8 +73,14 @@ def _as_lat(encoding, device):
     return torch.tensor(np.asarray(encoding, np.float32), device=device).reshape(1, -1)
 
 
-def _device(device):
-    return default_device() if device is None else torch.device(device)
+def share_mesh(mesh, device_mesh) -> TriMesh:
+    """Rank 0's mesh (the other ranks pass None) on every rank, as float32
+    vertices and int64 faces."""
+    if data_parallel(device_mesh) is None:
+        return mesh
+    v, f = broadcast_arrays(None if mesh is None else (mesh.vertices, mesh.faces),
+                            device_mesh, (np.float32, np.int64))
+    return TriMesh(v, f)
 
 
 def _anchors(anchors, device):
@@ -78,24 +99,31 @@ def torch_dtype(dtype):
 
 
 def make_point_evaluator(point_fn, chunk_size: int = DEFAULT_CHUNK, out_dim: int = 1,
-                         device=None):
+                         device=None, mesh=None):
     """A chunked evaluator of a per-point function.
 
     point_fn: (ctx, pts [c, 3]) -> [c, out_dim] tensor, with c <=
-    ``chunk_size``; ``ctx`` holds tensors on ``device`` (default
-    ``default_device()``).  Returns ``evaluate(ctx, points [M, 3]) ->
-    np.ndarray [M, out_dim]``: the points go to the device once, the
-    result comes back in one copy.
+    ``chunk_size``; ``ctx`` holds tensors on ``device`` (default: the
+    mesh's, else ``default_device()``).  Returns ``evaluate(ctx, points [M,
+    3]) -> np.ndarray [M, out_dim]``: the points go to the device once, the
+    result comes back in one copy.  With a ``mesh`` each rank evaluates its
+    block of whole chunks and every rank returns all M rows.
     """
-    dev = _device(device)
+    dev = device_of(device, mesh)
+    mesh = data_parallel(mesh)
 
     @torch.no_grad()
     def evaluate(ctx, points) -> np.ndarray:
         pts = torch.as_tensor(np.asarray(points, np.float32).reshape(-1, 3), device=dev)
+        m = pts.shape[0]
+        own = shard_rows(m, mesh, granule=chunk_size)
+        pts = pts[own]
         out = torch.empty((pts.shape[0], out_dim), device=dev)
         for s in range(0, pts.shape[0], chunk_size):
             out[s : s + chunk_size] = point_fn(ctx, pts[s : s + chunk_size]).reshape(
                 -1, out_dim)
+        if mesh is not None:
+            out = gather_rows(out, m, mesh, granule=chunk_size)
         return out.cpu().numpy()
 
     return evaluate
@@ -149,7 +177,7 @@ def get_logits(decoder, params, encoding, grid_points, chunk_size: int = DEFAULT
                evaluator=None, device=None) -> np.ndarray:
     """Chunked SDF of arbitrary points [M, 3] -> [M] (reference
     reconstruction.py:6-25)."""
-    dev = _device(device)
+    dev = device_of(device, None)
     if evaluator is None:
         evaluator = make_sdf_evaluator(decoder, chunk_size, dev)
     ctx = {"params": tree_to(params, dev), "lat": _as_lat(encoding, dev)[0]}
@@ -177,7 +205,7 @@ def get_logits_backward(decoder_shape, decoder_expr, params_shape, params_expr,
                         chunk_size: int = DEFAULT_CHUNK, evaluator=None,
                         device=None) -> np.ndarray:
     """Backward-warp SDF of arbitrary points [M, 3] -> [M]."""
-    dev = _device(device)
+    dev = device_of(device, None)
     if evaluator is None:
         evaluator = make_backward_sdf_evaluator(decoder_shape, decoder_expr, chunk_size, dev)
     ctx = {
@@ -214,7 +242,7 @@ def backward_grid_logits(decoder_shape, decoder_expr, params_shape, params_expr,
     compact and culling keeps firing."""
     if decoder_shape.kind != "nphm":
         raise NotImplementedError("backward_grid_logits evaluates an NPHM ensemble")
-    dev = _device(device)
+    dev = device_of(device, None)
     params_shape = tree_to(params_shape, dev)
     res = int(resolution)
     tile, brick = grid_tile(res, tile)
@@ -234,13 +262,17 @@ def backward_grid_logits(decoder_shape, decoder_expr, params_shape, params_expr,
     return sdf[_unbrick_gather(res, brick, tile, dev)].cpu().numpy()
 
 
-def grid_logits(decoder, params, encoding, mini, maxi, resolution: int):
-    """Dense-grid logits [res^3] (natural x-major order) as float32 numpy."""
+def grid_logits(decoder, params, encoding, mini, maxi, resolution: int, device_mesh=None):
+    """Dense-grid logits [res^3] (natural x-major order) as float32 numpy;
+    with a ``device_mesh`` the grid is split over the ranks and every rank
+    returns all of it."""
     lat = _as_lat(encoding, tree_device(params))[0]
     if decoder.kind == "nphm":
-        out = nphm_grid_sdf(params, decoder.cfg, lat, mini, maxi, int(resolution))
+        out = nphm_grid_sdf(params, decoder.cfg, lat, mini, maxi, int(resolution),
+                            device_mesh=device_mesh)
     elif decoder.kind == "npm":
-        out = npm_grid_sdf(params, decoder.cfg, lat, mini, maxi, int(resolution))
+        out = npm_grid_sdf(params, decoder.cfg, lat, mini, maxi, int(resolution),
+                           device_mesh=device_mesh)
     else:
         raise NotImplementedError(f"no grid logits for decoder kind {decoder.kind!r}")
     return out.cpu().numpy()
@@ -248,22 +280,29 @@ def grid_logits(decoder, params, encoding, mini, maxi, resolution: int):
 
 def extract_mesh(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
                  maxi=(0.55, 0.75, 0.4), resolution: int = 256, device=None,
-                 return_timing: bool = False):
+                 return_timing: bool = False, device_mesh=None):
     """Grid-evaluate through K1 or K7 (their plain versions on the CPU), then
     march.
 
-    The parameters move to ``device`` first (default ``default_device()``).
-    With ``return_timing`` also returns {"grid_s", "march_s"}: the grid
-    evaluation including its device->host copy, and host marching.
+    The parameters move to ``device`` first (default: the device mesh's,
+    else ``default_device()``).  With ``return_timing`` also returns
+    {"grid_s", "march_s"}: the grid evaluation including its device->host
+    copy (and the gather), and host marching (and the mesh's broadcast).
+    With a ``device_mesh`` the grid is split over the ranks in whole cull
+    tiles; rank 0 marches and every rank returns its mesh.
     """
-    dev = default_device() if device is None else torch.device(device)
+    dev = device_of(device, device_mesh)
+    device_mesh = data_parallel(device_mesh)
     params = tree_to(params, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    logits = grid_logits(decoder, params, encoding, mini, maxi, resolution)
+    logits = grid_logits(decoder, params, encoding, mini, maxi, resolution, device_mesh)
     t1 = time.perf_counter()
-    mesh = mesh_from_logits(logits, mini, maxi, resolution)
+    mesh = None
+    if is_main(device_mesh):
+        mesh = mesh_from_logits(logits, mini, maxi, resolution)
+    mesh = share_mesh(mesh, device_mesh)
     t2 = time.perf_counter()
     if return_timing:
         return mesh, {"grid_s": t1 - t0, "march_s": t2 - t1}
@@ -287,16 +326,21 @@ def _pick_n_slabs(res: int, bx: int, wanted: int) -> int:
 
 @torch.no_grad()
 def slab_logits(params, cfg, lat, axes, res: int, n_slabs: int, brick, tile: int, k: int,
-                *, cull_eps: float = CULL_EPS, operands=None):
+                *, cull_eps: float = CULL_EPS, operands=None, device_mesh=None):
     """Logits [res / n_slabs, res, res] of x-slab k in natural order, on the
     axes' device: one ``nphm_sdf`` call (K1 for CUDA tensors) over the slab's
     range of the brick order, which holds whole cull tiles, so each point
-    is evaluated with the same tile as on the dense grid."""
+    is evaluated with the same tile as on the dense grid.  With a
+    ``device_mesh`` each rank evaluates its block of whole tiles of the
+    range, and every rank returns the whole slab."""
     per = res**3 // n_slabs
     dev = axes[0].device
-    lin = torch.arange(per, dtype=torch.int64, device=dev) + k * per
+    own = shard_rows(per, device_mesh, granule=tile)
+    lin = torch.arange(own.start, own.stop, dtype=torch.int64, device=dev) + k * per
     pts = _brick_points(axes, lin, res, brick, tile)
     sdf = nphm_sdf(params, cfg, pts, lat, tile=tile, cull_eps=cull_eps, operands=operands)
+    if data_parallel(device_mesh) is not None:
+        sdf = gather_rows(sdf, per, device_mesh, granule=tile)
     return sdf[_unbrick_gather(res, brick, tile, dev, n=per)].reshape(res // n_slabs, res, res)
 
 
@@ -304,7 +348,7 @@ def extract_mesh_streamed(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
                           maxi=(0.55, 0.75, 0.4), resolution: int = 256, n_slabs=None,
                           transfer_dtype=None, mc_workers: int = 3,
                           tile: int = DEFAULT_TILE, cull_eps: float = CULL_EPS,
-                          device=None) -> TriMesh:
+                          device=None, device_mesh=None) -> TriMesh:
     """Overlapped extraction over x-slabs: the card evaluates slab k while
     slab k-1's logits cross to the host and earlier slabs are marched in
     ``mc_workers`` threads.
@@ -318,16 +362,22 @@ def extract_mesh_streamed(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     cells on a seam are triangulated once and the slabs weld exactly on
     global edge keys.  On the CPU the slabs are evaluated one by one.
 
+    With a ``device_mesh`` each slab's range is split over the ranks in
+    whole tiles (``slab_logits``); rank 0 copies, marches and welds, and
+    every rank returns its mesh.
+
     Falls back to ``extract_mesh`` (float32, as the JAX package does) for a
     decoder other than NPHM, a resolution with no brick, or a single slab.
     """
-    dev = _device(device)
+    dev = device_of(device, device_mesh)
+    device_mesh = data_parallel(device_mesh)
     params = tree_to(params, dev)
     res = int(resolution)
     tile, brick = grid_tile(res, tile)
     n_slabs = 1 if brick is None else _pick_n_slabs(res, brick[0], n_slabs or 8)
     if decoder.kind != "nphm" or n_slabs <= 1:
-        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev)
+        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev,
+                            device_mesh=device_mesh)
 
     lat = _as_lat(encoding, dev)[0]
     h = res // n_slabs
@@ -338,9 +388,13 @@ def extract_mesh_streamed(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
 
     def logits(k):
         out = slab_logits(params, decoder.cfg, lat, axes, res, n_slabs, brick, tile, k,
-                          cull_eps=cull_eps, operands=operands)
+                          cull_eps=cull_eps, operands=operands, device_mesh=device_mesh)
         return out if tdt is None else out.to(tdt)
 
+    if not is_main(device_mesh):
+        for k in range(n_slabs):  # this rank's tiles of every slab
+            logits(k)
+        return share_mesh(None, device_mesh)
     if dev.type == "cuda":
         host = torch.empty((n_slabs, h, res, res), dtype=tdt or torch.float32,
                            pin_memory=True)
@@ -390,7 +444,7 @@ def extract_mesh_streamed(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     faces = inverse.reshape(-1)[faces]
     step = (np.asarray(maxi, np.float32) - np.asarray(mini, np.float32)) / (res - 1)
     uniq = verts[first] * step[None, :] + np.asarray(mini, np.float32)[None, :]
-    return TriMesh(uniq.astype(np.float32), faces)
+    return share_mesh(TriMesh(uniq.astype(np.float32), faces), device_mesh)
 
 
 @torch.no_grad()
@@ -414,13 +468,16 @@ def _deltas(deformer, params, verts, lats, anchors, chunk_size):
 
 def deform_mesh_batch(mesh: TriMesh, deformer, params, lat_exprs, anchors=None,
                       lat_shape=None, chunk_size: int = DEFAULT_CHUNK,
-                      device=None) -> list:
+                      device=None, device_mesh=None) -> list:
     """Forward-warp mesh vertices through the deformation field for each of
     E expression latents (identity latent prepended when given).  The
-    parameters move to ``device`` first (default ``default_device()``).
-    ``chunk_size`` is the plain path's chunk of vertices (CPU); K7 sizes
-    its own chunks."""
-    dev = default_device() if device is None else torch.device(device)
+    parameters move to ``device`` first (default: the device mesh's, else
+    ``default_device()``).  ``chunk_size`` is the plain path's chunk of
+    vertices (CPU); K7 sizes its own chunks.  With a ``device_mesh`` each
+    rank poses its block of the vertices (K7 per rank) and every rank
+    returns all E meshes."""
+    dev = device_of(device, device_mesh)
+    device_mesh = data_parallel(device_mesh)
     params = tree_to(params, dev)
     lats = torch.stack([_as_lat(le, dev) for le in lat_exprs])  # [E, 1, L]
     if lat_shape is not None:
@@ -429,14 +486,18 @@ def deform_mesh_batch(mesh: TriMesh, deformer, params, lat_exprs, anchors=None,
     anc = None if anchors is None else torch.tensor(
         np.asarray(anchors, np.float32), device=dev
     ).reshape(1, -1, 3)
-    verts = torch.tensor(np.asarray(mesh.vertices, np.float32), device=dev)
-    deltas = _deltas(deformer, params, verts, lats, anc, chunk_size).cpu().numpy()
-    return [TriMesh(mesh.vertices + d, mesh.faces.copy()) for d in deltas]
+    n = len(mesh.vertices)
+    own = shard_rows(n, device_mesh)
+    verts = torch.tensor(np.asarray(mesh.vertices[own], np.float32), device=dev)
+    deltas = _deltas(deformer, params, verts, lats, anc, chunk_size)
+    if device_mesh is not None:
+        deltas = gather_rows(deltas, n, device_mesh, dim=1)
+    return [TriMesh(mesh.vertices + d, mesh.faces.copy()) for d in deltas.cpu().numpy()]
 
 
 def deform_mesh(mesh: TriMesh, deformer, params, lat_expr, anchors=None,
                 lat_shape=None, chunk_size: int = DEFAULT_CHUNK,
-                device=None) -> TriMesh:
+                device=None, device_mesh=None) -> TriMesh:
     """Forward-warp mesh vertices through the deformation field."""
     return deform_mesh_batch(mesh, deformer, params, [lat_expr], anchors, lat_shape,
-                             chunk_size, device)[0]
+                             chunk_size, device, device_mesh)[0]

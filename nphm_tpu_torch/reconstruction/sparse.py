@@ -28,6 +28,14 @@ details of the JAX package are dropped: its ``_bucket`` padding of the
 candidate and transfer counts exists only to reuse compiled programs, so
 the port launches exactly the candidate blocks; and its ``_gather`` is a
 tensor index on the device followed by one copy.
+
+With a ``device_mesh`` (a ``parallel.DataMesh`` of more than one rank, the
+JAX package's ``device_mesh=``) the coarse lattice is split over the ranks
+in groups of 64 blocks (one cull tile of coarse samples) and the candidate
+blocks, padded to a multiple of the rank count with repeats of the first,
+in equal shares: one K1 (or K7) launch per rank and pass, each gathered on
+every rank, so every rank selects the same blocks.  Rank 0 assembles and
+marches, and every rank returns its mesh.
 """
 
 from __future__ import annotations
@@ -40,7 +48,19 @@ import torch
 from nphm_tpu_torch.ops.ensemble import CULL_EPS, grid_axes, nphm_sdf, prepare_ensemble_operands
 from nphm_tpu_torch.ops.marching import marching_tets_blocks
 from nphm_tpu_torch.ops.trunk import npm_sdf
-from nphm_tpu_torch.reconstruction.extract import _as_lat, _device, extract_mesh, torch_dtype
+from nphm_tpu_torch.parallel.mesh import (
+    data_parallel,
+    device_of,
+    gather_rows,
+    is_main,
+    shard_rows,
+)
+from nphm_tpu_torch.reconstruction.extract import (
+    _as_lat,
+    extract_mesh,
+    share_mesh,
+    torch_dtype,
+)
 from nphm_tpu_torch.utils.mesh_io import Mesh as TriMesh
 from nphm_tpu_torch.utils.params import tree_to
 
@@ -95,27 +115,42 @@ def _sdf(decoder, params, pts, lat, operands, cull_eps):
 
 
 @torch.no_grad()
-def coarse_pass(decoder, params, lat, axes, res, *, operands=None, cull_eps=CULL_EPS):
+def coarse_pass(decoder, params, lat, axes, res, *, operands=None, cull_eps=CULL_EPS,
+                device_mesh=None):
     """Per-block (min, max) over each block's coarse samples: [n_blocks, 2]
     on the device (64 blocks' samples fill one 1024-point tile)."""
     nb = _block_grid(res)
+    n = nb[0] * nb[1] * nb[2]
     dev = axes[0].device
     off = _coarse_offsets(dev)
-    ids = torch.arange(nb[0] * nb[1] * nb[2], dtype=torch.int64, device=dev)
+    per_tile = _TILE // off.shape[1]
+    own = shard_rows(n, device_mesh, granule=per_tile)
+    ids = torch.arange(own.start, own.stop, dtype=torch.int64, device=dev)
     sdf = _sdf(decoder, params, _block_points(axes, ids, nb, off), lat, operands,
                cull_eps).reshape(len(ids), off.shape[1])
-    return torch.stack([sdf.amin(dim=1), sdf.amax(dim=1)], dim=-1)
+    mm = torch.stack([sdf.amin(dim=1), sdf.amax(dim=1)], dim=-1)
+    if data_parallel(device_mesh) is not None:
+        mm = gather_rows(mm, n, device_mesh, granule=per_tile)
+    return mm
 
 
 @torch.no_grad()
 def fine_pass(decoder, params, lat, axes, res, block_ids, *, operands=None,
-              cull_eps=CULL_EPS):
+              cull_eps=CULL_EPS, device_mesh=None):
     """Fine field of blocks ``block_ids`` [K] (int64, device): (sdf [K,
     1024] in block order, minmax [K, 2]), both on the device."""
     nb = _block_grid(res)
+    mesh = data_parallel(device_mesh)
+    k = len(block_ids)
+    if mesh is not None:
+        k_pad = -(-k // mesh.size) * mesh.size
+        block_ids = torch.cat([block_ids, block_ids[:1].expand(k_pad - k)])
+        block_ids = block_ids[shard_rows(k_pad, mesh)]
     sdf = _sdf(decoder, params, _block_points(axes, block_ids, nb,
                                               _fine_offsets(block_ids.device)),
                lat, operands, cull_eps).reshape(-1, _TILE)
+    if mesh is not None:
+        sdf = gather_rows(sdf, k_pad, mesh)[:k]
     return sdf, torch.stack([sdf.amin(dim=1), sdf.amax(dim=1)], dim=-1)
 
 
@@ -169,14 +204,14 @@ def _assemble(sel_ids, data, fill_of, nb, res):
 
 @torch.no_grad()
 def probe_lip(decoder, params, lat, mini, maxi, device, *, operands=None,
-              cull_eps=CULL_EPS, res: int = 64) -> float:
+              cull_eps=CULL_EPS, res: int = 64, device_mesh=None) -> float:
     """Finite-difference Euclidean gradient bound from a dense res-64 probe
     (every block of the res-64 lattice through the fine pass's launch):
     sup ||grad f||^2 <= sum_d sup |df/dx_d|^2 over the lattice."""
     nb = _block_grid(res)
     ids = torch.arange(nb[0] * nb[1] * nb[2], dtype=torch.int64, device=device)
     sdf, _ = fine_pass(decoder, params, lat, grid_axes(mini, maxi, res, device), res, ids,
-                       operands=operands, cull_eps=cull_eps)
+                       operands=operands, cull_eps=cull_eps, device_mesh=device_mesh)
     bx, by, bz = BLOCK
     field = (sdf.cpu().numpy().reshape(nb[0], nb[1], nb[2], bx, by, bz)
              .transpose(0, 3, 1, 4, 2, 5).reshape(res, res, res))
@@ -206,7 +241,7 @@ def _empty():
 def extract_mesh_sparse(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
                         maxi=(0.55, 0.75, 0.4), resolution: int = 256, lip=2.0,
                         transfer_dtype=None, stats=None, cull_eps: float = CULL_EPS,
-                        device=None) -> TriMesh:
+                        device=None, device_mesh=None) -> TriMesh:
     """Sparse two-pass extraction (NPHM and NPM decoders, res % 16 == 0).
 
     lip: Lipschitz bound of the field used for the coarse pass's margin.
@@ -223,11 +258,15 @@ def extract_mesh_sparse(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     n_transferred, lip_observed (and lip_auto).
     Falls back to ``extract_mesh`` (float32, as the JAX package does) for
     other decoders and for resolutions not divisible by 16 or below 32.
+    device_mesh: the passes split over its ranks (module docstring); every
+    rank returns the mesh, and rank 0 alone warns.
     """
-    dev = _device(device)
+    dev = device_of(device, device_mesh)
+    device_mesh = data_parallel(device_mesh)
     res = int(resolution)
     if decoder.kind not in ("nphm", "npm") or res % 16 or res < 32:
-        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev)
+        return extract_mesh(decoder, params, encoding, mini, maxi, res, device=dev,
+                            device_mesh=device_mesh)
     params = tree_to(params, dev)
     lat = _as_lat(encoding, dev)[0]
     mini = tuple(float(x) for x in mini)
@@ -235,7 +274,7 @@ def extract_mesh_sparse(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     nb = _block_grid(res)
     n_blocks = nb[0] * nb[1] * nb[2]
     axes = grid_axes(mini, maxi, res, dev)
-    kw = dict(cull_eps=cull_eps)
+    kw = dict(cull_eps=cull_eps, device_mesh=device_mesh)
     if decoder.kind == "nphm":
         with torch.no_grad():
             kw["operands"] = prepare_ensemble_operands(params, decoder.cfg, lat)
@@ -268,7 +307,7 @@ def extract_mesh_sparse(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     lip_observed = float((fmm[:, 1] - fmm[:, 0]).max() / block_diag)
     if stats is not None:
         stats["lip_observed"] = lip_observed
-    if lip_observed > float(lip):
+    if lip_observed > float(lip) and is_main(device_mesh):
         warnings.warn(
             f"extract_mesh_sparse: observed in-block field variation implies "
             f"Lipschitz constant >= {lip_observed:.2f} > assumed lip={float(lip):.2f}; "
@@ -309,6 +348,8 @@ def extract_mesh_sparse(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
                      n_transferred=int(len(sel)))
     if len(sel) == 0:
         return _empty()
+    if not is_main(device_mesh):
+        return share_mesh(None, device_mesh)
 
     # copy only the straddling blocks
     rows = torch.as_tensor(np.searchsorted(cand, sel), device=dev)
@@ -323,4 +364,4 @@ def extract_mesh_sparse(decoder, params, encoding, mini=(-0.55, -0.5, -0.95),
     verts, faces = marching_tets_blocks(-full, offsets, (res, res, res), 0.0)
     step = (np.asarray(maxi, np.float32) - np.asarray(mini, np.float32)) / (res - 1)
     verts = verts * step[None, :] + np.asarray(mini, np.float32)[None, :]
-    return TriMesh(verts.astype(np.float32), faces.astype(np.int64))
+    return share_mesh(TriMesh(verts.astype(np.float32), faces.astype(np.int64)), device_mesh)

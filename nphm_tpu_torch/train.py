@@ -10,6 +10,17 @@ from the latest checkpoint.  Training reads the supervision chunks of
 the card unless ``-device cpu`` is given; ``-wandb`` is accepted and
 ignored (the port has no wandb hook).  The experiment it writes is what
 ``train_corresp`` and ``fitting_pointclouds`` load.
+
+Data parallel under ``torchrun`` (one process per device):
+
+    torchrun --nproc_per_node N -m nphm_tpu_torch.train -exp_name EXP ...
+
+With ``WORLD_SIZE`` > 1 and ``training.data_parallel`` (default true) the
+ranks join one process group (``-backend``: default ``nccl`` on the GPU,
+``gloo`` on the CPU; ranks that share a card need ``gloo``) and train one
+model data-parallel on ``cuda:LOCAL_RANK`` (or ``-device``); rank 0 alone
+writes the snapshot, metrics and checkpoints.  With ``data_parallel:
+false`` rank 0 trains alone and the other ranks exit.
 """
 
 from __future__ import annotations
@@ -27,9 +38,9 @@ from nphm_tpu_torch.config import (
     snapshot_or_reload_config,
 )
 from nphm_tpu_torch.data.datasets import IdentityDataset
+from nphm_tpu_torch.parallel.mesh import barrier, device_of, get_device_mesh, is_main
 from nphm_tpu_torch.training.trainer import IdentityTrainer
 from nphm_tpu_torch.utils.logging_utils import MetricsLogger
-from nphm_tpu_torch.utils.params import default_device
 
 
 def parse_args(argv=None):
@@ -41,18 +52,49 @@ def parse_args(argv=None):
     parser.add_argument("-wandb", action="store_true", help="accepted and ignored")
     parser.add_argument("-seed", type=int, default=0)
     parser.add_argument("-device", type=str, default=None,
-                        help="torch device (default: the GPU)")
+                        help="torch device (default: the GPU, cuda:LOCAL_RANK under torchrun)")
+    parser.add_argument("-backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="torch.distributed backend of a data-parallel run "
+                             "(default: nccl on the GPU, gloo on the CPU)")
     args, _ = parser.parse_known_args(argv)
     return args
 
 
+def setup_run(args, exp_dir: str, cfg):
+    """(cfg, device, mesh) of a training CLI run: the data-parallel mesh
+    under ``torchrun`` (None in one process, or with ``training.
+    data_parallel: false``, where the ranks past 0 get cfg None and exit),
+    and the experiment's config, snapshotted by rank 0 and read by the
+    others after it."""
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        snap = os.path.join(exp_dir, "configs.yaml")
+        known = load_yaml(snap) if cfg is None and os.path.exists(snap) else cfg
+        if known is None or known["training"].get("data_parallel", True):
+            mesh = get_device_mesh(backend=args.backend, device=args.device)
+        elif int(os.environ["RANK"]) > 0:
+            print(f"rank {os.environ['RANK']}: training.data_parallel is false; rank 0 "
+                  f"trains alone")
+            return None, None, None
+    if is_main(mesh):
+        cfg = snapshot_or_reload_config(exp_dir, cfg)
+        print_cfg(cfg)
+        if mesh is not None:
+            print(f"Data-parallel training over {mesh.size} devices ({mesh.backend})")
+    barrier(mesh)
+    if not is_main(mesh):
+        cfg = load_yaml(os.path.join(exp_dir, "configs.yaml"))
+    return cfg, device_of(args.device, mesh), mesh
+
+
 def main(argv=None):
     args = parse_args(argv)
-    device = default_device() if args.device is None else torch.device(args.device)
     cfg = load_yaml(args.cfg_file) if args.cfg_file else None
     exp_dir = os.path.join(env_paths.EXPERIMENT_DIR, args.exp_name)
-    cfg = snapshot_or_reload_config(exp_dir, cfg)
-    print_cfg(cfg)
+    cfg, device, mesh = setup_run(args, exp_dir, cfg)
+    if cfg is None:
+        return
+    main_rank = is_main(mesh)
 
     tcfg = cfg["training"]
     kwargs = dict(n_supervision_points_face=tcfg["npoints_decoder"],
@@ -61,17 +103,19 @@ def main(argv=None):
                   has_anchors=args.local, is_closed=args.closed)
     train_dataset = IdentityDataset(mode="train", **kwargs)
     val_dataset = IdentityDataset(mode="val", **kwargs)
-    print(f"Train dataset: {len(train_dataset)} subjects; val: {len(val_dataset)} subjects")
-
     decoder = build_identity_decoder(cfg["decoder"], local=args.local)
     params = decoder.init(torch.Generator().manual_seed(args.seed), device)
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"Number of parameters in decoder: {n_params}")
+    if main_rank:
+        print(f"Train dataset: {len(train_dataset)} subjects; val: {len(val_dataset)} "
+              f"subjects")
+        print(f"Number of parameters in decoder: {sum(t.numel() for t in _leaves(params))}")
 
     trainer = IdentityTrainer(decoder, params, cfg, train_dataset, val_dataset, args.exp_name,
-                              logger=MetricsLogger(log_dir=exp_dir), seed=args.seed,
+                              logger=MetricsLogger(log_dir=exp_dir if main_rank else None,
+                                                   quiet=not main_rank),
+                              seed=args.seed,
                               recon_resolution=tcfg.get("recon_resolution", 256),
-                              device=device)
+                              device=device, mesh=mesh)
     trainer.train_model(tcfg.get("nepochs", 30001))
 
 

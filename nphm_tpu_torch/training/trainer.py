@@ -14,6 +14,20 @@ The NPHM decoder's fields run through K5/K6 (``ops.train_fields``) when
 ``fused_train_kernel`` is "auto" and the device is CUDA, or when it is
 true; otherwise through the decoder and an autograd spatial gradient.
 
+Data parallelism (``mesh=``, a ``parallel.DataMesh`` of more than one
+rank; the counterpart of the JAX trainers' ``mesh=``): every rank iterates
+the same batches, renorms the whole batch's latent rows, and computes the
+loss on its contiguous block of rows (K5/K6 on the local shard).  Every
+loss term is a mean over equal-sized row blocks (or over the parameters
+alone), so the one-device loss is the mean of the ranks' losses: the
+parameter and latent-table gradients are all-reduced (mean) before the
+clips, and every rank applies the same update, so the replicas stay
+bit-equal.  A batch whose size the rank count does not divide runs whole on
+every rank with no collective (the JAX trainers' ``_pick``).  The epoch's
+metric sums are all-reduced once, before the host pull.  Rank 0 alone
+writes metrics, checkpoints, best-val markers and reconstruction logs;
+every rank reads the checkpoint on resume.
+
 Resume is exact: the checkpoint of epoch N is written at the end of the
 epoch (after validation) and training resumes at epoch N + 1, so a resumed
 run equals an uninterrupted one.  (The JAX trainer writes it before
@@ -34,6 +48,15 @@ import numpy as np
 import torch
 
 from nphm_tpu_torch import env_paths
+from nphm_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    barrier,
+    broadcast_state,
+    data_parallel,
+    device_of,
+    is_main,
+    shard_rows,
+)
 from nphm_tpu_torch.reconstruction.extract import extract_mesh
 from nphm_tpu_torch.training import checkpoints as ckpt
 from nphm_tpu_torch.training.latents import (
@@ -45,7 +68,7 @@ from nphm_tpu_torch.training.latents import (
 )
 from nphm_tpu_torch.training.losses import identity_sdf_loss
 from nphm_tpu_torch.utils.logging_utils import MetricsLogger
-from nphm_tpu_torch.utils.params import default_device, from_numpy_pytree, to_numpy_pytree
+from nphm_tpu_torch.utils.params import from_numpy_pytree, to_numpy_pytree
 from nphm_tpu_torch.utils.profiling import StepTimer
 
 RECON_BOX_MIN = (-0.4, -0.6, -0.7)
@@ -95,9 +118,12 @@ class _TermAccumulator:
         self.vec = vec if self.vec is None else self.vec + vec
         self.count += 1
 
-    def averages(self) -> dict:
+    def averages(self, mesh=None) -> dict:
+        """Per-step means; with a mesh, of the ranks' mean (one all-reduce)."""
         if self.count == 0:
             return {}
+        if mesh is not None:
+            all_reduce_mean(self.vec, mesh)
         vals = self.vec.cpu().numpy() / self.count
         return {k: float(v) for k, v in zip(self.keys, vals)}
 
@@ -107,14 +133,18 @@ class AutoDecoderTrainer:
     ``trainer_corresp``): train and validation latent tables (max_norm 1),
     AdamW on the decoder (decay masked off ``NO_DECAY``), row-Adam on the
     latents, global-norm clips, the epoch loop with validation, best-val
-    markers, checkpoints and resume.  A subclass sets ``self.decoder`` and
-    defines ``_loss(params, table, batch, *, val)``, ``lr_lat_at`` and
-    ``log_recs``."""
+    markers, checkpoints, resume and data parallelism.  A subclass sets
+    ``self.decoder`` and defines ``_loss(params, table, batch, *, val,
+    rows)`` (rows: None, or (slice, n) when ``batch`` is that slice of an
+    n-row batch), ``lr_lat_at`` and ``log_recs``."""
 
     def __init__(self, params, cfg: dict, train_dataset, val_dataset, exp_name: str,
                  exp_dir: Optional[str], logger: Optional[MetricsLogger],
-                 recon_resolution: int, seed: int, device, lat_dim: int, lat_std: float):
-        self.device = default_device() if device is None else torch.device(device)
+                 recon_resolution: int, seed: int, device, lat_dim: int, lat_std: float,
+                 mesh=None):
+        self.mesh = data_parallel(mesh)
+        self.device = device_of(device, mesh)
+        self.main = is_main(self.mesh)
         self.cfg = cfg["training"]
         if self.cfg.get("matmul_precision", "default") != "default":
             raise ValueError("matmul_precision: only 'default' (fp32, TF32 off) is supported")
@@ -125,8 +155,10 @@ class AutoDecoderTrainer:
 
         self.exp_path = os.path.join(exp_dir or env_paths.EXPERIMENT_DIR, exp_name)
         self.checkpoint_path = os.path.join(self.exp_path, "checkpoints")
-        os.makedirs(self.checkpoint_path, exist_ok=True)
-        self.logger = logger or MetricsLogger(log_dir=self.exp_path)
+        if self.main:
+            os.makedirs(self.checkpoint_path, exist_ok=True)
+        self.logger = logger or MetricsLogger(log_dir=self.exp_path if self.main else None,
+                                              quiet=not self.main)
 
         gen = torch.Generator().manual_seed(seed)
         self.latents = (torch.randn((len(train_dataset), lat_dim), generator=gen)
@@ -136,6 +168,8 @@ class AutoDecoderTrainer:
         self.max_norm = 1.0
 
         self.params = from_numpy_pytree(to_numpy_pytree(params), self.device)
+        # replicas start from rank 0's state
+        broadcast_state([self.params, self.latents, self.latents_val], self.mesh)
         self.opt_state = self._adamw_init(self.params)
         self.lat_state = row_adam_init(self.latents)
         self.lat_state_val = row_adam_init(self.latents_val)
@@ -187,6 +221,22 @@ class AutoDecoderTrainer:
     def _batch(self, batch):
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
+    def _shard(self, batch):
+        """(this rank's rows of the batch, rows): rows is (slice, n) when the
+        batch's n rows split evenly over the mesh, else the batch runs whole
+        (rows None), as under no mesh."""
+        n = batch["idx"].reshape(-1).shape[0]
+        if self.mesh is None or n % self.mesh.size:
+            return batch, None
+        sl = shard_rows(n, self.mesh)
+        return {k: v[sl] for k, v in batch.items()}, (sl, n)
+
+    def _all_reduce_grads(self, grads):
+        """The ranks' mean of each gradient, in one all-reduce."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        all_reduce_mean(flat, self.mesh)
+        return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
     def _train_step(self, batch, lr: float, lr_lat: float):
         idx = batch["idx"].reshape(-1).long()
         with torch.no_grad():
@@ -194,10 +244,13 @@ class AutoDecoderTrainer:
         table.requires_grad_(True)
         leaves = [p.detach().requires_grad_(True) for _, p in tree_paths(self.params)]
         params = tree_rebuild(self.params, leaves)
-        loss, terms = self._loss(params, table, batch, val=False)
+        local, rows = self._shard(batch)
+        loss, terms = self._loss(params, table, local, val=False, rows=rows)
         grads = torch.autograd.grad(loss, leaves + [table], allow_unused=True)
         g_params = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         g_table = grads[-1]
+        if rows is not None:
+            *g_params, g_table = self._all_reduce_grads(g_params + [g_table])
         # the profiler range lets profile_train split optimizer from glue
         with torch.no_grad(), torch.profiler.record_function("optimizer"):
             if self.cfg.get("grad_clip") is not None:
@@ -230,8 +283,11 @@ class AutoDecoderTrainer:
         with torch.no_grad():
             table = renorm_rows(self.latents_val, idx, self.max_norm)
         table.requires_grad_(True)
-        loss, terms = self._loss(self.params, table, batch, val=True)
+        local, rows = self._shard(batch)
+        loss, terms = self._loss(self.params, table, local, val=True, rows=rows)
         (g_table,) = torch.autograd.grad(loss, [table])
+        if rows is not None:
+            (g_table,) = self._all_reduce_grads([g_table])
         with torch.no_grad():
             if self.cfg.get("grad_clip_lat") is not None:
                 (g_table,), _ = clip_global_norm([g_table], self.cfg["grad_clip_lat"])
@@ -266,16 +322,20 @@ class AutoDecoderTrainer:
                 with self._timer.step():
                     terms = self._train_step(batch, lr, lr_lat)
                 acc.add(terms)
-            if epoch % interval == 0:
+            if epoch % interval == 0 and self.main:
                 self.log_recs(epoch)
             val = self.compute_val_loss(lr_lat)
             if "loss" in val and (self.val_min is None or val["loss"] < self.val_min):
                 self.val_min = val["loss"]
-                ckpt.update_val_min(self.exp_path, epoch, val["loss"])
-            if epoch % interval == 0:
+                if self.main:
+                    ckpt.update_val_min(self.exp_path, epoch, val["loss"])
+            if epoch % interval == 0 and self.main:
                 self.save_checkpoint(epoch)
 
-            avg = acc.averages()
+            avg = acc.averages(self.mesh)
+            barrier(self.mesh)  # the other ranks wait for rank 0's files
+            if not self.main:
+                continue
             msg = f"Epoch {epoch:5d} ({time.time() - t0:.1f}s)"
             for k in sorted(avg):
                 msg += f" {k} {avg[k]:.4f}/{val.get(k, float('nan')):.4f}"
@@ -291,7 +351,7 @@ class AutoDecoderTrainer:
         acc = _TermAccumulator()
         for batch in self.val_dataset.batch_iter(seed=0):
             acc.add(self._val_step(self._batch(batch), lr_lat))
-        return acc.averages()
+        return acc.averages(self.mesh)
 
     # ------------------------------------------------------------ persistence
 
@@ -347,10 +407,12 @@ class AutoDecoderTrainer:
         first epoch still to run."""
         data = ckpt.load_checkpoint(self.checkpoint_path, self.cfg.get("ckpt"))
         if data is None:
-            self.logger.print(f"No checkpoints found at {self.checkpoint_path}")
+            if self.main:
+                self.logger.print(f"No checkpoints found at {self.checkpoint_path}")
             return 0
         self.load_state_dict(data)
-        self.logger.print(f"Resumed after epoch {data['epoch']}")
+        if self.main:
+            self.logger.print(f"Resumed after epoch {data['epoch']}")
         return int(data["epoch"]) + 1
 
 
@@ -358,11 +420,11 @@ class IdentityTrainer(AutoDecoderTrainer):
     def __init__(self, decoder, params, cfg: dict, train_dataset, val_dataset,
                  exp_name: str, exp_dir: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None, recon_resolution: int = 256,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self.decoder = decoder
         d = decoder.lat_dim
         super().__init__(params, cfg, train_dataset, val_dataset, exp_name, exp_dir, logger,
-                         recon_resolution, seed, device, d, 0.1 / math.sqrt(d))
+                         recon_resolution, seed, device, d, 0.1 / math.sqrt(d), mesh)
 
         fused = self.cfg.get("fused_train_kernel", "auto")
         if fused == "auto":
@@ -381,7 +443,7 @@ class IdentityTrainer(AutoDecoderTrainer):
 
             self._fields_fn = fields_fn
 
-    def _loss(self, params, table, batch, *, val: bool):
+    def _loss(self, params, table, batch, *, val: bool, rows=None):
         idx = batch["idx"].reshape(-1)
         terms = identity_sdf_loss(self.decoder, params, batch, table[idx], training=True,
                                   fields_fn=self._fields_fn)

@@ -21,6 +21,11 @@ the stage-1 convention: epoch N's is written after its validation and
 training resumes at N + 1.  ``log_recs`` reconstructs the frozen identity
 (``extract_mesh``: K1 on the GPU) and poses it (``deform_mesh``: K7); an
 error there stops training (the JAX trainer prints it and carries on).
+
+Data parallelism (``mesh=``) is the stage-1 trainer's.  Its one stage-2
+detail: every rank draws the noise and prior samples of the whole batch, in
+the one-device order, and keeps its rows, so a data-parallel step draws
+what the one-device step draws (the JAX trainer's replicated key).
 """
 
 from __future__ import annotations
@@ -44,15 +49,26 @@ RECON_BOX_MIN = (-0.35, -0.45, -0.15)
 RECON_BOX_MAX = (0.35, 0.35, 0.35)
 
 
+def row_draws(draws, rows: slice, n: int):
+    """``draws`` of an n-row batch, cut to ``rows``: each draw is made at the
+    whole batch's shape (rows lead every draw's shape) and sliced."""
+
+    def draw(kind, shape, device):
+        return draws(kind, (n,) + tuple(shape[1:]), device)[rows]
+
+    return draw
+
+
 class DeformationTrainer(AutoDecoderTrainer):
     def __init__(self, decoder_expr, params_expr, decoder_shape, cfg: dict, train_dataset,
                  val_dataset, exp_name: str, exp_dir: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None, shape_state: Optional[dict] = None,
-                 recon_resolution: int = 256, seed: int = 0, device=None):
+                 recon_resolution: int = 256, seed: int = 0, device=None, mesh=None):
         self.decoder = decoder_expr
         self.decoder_shape = decoder_shape
         super().__init__(params_expr, cfg, train_dataset, val_dataset, exp_name, exp_dir,
-                         logger, recon_resolution, seed, device, decoder_expr.lat_dim, 0.01)
+                         logger, recon_resolution, seed, device, decoder_expr.lat_dim, 0.01,
+                         mesh)
         if shape_state is None:
             shape_dir = os.path.join(exp_dir or env_paths.EXPERIMENT_DIR,
                                      self.cfg["shape_exp_name"], "checkpoints")
@@ -77,13 +93,14 @@ class DeformationTrainer(AutoDecoderTrainer):
                 return predict_anchors(self.params_shape, self.decoder_shape.cfg, lat_shape)
         return batch.get("gt_anchors")
 
-    def _loss(self, params, table, batch, *, val: bool):
+    def _loss(self, params, table, batch, *, val: bool, rows=None):
         idx = batch["idx"].reshape(-1).long()
         shape_table = self.latents_shape_val if val else self.latents_shape
         lat_shape = shape_table[batch["subj_ind"].reshape(-1).long()]
+        draws = self.draws if rows is None else row_draws(self.draws, *rows)
         terms = deformation_loss(self.decoder, params, batch, lat_shape, table[idx],
                                  self._anchors_for(lat_shape, batch), training=not val,
-                                 draws=self.draws)
+                                 draws=draws)
         loss = sum(self.lambdas[k] * terms[k] for k in terms)
         return loss, terms
 

@@ -11,18 +11,22 @@ identity trainer's whole state onto the port trainer's ``state_dict``.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 
 def default_device() -> torch.device:
-    """The device every entry point uses unless the caller names one: the GPU.
+    """The device every entry point uses unless the caller names one: the GPU,
+    ``cuda:LOCAL_RANK`` under ``torchrun`` (one process per card).
 
     There is no fallback to the CPU: without a GPU, torch's own error on the
     first CUDA allocation is the outcome.  Callers that mean the CPU pass
     ``device="cpu"``.
     """
-    return torch.device("cuda")
+    local = os.environ.get("LOCAL_RANK")
+    return torch.device("cuda") if local is None else torch.device("cuda", int(local))
 
 
 def from_numpy_pytree(tree, device=None, dtype=torch.float32):

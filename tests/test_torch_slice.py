@@ -181,7 +181,8 @@ def test_main_path_never_imports_jax(tmp_path):
         import nphm_tpu_torch
         for mod in pkgutil.walk_packages(nphm_tpu_torch.__path__, "nphm_tpu_torch."):
             importlib.import_module(mod.name)
-        for name in ("fitting_pointclouds", "train", "train_corresp", "eval", "gather",
+        for name in ("parallel", "parallel.mesh",
+                     "fitting_pointclouds", "train", "train_corresp", "eval", "gather",
                      "protocol_e2e", "synthetic_e2e", "train_soak", "make_dummy_data",
                      "example_usage",
                      "data_processing.sample_surface",
