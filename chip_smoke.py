@@ -151,12 +151,29 @@ Phases, in order; any failure exits non-zero:
    memory, step times and walls are logged beside the one-process ones.
    With two cards or more the same runs over NCCL, one rank a card (up to
    4); with one card the log says NCCL was not run.
+14. Matmul precision and remat: K3 and K4 at the batched launch shape
+   (40 x 1024) and K5, K6 at B=32 x 2048, at TF32 ("high") and BF16
+   ("bfloat16"), each against its plain version at the same precision
+   (TOL_LOW, relative to the plain output's magnitude; K5/K6's plain
+   versions in member chunks) and nearer to it than to the F32 kernel's
+   output on the same inputs, two calls bit-identical, timed beside the
+   library call at that precision (``baddbmm`` with TF32 on, or on bf16
+   operands) and bounded at one tensor-core pass at that precision's peak
+   (TF32, or bf16 for BF16); two ``IdentityTrainer``
+   steps (B=32, the second timed) and a 20-step ``fit_joint_batch`` (8
+   subjects) at "default", "high" and "bfloat16" from one start: finite,
+   the lower precisions' first-step and final fit losses within
+   TOL_LOW_LOSS of F32's, and every precision's instantiation of K3-K6
+   launched; the NPM stage 1 at the widths of
+   ``configs/npm.yaml`` (B=32) for 3 steps with ``remat`` on and off:
+   bit-equal updates, each run's peak device memory and step times logged.
 
 Each kernel's entry in the table holds its launches summed over the
-paths of phases 4-13 (phase 13's over its ranks), and under "at" its rows at other shapes (K1 on the
+paths of phases 4-14 (phase 13's over its ranks), and under "at" its rows at other shapes (K1 on the
 res-256 grid, K2-K4 at the batched shapes; K1 and K7 at phase 8's launch
 shapes, each with its own launches in phase 8; K2 and K7 under GNN, with
-their launches in phase 12's GNN fit and posing).
+their launches in phase 12's GNN fit and posing; K3-K6 at TF32 and BF16,
+with their instantiations' launches in phase 14's main path).
 
 The second-to-last line is the kernel table as JSON, the last line the
 device record as JSON.  Nothing here imports JAX or the JAX package.
@@ -217,9 +234,12 @@ TOL_K7 = 1e-4
 
 # Card peaks for the bound (published H100 SXM figures at 700 W, dense):
 # TF32 on the tensor cores (K1-K7: 3xTF32, three TF32 products per fp32
-# product), fp32 outside them (the figure each bound is logged beside), HBM3.
+# product), bf16 on them (K3-K6 at "bfloat16": the card's peak for bf16
+# operands, whatever instruction the kernel issues), fp32 outside them (the
+# figure each bound is logged beside), HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_S = 3.35e12
 # Kernels whose products run as 3xTF32 on the tensor cores, and the kernel
 # functions (mangled-name fragments) whose SASS must hold HMMA/HGMMA: each
@@ -263,12 +283,14 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, passes: int = 3,
+          peak: float = PEAK_TF32_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations over
     the tensor cores' peak and the bytes (each input read once, each output
     written once) over the memory rate.  flops counts fp32 multiply-adds as
-    2; a 3xTF32 kernel runs three TF32 products for each."""
-    t_ops = 3.0 * flops / PEAK_TF32_FLOPS * 1e3
+    2; a 3xTF32 kernel runs three TF32 products for each (passes), a kernel
+    at a lower precision one, at that precision's peak."""
+    t_ops = passes * flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -862,11 +884,13 @@ def k6_scratch_bytes(cfg, M: int) -> int:
     return 4 * 2 * M * (2 * hq + zp + (hq + zp))
 
 
-def baddbmm_chain_ms(cfg, n_members: int, M: int, passes: str, device, reps: int) -> float:
+def baddbmm_chain_ms(cfg, n_members: int, M: int, passes: str, device, reps: int,
+                     dtype=None) -> float:
     """One ``torch.baddbmm`` per layer and pass over the member axis at the
     NPHM ensemble's shapes (conditioning folded: layer 0 reads the 3 point
-    inputs, the skip layer hidden + 3), M points a member, TF32 off, random
-    operands, no activations.  Passes: "f" a forward chain (each layer's
+    inputs, the skip layer hidden + 3), M points a member, TF32 off (or as
+    the caller set it), random operands of ``dtype`` (default fp32), no
+    activations.  Passes: "f" a forward chain (each layer's
     output feeds the next; the skip layer reads a separate input), "r" a
     reverse chain through the transposed weights, "w" the weight-gradient
     products x^T d of every layer.  The products cuBLAS would run for the
@@ -878,15 +902,16 @@ def baddbmm_chain_ms(cfg, n_members: int, M: int, passes: str, device, reps: int
     kn = [(ds if i == 0 else (n_in - cfg.d_in + ds if i == skip else n_in), n_out)
           for i, (n_in, n_out) in enumerate(shapes)]
     A = n_members
-    W = [torch.randn(A, k, n, device=device) / k**0.5 for k, n in kn]
-    bias = [torch.zeros(A, 1, n, device=device) for _, n in kn]
-    zero = torch.zeros(1, 1, 1, device=device)
-    x0 = torch.randn(A, M, ds, device=device)
-    x_skip = torch.randn(A, M, kn[skip][0], device=device)
-    d0 = torch.randn(A, M, kn[-1][1], device=device)
+    t = dict(device=device, dtype=dtype)
+    W = [torch.randn(A, k, n, **t) / k**0.5 for k, n in kn]
+    bias = [torch.zeros(A, 1, n, **t) for _, n in kn]
+    zero = torch.zeros(1, 1, 1, **t)
+    x0 = torch.randn(A, M, ds, **t)
+    x_skip = torch.randn(A, M, kn[skip][0], **t)
+    d0 = torch.randn(A, M, kn[-1][1], **t)
     if "w" in passes:
-        X = torch.randn(A, M, max(k for k, _ in kn), device=device)
-        D = torch.randn(A, M, max(n for _, n in kn), device=device)
+        X = torch.randn(A, M, max(k for k, _ in kn), **t)
+        D = torch.randn(A, M, max(n for _, n in kn), **t)
 
     def chain():
         for p in passes:
@@ -3256,6 +3281,398 @@ def dp_path(fitted, meshes):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: matmul precision and remat
+# ---------------------------------------------------------------------------
+
+# The lower precisions by their JAX names: TF32 and BF16 (ops/precision.py).
+LOW_PRECISIONS = ("high", "bfloat16")
+# K3-K6 at a lower precision against their plain versions at the same
+# precision, relative to the plain output's magnitude.  Both round the same
+# operands, but they sum in other orders, so an operand computed an ulp
+# apart may round to the neighbouring TF32 or bf16 value (2^-10 or 2^-7
+# of it) and carry that through the layers.
+# Each is about 4x the largest error measured on an H100.  The F32 output
+# lies further off (about 1.5e-3 at TF32, 8e-3 at BF16, on the plain
+# versions), so each kernel is also held nearer to its plain version than to
+# the F32 kernel's output: a lower-precision call that ran 3xTF32 fails.
+TOL_LOW = {"high": 1e-3, "bfloat16": 1e-2}
+# The tensor cores' peak for each lower precision's operands (bound).
+PEAK_LOW = {"high": PEAK_TF32_FLOPS, "bfloat16": PEAK_BF16_FLOPS}
+PRECISION_FIT_STEPS = 20
+TOL_LOW_LOSS = 0.05  # a lower precision's loss against F32's, relative
+# K5/K6's plain versions at a lower precision run in member chunks: their
+# rounded operands would add to the plain double backward's ~50 GiB at B=32
+PLAIN_MEMBER_CHUNK = 10
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.detach(), b.detach()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def bit_identical(xs, ys) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+
+def low_library_ms(cfg, n_members: int, M: int, passes: str, device, reps: int,
+                   name: str) -> float:
+    """``baddbmm_chain_ms`` at a lower precision: with TF32 on for "high"
+    (the flag restored after), on bf16 operands for "bfloat16"."""
+    import torch
+
+    if name == "bfloat16":
+        return baddbmm_chain_ms(cfg, n_members, M, passes, device, reps, dtype=torch.bfloat16)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return baddbmm_chain_ms(cfg, n_members, M, passes, device, reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def check_k3_k4_low(shape, params, gen, device, rows, name: str):
+    """K3 and K4 at precision ``name`` at the batched fit's launch shape (8
+    subjects x 5 scans = 40 rows of 1000 points, Morton-sorted, culled at
+    1e-10) against their plain versions at the same precision, each run
+    twice (bit-identical); rows ``fit_fwd@S8_{name}``, ``fit_bwd@S8_{name}``
+    with bounds at one tensor-core pass."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.models.ensemble import mirror_scale, predict_anchors
+    from nphm_tpu_torch.ops import precision
+    from nphm_tpu_torch.ops.fit_fields import (
+        active_mask,
+        member_f,
+        member_f_plain,
+        morton_codes,
+        prepare_train_operands,
+    )
+
+    cfg = shape.cfg
+    B, subjects, N, tile = 5 * BATCH_SUBJECTS, BATCH_SUBJECTS, 1000, 512
+    xyz = torch.tensor(np.stack(observations(B, N, SEED + 2)), device=device)
+    lat = (torch.randn((subjects, cfg.lat_dim), generator=gen) * 0.01).to(device)
+    lat = lat.repeat_interleave(B // subjects, dim=0).contiguous()
+    perm = torch.argsort(morton_codes(xyz), dim=1, stable=True)
+    xyz = torch.gather(xyz, 1, perm[..., None].expand(B, N, 3))
+    Np = -(-N // tile) * tile
+    xyz = torch.cat([xyz, xyz[:, -1:].expand(B, Np - N, 3)], dim=1)
+    A, M = cfg.n_members, B * Np
+    _, skip = cfg.layer_shapes
+    dF = torch.randn((A, M), generator=gen).to(device)
+    with precision.matmul_precision(name):
+        lat.requires_grad_(True)
+        anchors = predict_anchors(params, cfg, lat)
+        centers = torch.cat([anchors, torch.zeros_like(anchors[:, :1])], dim=1)
+        coords = (xyz[:, :, None] - centers[:, None]) * mirror_scale(cfg, device)
+        coords = coords.permute(2, 3, 0, 1).reshape(A, 3, M).detach().requires_grad_(True)
+        layers, _ = prepare_train_operands(params, cfg, lat)
+        active = active_mask(cfg, coords, tile, 1e-10)
+        ins = (layers[0]["b"], layers[skip]["b"], coords)
+        runs = []
+        for _ in range(2):
+            Fk = member_f(cfg, layers, coords, active, tile, B)
+            runs.append((Fk, *torch.autograd.grad(Fk, ins, dF, retain_graph=True)))
+        Fp = member_f_plain(cfg, layers, coords, active, tile, B)
+        plain = (Fp, *torch.autograd.grad(Fp, ins, dF, retain_graph=True))
+        e3 = rel_err(runs[0][0], Fp)
+        e4 = max(rel_err(a, b) for a, b in zip(runs[0][1:], plain[1:]))
+        with precision.matmul_precision("default"):
+            F32 = member_f(cfg, layers, coords, active, tile, B)
+            f32 = (F32, *torch.autograd.grad(F32, ins, dF))
+        # the F32 kernel's distance, on the plain version's scale
+        g3 = float((runs[0][0] - F32).detach().abs().max()) / float(Fp.detach().abs().max())
+        g4 = max(float((a - c).abs().max()) / float(b.abs().max())
+                 for a, b, c in zip(runs[0][1:], plain[1:], f32[1:]))
+        del F32, f32
+        abs3 = float((runs[0][0] - Fp).detach().abs().max())
+        abs4 = max(float((a - b).abs().max()) for a, b in zip(runs[0][1:], plain[1:]))
+        with torch.no_grad():
+            ms3 = cuda_ms(lambda: member_f(cfg, layers, coords, active, tile, B), 10)
+            plain3 = cuda_ms(lambda: member_f_plain(cfg, layers, coords, active, tile, B), 5)
+        ms4 = cuda_ms(lambda: torch.autograd.grad(Fk, ins, dF, retain_graph=True), 10)
+        plain4 = cuda_ms(lambda: torch.autograd.grad(Fp, ins, dF, retain_graph=True), 5)
+    tol = TOL_LOW[name]
+    same = bit_identical(runs[0], runs[1])
+    pairs = live_lanes(active, tile, B, N)
+    wb = weight_bytes(params["ensemble"], cfg)
+    flops3, flops4 = 2.0 * nphm_fmas(cfg) * pairs, 4.0 * nphm_fmas(cfg) * pairs
+    b3 = bound(flops3, pairs * 16 + wb, 1, PEAK_LOW[name])
+    b4 = bound(flops4, pairs * 28 + wb, 1, PEAK_LOW[name])
+    lib3 = low_library_ms(cfg, A, M, "f", device, 10, name)
+    lib4 = low_library_ms(cfg, A, M, "fr", device, 10, name)
+    log(f"[K3/K4 {name}] M={B}x{Np}: relative error K3 {e3:.3e}, K4 {e4:.3e} (tol {tol:g}; "
+        f"from the F32 kernel K3 {g3:.3e}, K4 {g4:.3e}); two calls bit-identical {same}; K3 {ms3:.3f} ms, plain {plain3:.3f}, library "
+        f"{lib3:.3f}, bound {b3['bound_ms']:.3f} ({b3['bound_by']}); K4 {ms4:.3f} ms, plain "
+        f"{plain4:.3f}, library {lib4:.3f}, bound {b4['bound_ms']:.3f} ({b4['bound_by']})")
+    expect(bool(all(torch.isfinite(t).all() for t in runs[0])), f"K3/K4 at {name} non-finite")
+    expect(e3 <= tol and e4 <= tol, f"K3/K4 at {name} disagree with their plain versions")
+    expect(e3 < g3 and e4 < g4, f"K3/K4 at {name} lie nearer the F32 kernel than their "
+                                f"plain versions at {name}")
+    expect(same, f"two K3/K4 calls at {name} differ")
+    rows[f"fit_fwd@S8_{name}"] = dict(max_abs_err=abs3, rel_err=e3, ms=ms3, plain_ms=plain3,
+                                      library_ms=lib3, **b3)
+    rows[f"fit_bwd@S8_{name}"] = dict(max_abs_err=abs4, rel_err=e4, ms=ms4, plain_ms=plain4,
+                                      library_ms=lib4, **b4)
+    del runs, plain, Fk, Fp
+    torch.cuda.empty_cache()
+
+
+def check_k5_k6_low(shape, params, gen, device, rows, name: str):
+    """K5/K6 at precision ``name`` at the training path's shapes (B=32 rows x
+    1693 points padded to 2048, no culling) against their plain versions at
+    the same precision, which run in member chunks of PLAIN_MEMBER_CHUNK
+    (their times summed over the chunks); K5 and K6 each run twice
+    (bit-identical); rows ``train_fwd@{name}``, ``train_bwd@{name}`` with
+    bounds at one tensor-core pass."""
+    import torch
+
+    from nphm_tpu_torch.models.ensemble import mirror_scale, predict_anchors
+    from nphm_tpu_torch.ops import precision
+    from nphm_tpu_torch.ops.fit_fields import active_mask, prepare_train_operands
+    from nphm_tpu_torch.ops.train_fields import (
+        _flat,
+        _unflat,
+        member_fields,
+        member_fields_plain,
+    )
+
+    cfg = shape.cfg
+    B, tile, A = 32, 512, cfg.n_members
+    xyz = torch.tensor(train_batch(B, SEED + 4), device=device)
+    N = xyz.shape[1]
+    Np = -(-N // tile) * tile
+    xyz = torch.cat([xyz, xyz[:, -1:].expand(B, Np - N, 3)], dim=1)
+    lat = (torch.randn((B, cfg.lat_dim), generator=gen) * 0.1).to(device)
+    M = B * Np
+    dF = torch.randn((A, M), generator=gen).to(device)
+    dG = torch.randn((A, 3, M), generator=gen).to(device)
+    with precision.matmul_precision(name):
+        with torch.no_grad():
+            anchors = predict_anchors(params, cfg, lat)
+            centers = torch.cat([anchors, torch.zeros_like(anchors[:, :1])], dim=1)
+            coords = (xyz[:, :, None] - centers[:, None]) * mirror_scale(cfg, device)
+            coords = coords.permute(2, 3, 0, 1).reshape(A, 3, M).contiguous()
+            layers, _ = prepare_train_operands(params, cfg, lat)
+        flat = [t.detach().clone().requires_grad_(True) for t in _flat(cfg, layers)]
+        layers = _unflat(cfg, flat)
+        coords.requires_grad_(True)
+        active = active_mask(cfg, coords, tile, 0.0)
+        ins = flat + [coords]
+        runs = []
+        for _ in range(2):
+            Fk, Gk = member_fields(cfg, layers, coords, active, tile, B)
+            phi_k = (Fk * dF).sum() + (Gk * dG).sum()
+            runs.append((Fk, Gk, *torch.autograd.grad(phi_k, ins, retain_graph=True)))
+        same = bit_identical(runs[0], runs[1])
+        kernel = runs[0]
+        del runs
+        with precision.matmul_precision("default"):
+            F32, G32 = member_fields(cfg, layers, coords, active, tile, B)
+            phi32 = (F32 * dF).sum() + (G32 * dG).sum()
+            f32 = (F32, G32, *torch.autograd.grad(phi32, ins))
+        gap = [float((k - c).detach().abs().max()) for k, c in zip(kernel, f32)]
+        del F32, G32, phi32, f32
+        with torch.no_grad():
+            ms5 = cuda_ms(lambda: member_fields(cfg, layers, coords, active, tile, B), 5)
+        ms6 = cuda_ms(lambda: torch.autograd.grad(phi_k, ins, retain_graph=True), 3)
+        # the plain versions member chunk by member chunk: every operand leads
+        # with the member axis
+        n_out = len(kernel)
+        diff, mag = [0.0] * n_out, [0.0] * n_out
+        plain5 = plain6 = 0.0
+        for m0 in range(0, A, PLAIN_MEMBER_CHUNK):
+            sl = slice(m0, m0 + PLAIN_MEMBER_CHUNK)
+            c_flat = [t.detach()[sl].clone().requires_grad_(True) for t in flat]
+            c_coords = coords.detach()[sl].clone().requires_grad_(True)
+            c_layers, c_active = _unflat(cfg, c_flat), active[:, sl].contiguous()
+            Fp, Gp = member_fields_plain(cfg, c_layers, c_coords, c_active, tile, B)
+            phi_p = (Fp * dF[sl]).sum() + (Gp * dG[sl]).sum()
+            plain = (Fp, Gp, *torch.autograd.grad(phi_p, c_flat + [c_coords],
+                                                  retain_graph=True))
+            for i, (k, p) in enumerate(zip(kernel, plain)):
+                diff[i] = max(diff[i], float((k[sl] - p).abs().max()))
+                mag[i] = max(mag[i], float(p.abs().max()))
+            plain5 += cuda_ms(lambda: member_fields_plain(cfg, c_layers, c_coords, c_active,
+                                                          tile, B), 2)
+            plain6 += cuda_ms(lambda: torch.autograd.grad(phi_p, c_flat + [c_coords],
+                                                          retain_graph=True), 2)
+            del Fp, Gp, phi_p, plain
+    rels = [d / max(m, 1e-30) for d, m in zip(diff, mag)]
+    e5, e6 = max(rels[:2]), max(rels[2:])
+    # the F32 kernel's distance, on the plain versions' scale
+    gaps = [d / max(m, 1e-30) for d, m in zip(gap, mag)]
+    g5, g6 = max(gaps[:2]), max(gaps[2:])
+    tol = TOL_LOW[name]
+    pairs = live_lanes(active, tile, B, N)
+    wb = weight_bytes(params["ensemble"], cfg)
+    flops5, flops6 = 2.0 * 2 * nphm_fmas(cfg) * pairs, 2.0 * 6 * nphm_fmas(cfg) * pairs
+    b5 = bound(flops5, pairs * 28 + wb, 1, PEAK_LOW[name])
+    b6 = bound(flops6, pairs * 40 + 2 * wb, 1, PEAK_LOW[name])
+    del kernel, phi_k, flat, layers, coords, ins
+    torch.cuda.empty_cache()
+    lib5 = low_library_ms(cfg, A, M, "fr", device, 3, name)
+    lib6 = low_library_ms(cfg, A, M, "frfwrw", device, 3, name)
+    log(f"[K5/K6 {name}] M={B}x{Np}: relative error K5 {e5:.3e}, K6 {e6:.3e} (worst of "
+        f"{n_out - 2} gradients; tol {tol:g}; from the F32 kernel K5 {g5:.3e}, K6 {g6:.3e}); "
+        f"two calls bit-identical {same}; K5 {ms5:.3f} "
+        f"ms, plain {plain5:.3f} (in member chunks of {PLAIN_MEMBER_CHUNK}), library "
+        f"{lib5:.3f}, bound {b5['bound_ms']:.3f} ({b5['bound_by']}); K6 {ms6:.3f} ms, plain "
+        f"{plain6:.3f}, library {lib6:.3f}, bound {b6['bound_ms']:.3f} ({b6['bound_by']})")
+    expect(all(d == d for d in diff), f"K5/K6 at {name} non-finite")
+    expect(e5 <= tol and e6 <= tol, f"K5/K6 at {name} disagree with their plain versions")
+    expect(e5 < g5 and e6 < g6, f"K5/K6 at {name} lie nearer the F32 kernel than their "
+                                f"plain versions at {name}")
+    expect(same, f"two K5/K6 calls at {name} differ")
+    rows[f"train_fwd@{name}"] = dict(max_abs_err=max(diff[:2]), rel_err=e5, ms=ms5,
+                                     plain_ms=plain5, library_ms=lib5, **b5)
+    rows[f"train_bwd@{name}"] = dict(max_abs_err=max(diff[2:]), rel_err=e6, ms=ms6,
+                                     plain_ms=plain6, library_ms=lib6, **b6)
+
+
+def precision_counters():
+    """Each of K3-K6's launches by precision (the wrappers' dicts)."""
+    from nphm_tpu_torch.ops.fit_fields import member_f
+    from nphm_tpu_torch.ops.train_fields import member_fields
+
+    return {"fit_fwd": member_f.launches_at, "fit_bwd": member_f.bwd_launches_at,
+            "train_fwd": member_fields.launches_at,
+            "train_bwd": member_fields.bwd_launches_at}
+
+
+def precision_main_path(models, device):
+    """Two ``IdentityTrainer`` steps (B=32, K5/K6; the second one timed) and
+    a PRECISION_FIT_STEPS-step ``fit_joint_batch`` (phase 7's 8 subjects,
+    K2-K4) at "default" and each lower precision, from the same start and
+    draws: finite, and the lower precisions' first-step and final fit
+    losses within TOL_LOW_LOSS of F32's.  Returns the kernel counters of
+    these runs and each of K3-K6's launches by precision."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.fitting import FittingConfig, fit_joint_batch
+    from nphm_tpu_torch.training.trainer import IdentityTrainer
+
+    shape, params_shape, expr, params_expr, _gen = models
+    train_ds, val_ds = identity_sets(32, 2, 32)
+    batch = next(iter(train_ds.batch_iter(seed=0)))
+    subjects = batch_observations()
+    reset_counters()
+    for per in precision_counters().values():
+        per.update({p: 0 for p in per})
+    out = {}
+    for name in ("default",) + LOW_PRECISIONS:
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = IdentityTrainer(shape, params_shape, train_config(matmul_precision=name),
+                                 train_ds, val_ds, "precision", exp_dir=tmp,
+                                 logger=_History(), seed=SEED, device=device)
+            terms = tr._train_step(tr._batch(batch), tr.lr_at(0), tr.lr_lat_at(0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = tr._train_step(tr._batch(batch), tr.lr_at(0), tr.lr_lat_at(0))
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0)
+        cfg = FittingConfig(n_steps=PRECISION_FIT_STEPS, seed=SEED, matmul_precision=name)
+        le, ls, _, hist = fit_joint_batch(shape, params_shape, expr, params_expr, subjects,
+                                          cfg=cfg, device=device, verbose=False)
+        out[name] = dict(train_loss=float(terms["loss"]),
+                         fit_loss=float(hist["loss"][-1].mean()),
+                         finite=bool(np.isfinite(hist["loss"]).all()
+                                     and all(np.isfinite(x).all() for x in le + ls)
+                                     and all(torch.isfinite(v).all() for t in (terms, again)
+                                             for v in t.values())),
+                         step_ms=step_ms, subject_steps_s=hist["steady_subject_steps_s"])
+        log(f"[precision {name}] identity step (B=32) loss {out[name]['train_loss']:.6f}, "
+            f"second step {step_ms:.2f} ms; {PRECISION_FIT_STEPS}-step "
+            f"batched fit: final mean loss {out[name]['fit_loss']:.6f}, steady "
+            f"{out[name]['subject_steps_s']:.2f} subject-steps/s")
+    counts = read_counters()
+    by_prec = {k: {p.name: n for p, n in per.items()} for k, per in precision_counters().items()}
+    log(f"[counters] phase 14 main path: {json.dumps(counts)}; by precision "
+        f"{json.dumps(by_prec)}")
+    for name in LOW_PRECISIONS:
+        expect(out[name]["finite"], f"the {name} trainer step or fit is not finite")
+        for key in ("train_loss", "fit_loss"):
+            ref = out["default"][key]
+            expect(abs(out[name][key] - ref) <= TOL_LOW_LOSS * abs(ref),
+                   f"the {name} {key} is not within {TOL_LOW_LOSS:g} of F32's")
+    for kernel, per in by_prec.items():
+        for p, n in per.items():
+            expect(n > 0, f"{kernel}'s {p} instantiation was not launched on the main path")
+    return counts, by_prec
+
+
+def npm_remat_path(npm, device):
+    """NPM stage 1 at configs/npm.yaml's widths (8x1024 trunk, B=32 rows x
+    1693 points, plain fields path): 3 ``IdentityTrainer`` steps from the
+    same start with ``remat`` on and off.  The states after them are
+    bit-equal; each run's peak device memory and step times are logged."""
+    import numpy as np
+    import torch
+
+    from nphm_tpu_torch.config import load_yaml
+    from nphm_tpu_torch.training.trainer import IdentityTrainer
+
+    shape, params_shape = npm[0], npm[1]
+    train_ds, val_ds = identity_sets(32, 2, 32)
+    batches = [next(iter(train_ds.batch_iter(seed=e))) for e in range(3)]
+    states = {}
+    for remat in (True, False):
+        cfg = load_yaml(os.path.join(ROOT, "configs", "npm.yaml"))
+        cfg["training"]["remat"] = remat
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = IdentityTrainer(shape, params_shape, cfg, train_ds, val_ds, "npm",
+                                 exp_dir=tmp, logger=_History(), seed=SEED, device=device)
+            expect(tr._fields_fn is None, "the NPM trainer did not take the plain path")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            times = []
+            for b in batches:
+                b = tr._batch(b)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr._train_step(b, tr.lr_at(0), tr.lr_lat_at(0))
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            peak = torch.cuda.max_memory_allocated(device)
+            states[remat] = _leaves(tr.state_dict())
+            del tr
+        log(f"[remat] NPM stage 1 remat={remat}: peak device memory {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} GiB above the trainer's state)")
+        log(f"[remat] NPM stage 1 remat={remat}: step ms {[round(t, 3) for t in times]} "
+            f"(steady mean {float(np.mean(times[1:])):.3f} ms, first step excluded)")
+    same = all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(states[True], states[False]))
+    log(f"[remat] NPM updates with remat on and off bit-equal: {same}")
+    expect(same, "remat changed the NPM stage-1 updates")
+
+
+def precision_path(models, npm, device, rows):
+    """Phase 14: K3-K6 at TF32 and BF16 against their plain versions, the
+    identity step and the batched fit at each precision, and remat on the
+    NPM stage 1.  Returns the main path's counters."""
+    shape, params_shape, gen = models[0], models[1], models[4]
+    for name in LOW_PRECISIONS:
+        check_k3_k4_low(shape, params_shape, gen, device, rows, name)
+        check_k5_k6_low(shape, params_shape, gen, device, rows, name)
+    counts, by_prec = precision_main_path(models, device)
+    for name in LOW_PRECISIONS:
+        p = {"high": "TF32", "bfloat16": "BF16"}[name]
+        for kernel in ("fit_fwd", "fit_bwd"):
+            rows[f"{kernel}@S8_{name}"]["launches"] = by_prec[kernel][p]
+        for kernel in ("train_fwd", "train_bwd"):
+            rows[f"{kernel}@{name}"]["launches"] = by_prec[kernel][p]
+    npm_remat_path(npm, device)
+    return counts
+
+
 def _flat_leaves(tree):
     import numpy as np
 
@@ -3299,8 +3716,12 @@ def run():
     t0 = time.perf_counter()
     dp_counts = dp_path(fitted, dp_meshes)
     log(f"[phase 13] {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    precision_counts = precision_path(models, npm, device, rows)
+    log(f"[phase 14] {time.perf_counter() - t0:.2f} s")
     paths = (fit_counts, train_counts, npm_counts, batch_counts, cli_counts, extract_counts,
-             train_cli_counts, protocol_counts, synthetic_counts, mode_counts, dp_counts)
+             train_cli_counts, protocol_counts, synthetic_counts, mode_counts, dp_counts,
+             precision_counts)
     table = []
     for name, (source, replaces) in KERNELS.items():
         # rows of the same kernel at other shapes: "ensemble_sdf@res256", ...

@@ -15,20 +15,24 @@
 //                   written as G = dF/dcoords.
 //
 // Every hidden product (the layers forward, their transposes in reverse) is
-// tc::mm64: 3xTF32 mma.sync over a point-major activation tile in shared
-// memory ([64][act_ld(width)]), the member's K-major weights staged by TMA
-// through the ring (tc_tile.cuh).  Each warp stores its raw sums; bias and
-// softplus then run as a balanced block-wide pass (a thread per column and
-// 16-row block), which in the reverse modes also turns the consumed input
-// activation into its softplus' (the reverse sweep's only use of it), so
-// the reverse epilogues are a multiply, and the reverse sweep overwrites
-// each of those with its cotangent in place.  The reverse modes keep every
-// hidden activation (184 KB at the NPHM widths: one block per SM); K3 keeps
-// two, in turn.  The head product and the reverse seed are one pass over
-// the last activation, and bias cotangents (tc::colsum64) and d(coords)
-// (point_grad) close with warp shuffle trees: every sum has a fixed order,
-// so results are deterministic.  Culled (member, tile) pairs write zeros.
+// tc::mm64 at the precision P (3xTF32 at tc::kF32, one pass on rounded
+// operands at kTF32 and kBF16): mma.sync over a point-major activation tile
+// in shared memory ([64][act_ld(width)]), the member's K-major weights
+// staged by TMA through the ring (tc_tile.cuh).  Each warp stores its raw
+// sums; bias and softplus then run as a balanced block-wide pass (a thread
+// per column and 16-row block), which in the reverse modes also turns the
+// consumed input activation into its softplus' (the reverse sweep's only use
+// of it), so the reverse epilogues are a multiply, and the reverse sweep
+// overwrites each of those with its cotangent in place.  The reverse modes
+// keep every hidden activation (184 KB at the NPHM widths: one block per
+// SM); K3 keeps two, in turn.  The head product and the reverse seed are one
+// pass over the last activation, and bias cotangents (tc::colsum64) and
+// d(coords) (point_grad) close with warp shuffle trees: every sum has a
+// fixed order, so results are deterministic.  Culled (member, tile) pairs
+// write zeros.
 #pragma once
+
+#include <type_traits>
 
 #include "mlp_tile.cuh"
 #include "tc_tile.cuh"
@@ -229,7 +233,7 @@ __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const f
 // activations (act_floats), xs [3][64], dg [3][64], dF [64], rows [64],
 // then, 1 KB aligned, the ring (tc::kRingStages stages of `stage` floats)
 // and its full and empty mbarriers.
-template <int KS, int MODE>
+template <int KS, int MODE, int P>
 __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                                      const float* __restrict__ coords,
                                      const float* __restrict__ dF,
@@ -323,9 +327,9 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
       next = fwd(i + 1);
     else if (kReverse)
       next = rev(L - 2);
-    tc::mm64<KS>(smem + ho[i - 1], ld[i - 1], fwd(i), more ? &next : nullptr, ring,
-                 [&](int, int) { return 0.f; },
-                 [&](int l, int o, float acc, float) { out[l * ldo + o] = acc; });
+    tc::mm64<KS, P>(smem + ho[i - 1], ld[i - 1], fwd(i), more ? &next : nullptr, ring,
+                    [&](int, int) { return 0.f; },
+                    [&](int l, int o, float acc, float) { out[l * ldo + o] = acc; });
     __syncthreads();
     bias_pass(tr, i, m, xs, rows, out, ldo);
     if (kReverse) {
@@ -366,9 +370,9 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
       float* prev = smem + ho[i - 1];
       const int ldv = ld[i - 1];
       const tc::Operand next = i > 1 ? rev(i - 1) : tc::Operand{};
-      tc::mm64<KS>(d, ld[i], rev(i), i > 1 ? &next : nullptr, ring,
-                   [&](int l, int k) { return prev[l * ldv + k]; },
-                   [&](int l, int k, float acc, float g) { prev[l * ldv + k] = acc * g; });
+      tc::mm64<KS, P>(d, ld[i], rev(i), i > 1 ? &next : nullptr, ring,
+                      [&](int l, int k) { return prev[l * ldv + k]; },
+                      [&](int l, int k, float acc, float g) { prev[l * ldv + k] = acc * g; });
     }
     __syncthreads();
   }
@@ -445,6 +449,18 @@ inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launc
     if (rc != 0) return rc;
   }
   return 0;
+}
+
+// f(std::integral_constant<int, P>()) for the precision code `precision`
+// (tc::Precision); cudaErrorInvalidValue for an unknown code.
+template <class F>
+inline int with_precision(int precision, F f) {
+  switch (precision) {
+    case tc::kF32: return f(std::integral_constant<int, tc::kF32>());
+    case tc::kTF32: return f(std::integral_constant<int, tc::kTF32>());
+    case tc::kBF16: return f(std::integral_constant<int, tc::kBF16>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Launch the instantiation for ln's slice width (k16 or k8) over (members,

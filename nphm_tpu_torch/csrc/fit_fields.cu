@@ -19,10 +19,12 @@
 // cotangents are not computed: the decoder is frozen during a fit.
 //
 // Both are field_tile.cuh's body on the tensor cores (modes kFitFwd and
-// kFitBwd: 3xTF32 mma.sync over 16 warps, weights staged by TMA).  Bounds
-// on this card, tensor-core operations run as 3xTF32 at 495 TFLOP/s of
-// TF32: K3 ~81k multiply-adds per point and member, K4 ~161k (the
-// recomputed forward and the reverse sweep).
+// kFitBwd: 3xTF32 mma.sync over 16 warps, weights staged by TMA), each
+// instantiated for the three product precisions (tc::Precision; the entry
+// points take its code).  Bounds on this card, tensor-core operations run
+// as 3xTF32 at 495 TFLOP/s of TF32 (one pass at the lower precisions): K3
+// ~81k multiply-adds per point and member, K4 ~161k (the recomputed
+// forward and the reverse sweep).
 //
 // mma.sync rather than wgmma: wgmma takes its .tf32 A operand from shared
 // memory (both halves of 184 KB of activations: no room) or from registers,
@@ -40,25 +42,27 @@ namespace {
 
 namespace field = nphm::field;
 
-template <int KS>
+template <int KS, int P>
 __global__ void __launch_bounds__(field::kThreads, 1)
 fit_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                const float* __restrict__ coords, const int* __restrict__ active,
                float* __restrict__ F, int64_t M, int n_members, int cull_tile,
                int act_floats, int stage) {
-  field::tile<KS, field::kFitFwd>(tr, maps, coords, nullptr, active, F, nullptr, nullptr,
-                                  nullptr, M, n_members, cull_tile, act_floats, stage);
+  field::tile<KS, field::kFitFwd, P>(tr, maps, coords, nullptr, active, F, nullptr,
+                                     nullptr, nullptr, M, n_members, cull_tile, act_floats,
+                                     stage);
 }
 
-template <int KS>
+template <int KS, int P>
 __global__ void __launch_bounds__(field::kThreads, 1)
 fit_bwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                const float* __restrict__ coords, const float* __restrict__ dF,
                const int* __restrict__ active, float* __restrict__ dcoords,
                float* __restrict__ part0, float* __restrict__ part_s, int64_t M,
                int n_members, int cull_tile, int act_floats, int stage) {
-  field::tile<KS, field::kFitBwd>(tr, maps, coords, dF, active, nullptr, dcoords, part0,
-                                  part_s, M, n_members, cull_tile, act_floats, stage);
+  field::tile<KS, field::kFitBwd, P>(tr, maps, coords, dF, active, nullptr, dcoords,
+                                     part0, part_s, M, n_members, cull_tile, act_floats,
+                                     stage);
 }
 
 }  // namespace
@@ -66,19 +70,22 @@ fit_bwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
 extern "C" int nphm_fit_lanes_per_block() { return field::kRows; }
 
 // coords: [A][3][M]; active: [M / cull_tile][A]; F: [A][M].  M and
-// cull_tile are multiples of 64.
+// cull_tile are multiples of 64; precision: a tc::Precision code.
 extern "C" int nphm_fit_fwd(const nphm::Trunk* tr, const float* coords,
                             const int* active, float* F, int64_t M,
-                            int n_members, int cull_tile, void* stream) {
+                            int n_members, int cull_tile, int precision, void* stream) {
   if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
   const int rc = field::setup(tr, n_members, false, &maps, &ln);
   if (rc != 0) return rc;
-  return field::launch(fit_fwd_kernel<16>, fit_fwd_kernel<8>, ln, n_members, M, stream,
-                       *tr, maps, coords, active, F, M, n_members, cull_tile,
-                       ln.act_floats, ln.stage);
+  return field::with_precision(precision, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return field::launch(fit_fwd_kernel<16, P>, fit_fwd_kernel<8, P>, ln, n_members, M,
+                         stream, *tr, maps, coords, active, F, M, n_members, cull_tile,
+                         ln.act_floats, ln.stage);
+  });
 }
 
 // + dF [A][M] -> dcoords [A][3][M], d_bias0 [A][n_rows][H0], d_bias_s
@@ -88,16 +95,20 @@ extern "C" int nphm_fit_fwd(const nphm::Trunk* tr, const float* coords,
 extern "C" int nphm_fit_bwd(const nphm::Trunk* tr, const float* coords, const float* dF,
                             const int* active, float* dcoords, float* part0,
                             float* part_s, float* d_bias0, float* d_bias_s, int64_t M,
-                            int n_members, int n_rows, int cull_tile, void* stream) {
+                            int n_members, int n_rows, int cull_tile, int precision,
+                            void* stream) {
   if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
   int rc = field::setup(tr, n_members, true, &maps, &ln);
   if (rc != 0) return rc;
-  rc = field::launch(fit_bwd_kernel<16>, fit_bwd_kernel<8>, ln, n_members, M, stream, *tr,
-                     maps, coords, dF, active, dcoords, part0, part_s, M, n_members,
-                     cull_tile, ln.act_floats, ln.stage);
+  rc = field::with_precision(precision, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return field::launch(fit_bwd_kernel<16, P>, fit_bwd_kernel<8, P>, ln, n_members, M,
+                         stream, *tr, maps, coords, dF, active, dcoords, part0, part_s, M,
+                         n_members, cull_tile, ln.act_floats, ln.stage);
+  });
   if (rc != 0) return rc;
   // each row's bias cotangent: that row's block partials in a fixed order
   const int64_t n_blk = M / field::kRows;

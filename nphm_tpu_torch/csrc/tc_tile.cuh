@@ -18,6 +18,10 @@
 // - warpgroup-level wgmma m64n128k8 .tf32 reading 128-byte-swizzled K-major
 //   operands that TMA (cp.async.bulk.tensor) stages, signalled through
 //   mbarriers (K7).
+//
+// mm64 and K6's lane contraction also run at two lower precisions (a
+// template parameter, ops/precision.py): one mma.sync pass on operands
+// rounded to TF32, or to bf16 held in TF32 registers.
 #pragma once
 
 #include <cuda.h>
@@ -58,6 +62,26 @@ __device__ __forceinline__ void split_tf32(float x, float& big, float& small) {
 __device__ __forceinline__ void split_mma(float x, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// Product precisions (ops/precision.py Precision): kF32 the 3xTF32 split;
+// kTF32 one pass on the split's big halves (x rounded to nearest TF32, ties
+// away: ops/tf32.py::tf32_round); kBF16 one pass on x rounded to bf16,
+// nearest even (cvt.rn.bf16.f32), held in a TF32 register.  A bf16 value
+// is a TF32 value (the same 8-bit exponent, 7 of TF32's 10 mantissa bits),
+// so the MMA reads it exactly.
+enum Precision : int { kF32 = 0, kTF32 = 1, kBF16 = 2 };
+
+// An fp32 operand's bits as a one-pass product at precision P reads them.
+template <int P>
+__device__ __forceinline__ uint32_t round_operand(uint32_t x) {
+  if constexpr (P == kTF32) {
+    return (x + 0x1000u) & 0xffffe000u;
+  } else {
+    uint16_t h;
+    asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(__uint_as_float(x)));
+    return (uint32_t)h << 16;
+  }
 }
 
 // Softplus(beta) and its derivative through the activation h = softplus(z)
@@ -271,6 +295,18 @@ __device__ __forceinline__ void split_mma(uint32_t x, uint32_t& big, uint32_t& s
   split_mma(__uint_as_float(x), big, small);
 }
 
+// An operand fragment element as the product at precision P reads it: its
+// split at kF32 (big * big + big * small + small * big), else its rounding
+// in big alone (small unused).
+template <int P>
+__device__ __forceinline__ void load_operand(uint32_t x, uint32_t& big, uint32_t& small) {
+  if constexpr (P == kF32) {
+    split_mma(x, big, small);
+  } else {
+    big = round_operand<P>(x);
+  }
+}
+
 // One product's B operand for mm64: K-major rows row0 .. row0 + N - 1 of
 // the tensor behind `map` (boxes of KS columns x round8(N) rows,
 // tc::make_map), K deep.
@@ -327,7 +363,7 @@ __device__ __forceinline__ void ring_issue(Ring& ring, const Operand& cur,
 // One warp's share of mm64: its NJ n8 tiles (grp + 8j, j < NJ) over the
 // m16 tiles m_base / 16 + {0, 1}; NJ is uniform in the warp, so the MMAs
 // run without per-tile predicates.  NJ = 0 still takes part in the ring.
-template <int KS, int NJ, class Pre, class Epi>
+template <int KS, int NJ, int P, class Pre, class Epi>
 __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand& b,
                                           const Operand* next, Ring& ring, Pre& pre,
                                           Epi& epi) {
@@ -379,28 +415,30 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 #pragma unroll
         for (int kk = 0; kk < KH; kk += 8) {
           if (k0 + kk < K8) {
-            uint32_t ab[kMT][4], as[kMT][4], bb[NJ > 0 ? NJ : 1][2], bs[NJ > 0 ? NJ : 1][2];
+            uint32_t ab[kMT][4], as[kMT][4], bb[NJ][2], bs[NJ][2];
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt) {
               uint32_t r[4];
               ldsm_x4(r, a_lane + mt * 16 * lda + k0 + kk);
 #pragma unroll
-              for (int e = 0; e < 4; ++e) split_mma(r[e], ab[mt][e], as[mt][e]);
+              for (int e = 0; e < 4; ++e) load_operand<P>(r[e], ab[mt][e], as[mt][e]);
             }
 #pragma unroll
             for (int j = 0; j < NJ; ++j) {
-              split_mma(bf[j][kk / 4], bb[j][0], bs[j][0]);
-              split_mma(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
+              load_operand<P>(bf[j][kk / 4], bb[j][0], bs[j][0]);
+              load_operand<P>(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
             }
-            // small*big, big*small, then big*big: each pass's MMAs independent
+            if constexpr (P == kF32) {
+              // small*big, big*small, then big*big: each pass's MMAs independent
 #pragma unroll
-            for (int j = 0; j < NJ; ++j)
+              for (int j = 0; j < NJ; ++j)
 #pragma unroll
-              for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], as[mt], bb[j]);
+                for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], as[mt], bb[j]);
 #pragma unroll
-            for (int j = 0; j < NJ; ++j)
+              for (int j = 0; j < NJ; ++j)
 #pragma unroll
-              for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bs[j]);
+                for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bs[j]);
+            }
 #pragma unroll
             for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -441,7 +479,8 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 }
 
 // For t < 64, n < N: epi(t, n, sum_k A[t * lda + k] * B[n][k], pre(t, n)),
-// with 3xTF32 mma.sync.  pre runs for every output before any epi, so its
+// with 3xTF32 mma.sync (P = kF32; one pass on rounded operands at kTF32 and
+// kBF16).  pre runs for every output before any epi, so its
 // loads are not held behind epi's stores; it may return any value type
 // (K6's reverse pass gathers two floats).  A: [64][lda] in shared memory,
 // 16-byte aligned, columns [K, K rounded up to 8) zero, lda = act_ld(K or
@@ -458,18 +497,18 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 // scheduler.  Requires N <= kMaxN and blockDim.x == 32 * kMmaWarps; every
 // thread must call it, and the caller synchronises the block before it
 // writes what A holds or reads what epi wrote.
-template <int KS, class Pre, class Epi>
+template <int KS, int P = kF32, class Pre, class Epi>
 __device__ __forceinline__ void mm64(const float* A, int lda, const Operand& b,
                                      const Operand* next, Ring& ring, Pre pre, Epi epi) {
   const int grp = threadIdx.x >> 6;
   const int NT = (b.N + 7) >> 3;
   const int nj = NT > grp ? (NT - grp + kGroups - 1) / kGroups : 0;
   switch (nj) {
-    case 0: mm64_warp<KS, 0>(A, lda, b, next, ring, pre, epi); break;
-    case 1: mm64_warp<KS, 1>(A, lda, b, next, ring, pre, epi); break;
-    case 2: mm64_warp<KS, 2>(A, lda, b, next, ring, pre, epi); break;
-    case 3: mm64_warp<KS, 3>(A, lda, b, next, ring, pre, epi); break;
-    default: mm64_warp<KS, kNT>(A, lda, b, next, ring, pre, epi); break;
+    case 0: mm64_warp<KS, 0, P>(A, lda, b, next, ring, pre, epi); break;
+    case 1: mm64_warp<KS, 1, P>(A, lda, b, next, ring, pre, epi); break;
+    case 2: mm64_warp<KS, 2, P>(A, lda, b, next, ring, pre, epi); break;
+    case 3: mm64_warp<KS, 3, P>(A, lda, b, next, ring, pre, epi); break;
+    default: mm64_warp<KS, kNT, P>(A, lda, b, next, ring, pre, epi); break;
   }
   ring.slices += n_slices<KS>(b.K);
 }

@@ -37,7 +37,9 @@
 //  - lane_contract (a fixed split of the lanes) and sum_splits give dW_i =
 //    sum over lanes of zbar_i h_{i-1}^T + pbar_i q_{i-1}^T.
 // No float atomics anywhere: every sum has a fixed order, so results are
-// bit-identical run to run.
+// bit-identical run to run.  Every product kernel is instantiated for the
+// three product precisions (tc::Precision: 3xTF32, or one pass on TF32- or
+// bf16-rounded operands); the entry points take its code.
 //
 // Bounds on this card: K5 ~2x and K6 ~6x the primal multiply-adds (81.8k
 // per point and member at production width) as 3xTF32 at 495 TFLOP/s of
@@ -81,14 +83,14 @@ constexpr int kCtrRows = tc::kRows;  // output rows a contraction block owns
 // K5 is field_tile.cuh's body in mode kTrainFwd (grid and shared memory
 // there): 3xTF32 mma.sync over 64-point tiles of 16 warps, weights staged
 // by TMA, the head product and the seed in one pass.
-template <int KS>
+template <int KS, int P>
 __global__ void __launch_bounds__(field::kThreads, 1)
 train_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                  const float* __restrict__ coords, const int* __restrict__ active,
                  float* __restrict__ F, float* __restrict__ G, int64_t M, int n_members,
                  int cull_tile, int act_floats, int stage) {
-  field::tile<KS, field::kTrainFwd>(tr, maps, coords, nullptr, active, F, G, nullptr,
-                                    nullptr, M, n_members, cull_tile, act_floats, stage);
+  field::tile<KS, field::kTrainFwd, P>(tr, maps, coords, nullptr, active, F, G, nullptr,
+                                       nullptr, M, n_members, cull_tile, act_floats, stage);
 }
 
 // Scratch rows of one chunk member, each of length 2M (lanes [0, M) then
@@ -175,7 +177,7 @@ __device__ __forceinline__ void point_wgrad(const float* z, const float* p, int 
 // mm64's pre hook, in the epilogue).  Three [64][act_ld(hmax)] buffers
 // rotate: h_i goes to the free one, q_i to the one h_{i-1} vacated.
 // Culled (member, cull tile) pairs write zero rows.
-template <int KS>
+template <int KS, int P>
 __global__ void __launch_bounds__(field::kThreads, 1)
 train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                      const float* __restrict__ coords, const float* __restrict__ dG,
@@ -264,8 +266,8 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
     const float* qp = smem + qb;  // q_{i-1}
     const tc::Operand op = fwd(i);
     const float* __restrict__ wp = i == skip ? tr.wp + m * tr.wp_ms : nullptr;
-    tc::mm64<KS>(hq, ldp, op, &op, ring, [&](int, int) { return 0.f; },
-                 [&](int l, int o, float acc, float) { h[l * ld + o] = acc; });
+    tc::mm64<KS, P>(hq, ldp, op, &op, ring, [&](int, int) { return 0.f; },
+                    [&](int l, int o, float acc, float) { h[l * ld + o] = acc; });
     __syncthreads();
     {
       const float* __restrict__ b = tr.b[i] + m * tr.b_ms[i];
@@ -293,16 +295,16 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
     }
     __syncthreads();
     const tc::Operand next = i + 1 < L - 1 ? fwd(i + 1) : tc::Operand{};
-    tc::mm64<KS>(qp, ldp, op, i + 1 < L - 1 ? &next : nullptr, ring,
-                 [&](int l, int o) { return tc::softplus_grad_fast(h[l * ld + o], beta); },
-                 [&](int l, int o, float acc, float g) {
-                   if (wp != nullptr) {
-                     acc = fmaf(__ldg(wp + o * 3), vs[l], acc);
-                     acc = fmaf(__ldg(wp + o * 3 + 1), vs[T + l], acc);
-                     acc = fmaf(__ldg(wp + o * 3 + 2), vs[2 * T + l], acc);
-                   }
-                   hq[l * ld + o] = g * acc;
-                 });
+    tc::mm64<KS, P>(qp, ldp, op, i + 1 < L - 1 ? &next : nullptr, ring,
+                    [&](int l, int o) { return tc::softplus_grad_fast(h[l * ld + o], beta); },
+                    [&](int l, int o, float acc, float g) {
+                      if (wp != nullptr) {
+                        acc = fmaf(__ldg(wp + o * 3), vs[l], acc);
+                        acc = fmaf(__ldg(wp + o * 3 + 1), vs[T + l], acc);
+                        acc = fmaf(__ldg(wp + o * 3 + 2), vs[2 * T + l], acc);
+                      }
+                      hq[l * ld + o] = g * acc;
+                    });
     __syncthreads();
     float* R = sc + sr.hq[i] * M2;
     store_rows(h, ld, H, R, M2, p0);
@@ -328,7 +330,7 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
 // (point_wgrad) and d(coords) (field::point_grad) close with fixed-order
 // shuffle trees.  Writes d(coords), per-block partials and the [zbar_i |
 // pbar_i] rows of every hidden product; culled pairs write zeros.
-template <int KS>
+template <int KS, int P>
 __global__ void __launch_bounds__(field::kThreads, 1)
 train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                      const float* __restrict__ coords, const float* __restrict__ dF,
@@ -447,21 +449,21 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
       float* u = smem + fo;  // vbar_{i-1}, then zbar_{i-1}
       const tc::Operand op = rev(i);
       field::zero_pad(u, ldv, Hin);
-      tc::mm64<KS>(p, ld, op, &op, ring, [&](int, int) { return 0.f; },
-                   [&](int l, int k, float acc, float) { u[l * ldv + k] = acc; });
+      tc::mm64<KS, P>(p, ld, op, &op, ring, [&](int, int) { return 0.f; },
+                      [&](int l, int k, float acc, float) { u[l * ldv + k] = acc; });
       __syncthreads();
       field::zero_pad(p, ldv, Hin);  // pbar_i's buffer now takes pbar_{i-1}
       const tc::Operand next = i > 1 ? rev(i - 1) : tc::Operand{};
-      tc::mm64<KS>(z, ld, op, i > 1 ? &next : nullptr, ring,
-                   [&](int l, int k) {
-                     return make_float2(Hr[k * M2 + p0 + l], Hr[k * M2 + M + p0 + l]);
-                   },
-                   [&](int l, int k, float acc, float2 hq) {
-                     const float e = __expf(-beta * hq.x);
-                     const float vb = u[l * ldv + k];
-                     u[l * ldv + k] = acc * (1.f - e) + vb * beta * e * hq.y;
-                     p[l * ldv + k] = vb * (1.f - e);
-                   });
+      tc::mm64<KS, P>(z, ld, op, i > 1 ? &next : nullptr, ring,
+                      [&](int l, int k) {
+                        return make_float2(Hr[k * M2 + p0 + l], Hr[k * M2 + M + p0 + l]);
+                      },
+                      [&](int l, int k, float acc, float2 hq) {
+                        const float e = __expf(-beta * hq.x);
+                        const float vb = u[l * ldv + k];
+                        u[l * ldv + k] = acc * (1.f - e) + vb * beta * e * hq.y;
+                        p[l * ldv + k] = vb * (1.f - e);
+                      });
       const int old_z = zo;
       zo = fo;
       fo = old_z;
@@ -479,9 +481,9 @@ __host__ __device__ __forceinline__ int ctr_stage_floats(int C) {
 }
 
 // One warp's share of a contraction block: its NJ n8 tiles (grp + 8j) of
-// the C columns over the m16 tiles of its 32 rows, as tc::mm64_warp, with
-// both operands streamed through the ring.
-template <int NJ>
+// the C columns over the m16 tiles of its 32 rows, as tc::mm64_warp (at
+// precision P), with both operands streamed through the ring.
+template <int NJ, int P>
 __device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUtensorMap* mb,
                                               int row_a, int row_b, int C, int sl0, int n_sl,
                                               float* buf, int stage, uint64_t* full,
@@ -538,21 +540,23 @@ __device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUten
             tc::ldsm_x4(r, a + tc::swz<kCtrSlice>(m_base + mt * 16 + (lane & 15),
                                                   kh + kk + ((lane >> 4) << 2)));
 #pragma unroll
-            for (int e = 0; e < 4; ++e) tc::split_mma(r[e], ab[mt][e], as[mt][e]);
+            for (int e = 0; e < 4; ++e) tc::load_operand<P>(r[e], ab[mt][e], as[mt][e]);
           }
 #pragma unroll
           for (int j = 0; j < NJ; ++j) {
-            tc::split_mma(bf[j][kk / 4], bb[j][0], bs[j][0]);
-            tc::split_mma(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
+            tc::load_operand<P>(bf[j][kk / 4], bb[j][0], bs[j][0]);
+            tc::load_operand<P>(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
           }
+          if constexpr (P == tc::kF32) {
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
+            for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int mt = 0; mt < tc::kMT; ++mt) tc::mma_tf32(acc[j][mt], as[mt], bb[j]);
+              for (int mt = 0; mt < tc::kMT; ++mt) tc::mma_tf32(acc[j][mt], as[mt], bb[j]);
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
+            for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int mt = 0; mt < tc::kMT; ++mt) tc::mma_tf32(acc[j][mt], ab[mt], bs[j]);
+              for (int mt = 0; mt < tc::kMT; ++mt) tc::mma_tf32(acc[j][mt], ab[mt], bs[j]);
+          }
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -583,8 +587,9 @@ __device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUten
 // read from device memory about once and re-read from L2 by the block's
 // neighbours over the other row tiles (row tiles fastest in the grid).
 // Both operands stream by TMA (128-byte swizzle) through a kCtrStages
-// ring, 3xTF32 mma.sync as mm64; the splits' partials are summed in a
-// fixed order by sum_splits.
+// ring, mma.sync at precision P as mm64; the splits' partials are summed
+// in a fixed order by sum_splits.
+template <int P>
 __global__ void __launch_bounds__(field::kThreads, 1)
 lane_contract(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
               float* __restrict__ part, int scr_rows, int row_a, int row_b, int R, int C,
@@ -615,11 +620,11 @@ lane_contract(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CU
   const int NT = (C + 7) >> 3;
   const int nj = NT > grp ? (NT - grp + tc::kGroups - 1) / tc::kGroups : 0;
   switch (nj) {
-    case 0: contract_warp<0>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
-    case 1: contract_warp<1>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
-    case 2: contract_warp<2>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
-    case 3: contract_warp<3>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
-    default: contract_warp<tc::kNT>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    case 0: contract_warp<0, P>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    case 1: contract_warp<1, P>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    case 2: contract_warp<2, P>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    case 3: contract_warp<3, P>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
+    default: contract_warp<tc::kNT, P>(&ma, &mb, ra, rb, C, sl0, n_sl, buf, stage, full, empty, out, r0, R); break;
   }
 }
 
@@ -646,19 +651,22 @@ extern "C" int nphm_train_split_k() { return kSplitK; }
 
 // coords: [A][3][M]; active: [M / cull_tile][A] -> F [A][M], G [A][3][M].
 // M and cull_tile are multiples of 64; every hidden product is at most
-// tc::kMaxN wide.
+// tc::kMaxN wide; precision: a tc::Precision code.
 extern "C" int nphm_train_fwd(const nphm::Trunk* tr, const float* coords,
                               const int* active, float* F, float* G, int64_t M,
-                              int n_members, int cull_tile, void* stream) {
+                              int n_members, int cull_tile, int precision, void* stream) {
   if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
   const int rc = field::setup(tr, n_members, true, &maps, &ln);
   if (rc != 0) return rc;
-  return field::launch(train_fwd_kernel<16>, train_fwd_kernel<8>, ln, n_members, M,
-                       stream, *tr, maps, coords, active, F, G, M, n_members, cull_tile,
-                       ln.act_floats, ln.stage);
+  return field::with_precision(precision, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return field::launch(train_fwd_kernel<16, P>, train_fwd_kernel<8, P>, ln, n_members, M,
+                         stream, *tr, maps, coords, active, F, G, M, n_members, cull_tile,
+                         ln.act_floats, ln.stage);
+  });
 }
 
 // One chunk of members [m0, m0 + n_chunk) of the backward: + dF [A][M],
@@ -668,12 +676,11 @@ extern "C" int nphm_train_fwd(const nphm::Trunk* tr, const float* coords,
 // group)] (the split partials, and first the per-row partial sums).  M and
 // cull_tile are multiples of 64, each row's lanes of 64; every hidden
 // product is at most tc::kMaxN wide.
-extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
-                              const float* coords, const float* dF,
-                              const float* dG, const int* active,
-                              float* dcoords, float* part, float* scr,
-                              float* gsp, int64_t M, int n_members, int n_rows,
-                              int cull_tile, int hsum, int m0, int n_chunk, void* stream) {
+template <int P>
+static int train_bwd(const nphm::Trunk* tr, const TrainGrads* g, const float* coords,
+                     const float* dF, const float* dG, const int* active, float* dcoords,
+                     float* part, float* scr, float* gsp, int64_t M, int n_members, int n_rows,
+                     int cull_tile, int hsum, int m0, int n_chunk, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int L = (int)tr->n_layers;
   const int skip = (int)tr->skip;
@@ -695,11 +702,11 @@ extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
   int rc = field::setup(tr, n_members, true, &maps, &ln, 3, kPointFloats);
   if (rc != 0) return rc;
   const int buf_floats = ln.act_floats / 3;
-  rc = field::launch(train_bwd_fwd_kernel<16>, train_bwd_fwd_kernel<8>, ln, n_chunk, M,
+  rc = field::launch(train_bwd_fwd_kernel<16, P>, train_bwd_fwd_kernel<8, P>, ln, n_chunk, M,
                      stream, *tr, maps, coords, dG, active, scr, M, n_members, cull_tile,
                      buf_floats, ln.stage, m0, scr_ms);
   if (rc != 0) return rc;
-  rc = field::launch(train_bwd_rev_kernel<16>, train_bwd_rev_kernel<8>, ln, n_chunk, M,
+  rc = field::launch(train_bwd_rev_kernel<16, P>, train_bwd_rev_kernel<8, P>, ln, n_chunk, M,
                      stream, *tr, maps, coords, dF, dG, active, dcoords, part, scr, M,
                      n_members, cull_tile, hsum, buf_floats, ln.stage, m0, n_part, scr_ms);
   if (rc != 0) return rc;
@@ -734,7 +741,8 @@ extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
   int cmax = 8;
   for (int i = 1; i < L - 1; ++i) cmax = tr->n_in[i] > cmax ? (int)tr->n_in[i] : cmax;
   const int smem = 4 * kCtrStages * ctr_stage_floats(cmax) + 1024 + 16 * kCtrStages;
-  err = cudaFuncSetAttribute(lane_contract, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(lane_contract<P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = (int64_t)n_chunk * sr.total;
   const int n_sl = (int)((M2 + kCtrSlice - 1) / kCtrSlice);
@@ -746,15 +754,32 @@ extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
     const int C = (int)tr->n_in[i];
     rc = tc::make_map(&mb, scr, (int)M2, rows, (int)M2, kCtrSlice, (C + 7) & ~7);
     if (rc != 0) return rc;
-    const dim3 grid((unsigned)((R + kCtrRows - 1) / kCtrRows), kSplitK, (unsigned)n_chunk);
-    lane_contract<<<grid, field::kThreads, smem, st>>>(ma, mb, gsp, (int)sr.total,
-                                                       (int)sr.zp[i], (int)sr.hq[i - 1], R, C,
-                                                       n_sl, ctr_stage_floats(C));
+    const dim3 grid((unsigned)((R + kCtrRows - 1) / kCtrRows), kSplitK,
+                    (unsigned)n_chunk);
+    lane_contract<P><<<grid, field::kThreads, smem, st>>>(
+        ma, mb, gsp, (int)sr.total, (int)sr.zp[i], (int)sr.hq[i - 1], R, C, n_sl,
+        ctr_stage_floats(C));
     const int64_t rc_el = (int64_t)R * C;
-    sum_splits<<<n_grid(n_chunk * rc_el), 256, 0, st>>>(gsp, g->dw[i] + (int64_t)m0 * rc_el,
-                                                        n_chunk, rc_el);
+    sum_splits<<<n_grid(n_chunk * rc_el), 256, 0, st>>>(
+        gsp, g->dw[i] + (int64_t)m0 * rc_el, n_chunk, rc_el);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The backward at the precision code `precision` (tc::Precision):
+// train_bwd<P> above.
+extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
+                              const float* coords, const float* dF,
+                              const float* dG, const int* active,
+                              float* dcoords, float* part, float* scr,
+                              float* gsp, int64_t M, int n_members, int n_rows,
+                              int cull_tile, int hsum, int m0, int n_chunk, int precision,
+                              void* stream) {
+  return field::with_precision(precision, [&](auto p) {
+    return train_bwd<decltype(p)::value>(tr, g, coords, dF, dG, active, dcoords, part, scr,
+                                         gsp, M, n_members, n_rows, cull_tile, hsum, m0,
+                                         n_chunk, stream);
+  });
 }

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import torch
 
 from nphm_tpu_torch.models.fields import point_jacobian
+from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.utils.math import inv3x3
 
 
@@ -37,7 +38,7 @@ def broyden(g: Callable, x_init, j_inv_init, max_steps: int = 15,
     x = x_init.detach()
     j_inv = j_inv_init.detach()
     gx = g(x)
-    update = -torch.einsum("pij,pj->pi", j_inv, gx)
+    update = -precision.einsum("pij,pj->pi", j_inv, gx)
     best_norm = torch.linalg.norm(gx, dim=-1)
     x_best = x
     active = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
@@ -62,13 +63,13 @@ def broyden(g: Callable, x_init, j_inv_init, max_steps: int = 15,
         new_active = (best_norm > cvg_thresh) & (gx_norm < dvg_thresh)
 
         # good-Broyden rank-1 update of J^-1
-        vT = torch.einsum("pi,pij->pj", delta_x, j_inv)
-        a = delta_x - torch.einsum("pij,pj->pi", j_inv, delta_gx)
-        b = torch.einsum("pj,pj->p", vT, delta_gx)
+        vT = precision.einsum("pi,pij->pj", delta_x, j_inv)
+        a = delta_x - precision.einsum("pij,pj->pi", j_inv, delta_gx)
+        b = precision.einsum("pj,pj->p", vT, delta_gx)
         b = torch.where(b >= 0, b + eps, b - eps)
         u = a / b[:, None]
         j_inv = j_inv + torch.where(m[:, :, None], u[:, :, None] * vT[:, None, :], 0.0)
-        update = -torch.einsum("pij,pj->pi", j_inv, gx)
+        update = -precision.einsum("pij,pj->pi", j_inv, gx)
         active = new_active
         group_iters += live.to(torch.int32)
         it += 1
@@ -164,5 +165,5 @@ def ift_correction(decoder_expr, params_expr, xc_opt, cond, anchors, j_inv=None)
         ))
     j_inv = j_inv.detach()
     correction = preds_posed - preds_posed.detach()
-    correction = torch.einsum("bnij,bnj->bni", -j_inv, correction)
+    correction = precision.einsum("bnij,bnj->bni", -j_inv, correction)
     return xc_opt + correction

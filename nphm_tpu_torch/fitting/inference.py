@@ -38,6 +38,7 @@ import torch
 
 from nphm_tpu_torch.fitting.broyden import ift_correction, search
 from nphm_tpu_torch.models.ensemble import predict_anchors
+from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.parallel.mesh import (
     data_parallel,
     device_of,
@@ -105,6 +106,15 @@ class FittingConfig:
     ift_jacobian: str = "broyden"
     # correspondence search through K2: "auto" (CUDA), "on", "off"
     fused_search: str = "auto"
+    # matmul precision of each step's loss and gradient (JAX's names,
+    # ops/precision.py): "default" is fp32, as the reference's torch
+    # matmuls; "high" rounds every product's operands to TF32, "bfloat16"
+    # to bf16 (the models' products, the plain search, K3/K4; K2 stays
+    # 3xTF32, as the JAX package's K2 forces HIGHEST)
+    matmul_precision: str = "default"
+
+    def __post_init__(self):
+        precision.resolve(self.matmul_precision)
 
     @property
     def total_steps(self) -> int:
@@ -611,9 +621,11 @@ def fit_joint_batch(
 
         lat_s = lat_shape.detach().requires_grad_(True)
         lat_e = lat_expr.detach().requires_grad_(True)
-        loss, aux = loss_fn(lat_s, lat_e, params_shape, params_expr, points,
-                            lam_mat[:, j], clamp_arr[j], obs_row, pt, xc0, jinv0, bsteps)
-        g_s, g_e = torch.autograd.grad(loss, (lat_s, lat_e))
+        with precision.matmul_precision(cfg.matmul_precision):
+            loss, aux = loss_fn(lat_s, lat_e, params_shape, params_expr, points,
+                                lam_mat[:, j], clamp_arr[j], obs_row, pt, xc0, jinv0,
+                                bsteps)
+            g_s, g_e = torch.autograd.grad(loss, (lat_s, lat_e))
         if warm:
             store.view(-1, 3).index_copy_(0, at, aux["xc_opt"].reshape(-1, 3))
         if warm_j:
@@ -720,19 +732,20 @@ def fit_identity(
         obs = padded[sel[:, None], idx]
         lat_s = lat_shape.detach().requires_grad_(True)
         lat_b = lat_s.expand(nb, -1)
-        if fields is not None:
-            sdf = fields(params_shape, obs, lat_b)
-        else:
-            sdf, _ = decoder_shape.apply(params_shape, obs, lat_b,
-                                         training=cfg.training_mode_shape)
-        l = torch.abs(sdf[..., 0]).reshape(-1)
-        terms = {"surface": _masked_mean(l, (l < clamp_arr[j]).to(l.dtype))}
-        terms.update({k: v[0] for k, v in _shape_regularizers(
-            decoder_shape, lat_s, cfg.unobserved_anchors).items()})
-        loss = 0.0
-        for i, k in enumerate(lam_keys):
-            loss = loss + lam_mat[i, j] * terms[k]
-        (g,) = torch.autograd.grad(loss, (lat_s,))
+        with precision.matmul_precision(cfg.matmul_precision):
+            if fields is not None:
+                sdf = fields(params_shape, obs, lat_b)
+            else:
+                sdf, _ = decoder_shape.apply(params_shape, obs, lat_b,
+                                             training=cfg.training_mode_shape)
+            l = torch.abs(sdf[..., 0]).reshape(-1)
+            terms = {"surface": _masked_mean(l, (l < clamp_arr[j]).to(l.dtype))}
+            terms.update({k: v[0] for k, v in _shape_regularizers(
+                decoder_shape, lat_s, cfg.unobserved_anchors).items()})
+            loss = 0.0
+            for i, k in enumerate(lam_keys):
+                loss = loss + lam_mat[i, j] * terms[k]
+            (g,) = torch.autograd.grad(loss, (lat_s,))
         opt.step(lat_shape, g, float(lr_arr[j]))
         terms["loss"] = loss
         hist[j] = torch.stack([torch.as_tensor(terms[k], device=device).detach().reshape(())

@@ -19,6 +19,7 @@ from nphm_tpu_torch.models.mlp import (
     softplus_beta,
     torch_linear_init,
 )
+from nphm_tpu_torch.ops import precision
 
 SQRT2 = 1.4142135623730951
 
@@ -65,8 +66,8 @@ def init_deepsdf(gen: torch.Generator, cfg: DeepSDFConfig, device=None):
 
 
 def _mm(x, w):
-    """x [..., i] @ w[o, i]^T."""
-    return torch.matmul(x, w.transpose(0, 1))
+    """x [..., i] @ w[o, i]^T (at ``precision.current()``)."""
+    return precision.matmul(x, w.transpose(0, 1))
 
 
 def _trunk(params, cfg: DeepSDFConfig, pe, lat):

@@ -27,6 +27,7 @@ import torch
 
 from nphm_tpu_torch.models.deepsdf import DeepSDFConfig, apply_deepsdf, init_deepsdf
 from nphm_tpu_torch.models.mlp import linear, torch_linear_init
+from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.utils.math import safe_l2norm
 
 MODES = ("compress", "glob_only", "expr_only", "interpolate", "GNN")
@@ -122,7 +123,7 @@ def _interp_local(q, anchors, loc_lat, var: float = 0.1**2):
     d = safe_l2norm(anchors[:, None, :, :] - q[:, :, None, :], dim=-1)
     w = torch.exp(-((d + 1e-5) ** 2) / var)
     w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-6)
-    return torch.einsum("bnk,bkc->bnc", w, loc_lat)
+    return precision.einsum("bnk,bkc->bnc", w, loc_lat)
 
 
 def _local_codes(cfg: DeformationConfig, lat):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from nphm_tpu_torch.models.mlp import linear, mlp_dims, softplus_beta, torch_linear_init
+from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.utils.math import safe_l2norm
 from nphm_tpu_torch.utils.params import default_device
 
@@ -159,22 +160,23 @@ def ensemble_trunk(params_ensemble, cfg: NPHMConfig, coords, cond):
         w = _expand(cfg, params_ensemble[i]["w"])  # [A, out, in]
         b = _expand(cfg, params_ensemble[i]["b"])  # [A, out]
         if i == 0:
-            bias = torch.einsum("abc,aoc->abo", cond_a, w[:, :, ds:]) + b[:, None, :]
-            x = torch.einsum("abni,aoi->abno", coords, w[:, :, :ds]) + bias[:, :, None, :]
+            bias = precision.einsum("abc,aoc->abo", cond_a, w[:, :, ds:]) + b[:, None, :]
+            x = (precision.einsum("abni,aoi->abno", coords, w[:, :, :ds])
+                 + bias[:, :, None, :])
         elif i == skip_in:
             h = w.shape[2] - cfg.d_in
-            bias = torch.einsum("abc,aoc->abo", cond_a, w[:, :, h + ds :]) / SQRT2
+            bias = precision.einsum("abc,aoc->abo", cond_a, w[:, :, h + ds :]) / SQRT2
             x = (
                 (
-                    torch.einsum("abni,aoi->abno", x, w[:, :, :h])
-                    + torch.einsum("abni,aoi->abno", coords, w[:, :, h : h + ds])
+                    precision.einsum("abni,aoi->abno", x, w[:, :, :h])
+                    + precision.einsum("abni,aoi->abno", coords, w[:, :, h : h + ds])
                 )
                 / SQRT2
                 + bias[:, :, None, :]
                 + b[:, None, None, :]
             )
         else:
-            x = torch.einsum("abni,aoi->abno", x, w) + b[:, None, None, :]
+            x = precision.einsum("abni,aoi->abno", x, w) + b[:, None, None, :]
         if i < n - 1:
             x = softplus_beta(x, cfg.beta)
     return x

@@ -12,6 +12,9 @@ reference ``diff_operators.py:69-79``).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
+
+from nphm_tpu_torch.ops import precision
 
 
 def _grad_input(xyz):
@@ -31,6 +34,27 @@ def value_and_spatial_gradient(field_fn, xyz):
         values = field_fn(q)
         (grads,) = torch.autograd.grad(values.sum(), q, create_graph=True)
     return values, grads
+
+
+def rematerialized(field_fn):
+    """``field_fn`` whose forward is recomputed in the backward pass instead
+    of kept (``torch.utils.checkpoint``, non-reentrant, so the recompute is
+    differentiable again under ``create_graph``; the counterpart of
+    ``jax.checkpoint``).  The recompute runs at the forward's matmul
+    precision; the field must draw no random numbers (none of the decoders
+    does), so no RNG state is saved."""
+
+    def field(xyz):
+        p = precision.current()
+
+        def run(x):
+            with precision.matmul_precision(p):
+                return field_fn(x)
+
+        return torch.utils.checkpoint.checkpoint(run, xyz, use_reentrant=False,
+                                                 preserve_rng_state=False)
+
+    return field
 
 
 def spatial_gradient(field_fn, xyz):

@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.utils.params import default_device
 
 
@@ -42,8 +43,8 @@ def geometric_last_layer_init(gen, in_features: int, out_features: int,
 
 
 def linear(params, x):
-    """y = x @ W^T + b over the last axis."""
-    return torch.matmul(x, params["w"].transpose(0, 1)) + params["b"]
+    """y = x @ W^T + b over the last axis (at ``precision.current()``)."""
+    return precision.matmul(x, params["w"].transpose(0, 1)) + params["b"]
 
 
 def softplus_beta(x, beta: float = 100.0, threshold: float = 20.0):

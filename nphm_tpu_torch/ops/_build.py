@@ -77,18 +77,18 @@ _SIGNATURES = {
         _i64, _i64, _i32, _f32, _f32, _f32, _vp,
     ],
     "nphm_fit_fwd": [
-        ctypes.POINTER(Trunk), _vp, _vp, _vp, _i64, _i32, _i32, _vp,
+        ctypes.POINTER(Trunk), _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp,
     ],
     "nphm_fit_bwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-        _i32, _i32, _i32, _vp,
+        _i32, _i32, _i32, _i32, _vp,
     ],
     "nphm_train_fwd": [
-        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp,
+        ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp,
     ],
     "nphm_train_bwd": [
         ctypes.POINTER(Trunk), _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-        _i32, _i32, _i32, _i32, _i32, _i32, _vp,
+        _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
     ],
     "nphm_trunk_layer": [
         _vp, _vp, _i32, _i32, _vp, _vp, _i32, _vp, _i32, _vp, _vp, _vp, _vp, _i32,

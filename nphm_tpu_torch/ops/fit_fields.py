@@ -11,8 +11,10 @@ member-local coordinates [A, 3, M]:
 - K4 takes F's cotangent and returns d(coords) and the per-(member, row)
   cotangents of the two folded biases; weight cotangents are ``None``.
 Both run one block per (member, 64-point tile), their products on the
-tensor cores in 3xTF32 (``ops/tf32.py``) over the K-major weights below,
-staged in K slices through shared memory (``csrc/field_tile.cuh``).
+tensor cores over the K-major weights below, staged in K slices through
+shared memory (``csrc/field_tile.cuh``), at ``precision.current()``: in
+3xTF32 (``ops/tf32.py``) at F32, in one pass on TF32- or bf16-rounded
+operands at TF32 and BF16.  K4 runs at its forward's precision.
 
 Symmetric sharing and the mirror sign are expanded outside (torch autograd
 maps the bias and coordinate cotangents back to the latent), and so are the
@@ -24,7 +26,8 @@ is never culled).
 ``member_f`` runs K3/K4 through a ``torch.autograd.Function`` for CUDA
 tensors and ``member_f_plain`` (differentiated by autograd) for CPU
 tensors; ``member_f.launches`` and ``member_f.bwd_launches`` count kernel
-launches.
+launches, ``member_f.launches_at`` and ``member_f.bwd_launches_at`` the
+launches of each precision's instantiation.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from nphm_tpu_torch.models.ensemble import (
     predict_anchors,
 )
 from nphm_tpu_torch.models.mlp import softplus_beta
-from nphm_tpu_torch.ops import _build
+from nphm_tpu_torch.ops import _build, precision
 
 SQRT2 = 1.4142135623730951
 DEFAULT_TILE = 512  # cull-tile size (points sharing one member predicate)
@@ -71,12 +74,12 @@ def prepare_train_operands(params, cfg: NPHMConfig, lat):
         w = params["ensemble"][i]["w"][idx]  # [A, out, in]
         b = params["ensemble"][i]["b"][idx]  # [A, out]
         if i == 0:
-            bias = torch.einsum("bac,aoc->abo", cond, w[:, :, ds:]) + b[:, None, :]
+            bias = precision.einsum("bac,aoc->abo", cond, w[:, :, ds:]) + b[:, None, :]
             layers.append({"wp": w[:, :, :ds], "b": bias})
         elif i == skip_in:
             h = w.shape[2] - cfg.d_in
             bias = (
-                torch.einsum("bac,aoc->abo", cond, w[:, :, h + ds :]) / SQRT2
+                precision.einsum("bac,aoc->abo", cond, w[:, :, h + ds :]) / SQRT2
                 + b[:, None, :]
             )
             layers.append({"w": w[:, :, :h] / SQRT2, "wp": w[:, :, h : h + ds] / SQRT2,
@@ -114,7 +117,11 @@ def member_f_plain(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: i
     """Plain PyTorch F [A, M] of every member (culled tiles are 0).
 
     coords: [A, 3, M] with M = n_rows * Np; layers from prepare_train_operands.
-    Differentiable through torch autograd.
+    Differentiable through torch autograd.  The hidden products, the ones
+    the kernels run on the tensor cores, round as K3-K6 do at
+    ``precision.current()`` (``precision.einsum``, in every derivative);
+    layer 0's and the skip layer's point terms and the head product stay
+    fp32, as the kernels' FMA passes compute them.
     """
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
@@ -127,12 +134,12 @@ def member_f_plain(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: i
             z = torch.einsum("abni,aoi->abno", x, lay["wp"]) + lay["b"][:, :, None, :]
         elif i == skip_in:
             z = (
-                torch.einsum("abni,aoi->abno", h, lay["w"])
+                precision.einsum("abni,aoi->abno", h, lay["w"])
                 + torch.einsum("abni,aoi->abno", x, lay["wp"])
                 + lay["b"][:, :, None, :]
             )
         else:
-            z = torch.einsum("abni,aoi->abno", h, lay["w"]) + lay["b"][:, None, None, :]
+            z = precision.einsum("abni,aoi->abno", h, lay["w"]) + lay["b"][:, None, None, :]
         h = softplus_beta(z, cfg.beta)
     f = torch.einsum("abni,aoi->abno", h, layers[-1]["w"])[..., 0].reshape(A, M)
     live = active.T.repeat_interleave(tile, dim=1).bool()  # [A, M]
@@ -200,6 +207,7 @@ class _MemberF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bias0, bias_s, coords, cfg, layers, active, tile, n_rows):
         lib = _build.lib()
+        prec = precision.current()
         A, _, M = coords.shape
         row_len = M // n_rows
         tr, keep, _hmax, _hsum = _fit_trunk(cfg, layers, n_rows, row_len)
@@ -209,18 +217,19 @@ class _MemberF(torch.autograd.Function):
         F = torch.empty((A, M), device=coords.device)
         rc = lib.nphm_fit_fwd(
             ctypes.byref(tr), coords_c.data_ptr(), active.data_ptr(), F.data_ptr(),
-            M, A, tile, _build.stream_ptr(coords.device),
+            M, A, tile, int(prec), _build.stream_ptr(coords.device),
         )
         _build.check(rc, "nphm_fit_fwd")
         member_f.launches += 1
+        member_f.launches_at[prec] += 1
         ctx.save_for_backward(coords_c)
-        ctx.fit = (tr, keep, active, tile, n_rows)
+        ctx.fit = (tr, keep, active, tile, n_rows, prec)
         return F
 
     @staticmethod
     def backward(ctx, dF):
         (coords,) = ctx.saved_tensors
-        tr, keep, active, tile, n_rows = ctx.fit
+        tr, keep, active, tile, n_rows, prec = ctx.fit
         lib = _build.lib()
         A, _, M = coords.shape
         n_blk = M // FIT_LANES
@@ -236,11 +245,12 @@ class _MemberF(torch.autograd.Function):
         rc = lib.nphm_fit_bwd(
             ctypes.byref(tr), coords.data_ptr(), dF.data_ptr(), active.data_ptr(),
             dcoords.data_ptr(), part0.data_ptr(), part_s.data_ptr(),
-            d_bias0.data_ptr(), d_bias_s.data_ptr(), M, A, n_rows, tile,
+            d_bias0.data_ptr(), d_bias_s.data_ptr(), M, A, n_rows, tile, int(prec),
             _build.stream_ptr(dev),
         )
         _build.check(rc, "nphm_fit_bwd")
         member_f.bwd_launches += 1
+        member_f.bwd_launches_at[prec] += 1
         return d_bias0, d_bias_s, dcoords, None, None, None, None, None
 
 
@@ -267,6 +277,8 @@ def member_f(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: int):
 
 member_f.launches = 0
 member_f.bwd_launches = 0
+member_f.launches_at = precision.counters()
+member_f.bwd_launches_at = precision.counters()
 
 
 def morton_codes(xyz):

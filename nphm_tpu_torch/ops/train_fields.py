@@ -20,13 +20,20 @@ biases (``fit_fields.prepare_train_operands``):
   per-lane cotangents and inputs over the lanes, split in a fixed order,
   for the hidden weight gradients.
 
+Every tensor-core product runs at ``precision.current()`` (3xTF32 at F32,
+one pass on TF32- or bf16-rounded operands at TF32 and BF16); K6 runs at
+its forward's precision, and the plain versions round their hidden
+products alike (``fit_fields.member_f_plain``).
+
 Symmetric sharing, mirroring, the head bias and the Gaussian blend stay in
 torch, where autograd provides every derivative around the boundary.
 
 ``member_fields`` runs K5/K6 through a ``torch.autograd.Function`` for
 CUDA tensors and ``member_fields_plain`` (differentiated by autograd with
 ``create_graph``) for CPU tensors; ``member_fields.launches`` and
-``member_fields.bwd_launches`` count kernel launches.
+``member_fields.bwd_launches`` count kernel launches,
+``member_fields.launches_at`` and ``member_fields.bwd_launches_at`` the
+launches of each precision's instantiation.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from nphm_tpu_torch.models.ensemble import NPHMConfig, blend_weights, mirror_scale, predict_anchors
-from nphm_tpu_torch.ops import _build
+from nphm_tpu_torch.ops import _build, precision
 from nphm_tpu_torch.ops.fit_fields import (
     CULL_EPS_TRAIN,
     DEFAULT_TILE,
@@ -123,6 +130,7 @@ class _MemberFields(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, active, tile, n_rows, coords, *flat):
         lib = _build.lib()
+        prec = precision.current()
         A, _, M = coords.shape
         layers = _unflat(cfg, [t.detach() for t in flat])
         tr, keep, _hmax, hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows)
@@ -133,20 +141,21 @@ class _MemberFields(torch.autograd.Function):
         G = torch.empty((A, 3, M), device=coords.device)
         rc = lib.nphm_train_fwd(
             ctypes.byref(tr), coords_c.data_ptr(), active.data_ptr(), F.data_ptr(),
-            G.data_ptr(), M, A, tile, _build.stream_ptr(coords.device),
+            G.data_ptr(), M, A, tile, int(prec), _build.stream_ptr(coords.device),
         )
         _build.check(rc, "nphm_train_fwd")
         member_fields.launches += 1
+        member_fields.launches_at[prec] += 1
         ctx.save_for_backward(coords_c)
         ctx.train = (cfg, tr, keep, active, tile, n_rows, hsum,
-                     [tuple(t.shape) for t in flat])
+                     [tuple(t.shape) for t in flat], prec)
         return F, G
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dF, dG):
         (coords,) = ctx.saved_tensors
-        cfg, tr, keep, active, tile, n_rows, hsum, flat_shapes = ctx.train
+        cfg, tr, keep, active, tile, n_rows, hsum, flat_shapes, prec = ctx.train
         lib = _build.lib()
         dev = coords.device
         A, _, M = coords.shape
@@ -189,10 +198,11 @@ class _MemberFields(torch.autograd.Function):
                 ctypes.byref(tr), ctypes.byref(g), coords.data_ptr(), dF.data_ptr(),
                 dG.data_ptr(), active.data_ptr(), dcoords.data_ptr(), part.data_ptr(),
                 scr.data_ptr(), gsp.data_ptr(), M, A, n_rows, tile, hsum, m0,
-                min(chunk, A - m0), stream,
+                min(chunk, A - m0), int(prec), stream,
             )
             _build.check(rc, "nphm_train_bwd")
         member_fields.bwd_launches += 1
+        member_fields.bwd_launches_at[prec] += 1
         return (None, None, None, None, dcoords, *grads)
 
 
@@ -215,6 +225,8 @@ def member_fields(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: in
 
 member_fields.launches = 0
 member_fields.bwd_launches = 0
+member_fields.launches_at = precision.counters()
+member_fields.bwd_launches_at = precision.counters()
 
 
 def apply_nphm_train(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TILE,

@@ -19,7 +19,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from nphm_tpu_torch.models.fields import value_and_spatial_gradient
+from nphm_tpu_torch.models.fields import rematerialized, value_and_spatial_gradient
 from nphm_tpu_torch.utils.math import safe_l2norm, sq_norm
 
 
@@ -43,16 +43,26 @@ def latent_pair_consistency(decoder, lat):
 
 
 def identity_sdf_loss(decoder, params, batch: Dict[str, torch.Tensor], lat, *,
-                      training: bool = True, fields_fn=None) -> Dict[str, torch.Tensor]:
+                      training: bool = True, remat: bool = False,
+                      fields_fn=None) -> Dict[str, torch.Tensor]:
     """IGR identity-SDF loss dict.
 
     batch keys: points_face [B,Nf,3], normals_face, points_non_face [B,Nn,3],
     normals_non_face, sup_grad_far [B,Fa,3], sup_grad_near [B,Ne,3],
     gt_anchors [B,K,3] (ensemble decoder).  lat: [B, lat_dim].
 
+    remat: recompute the decoder forward in the backward pass
+    (``models.fields.rematerialized``, as the JAX loss wraps its field in
+    ``jax.checkpoint``).  The gradients are the same.  Off by default,
+    unlike JAX: torch recomputes a checkpointed forward once per backward
+    call, and the eikonal term's double backprop makes two, so on an H100
+    the NPM stage-1 step takes about 1.3x the time and 1.1x the peak
+    memory.
+
     fields_fn: optional ``(params, pts [B,N,3], lat) -> (sdf [B,N,1],
     grads [B,N,3], anchors)`` replacing the decoder + autograd gradient
-    pair (the hook for ``ops.train_fields.apply_nphm_train``, K5/K6).
+    pair (the hook for ``ops.train_fields.apply_nphm_train``, K5/K6).  It
+    keeps what it needs itself, so ``remat`` is ignored.
     """
     pf, pn = batch["points_face"], batch["points_non_face"]
     far, near = batch["sup_grad_far"], batch["sup_grad_near"]
@@ -65,6 +75,8 @@ def identity_sdf_loss(decoder, params, batch: Dict[str, torch.Tensor], lat, *,
         def field(x):
             return decoder.apply(params, x, lat, training=training)[0]
 
+        if remat:
+            field = rematerialized(field)
         sdf, grads = value_and_spatial_gradient(field, pts)
         # anchors are point-independent
         _, anchors = decoder.apply(params, pts[:, :1], lat, training=training)

@@ -33,12 +33,21 @@ epoch (after validation) and training resumes at epoch N + 1, so a resumed
 run equals an uninterrupted one.  (The JAX trainer writes it before
 validation and repeats epoch N, so its checkpoint of epoch N holds the
 validation latents before that epoch's update; see ``checkpoints``.)
-Matmul precision is fp32 with TF32 off;
-``matmul_precision`` accepts only "default".
+
+``training.matmul_precision`` (JAX's names, default "default") scopes each
+train and validation step with ``ops.precision.matmul_precision``, as the
+JAX trainers scope their jitted steps: "default" is fp32 with TF32 off,
+"high" rounds every product's operands to TF32 and "bfloat16" to bf16
+(the models' products and K3-K6 alike; ``ops/precision.py``).
+``training.remat`` recomputes the decoder forward in the backward pass on
+the plain fields path (``losses.identity_sdf_loss``); K5/K6 ignore it.  It
+is off by default, where the JAX package's default is on: in torch the
+recompute costs the step time and memory (``losses.identity_sdf_loss``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 from nphm_tpu_torch import env_paths
+from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.parallel.mesh import (
     all_reduce_mean,
     barrier,
@@ -103,6 +113,17 @@ def tree_rebuild(tree, leaves):
     return build(tree)
 
 
+def _scoped(step):
+    """Run a trainer step at the trainer's matmul precision."""
+
+    @functools.wraps(step)
+    def scoped(self, *args, **kwargs):
+        with precision.matmul_precision(self.matmul_precision):
+            return step(self, *args, **kwargs)
+
+    return scoped
+
+
 class _TermAccumulator:
     """Sum per-step metric dicts on the device; one host pull per epoch."""
 
@@ -146,8 +167,8 @@ class AutoDecoderTrainer:
         self.device = device_of(device, mesh)
         self.main = is_main(self.mesh)
         self.cfg = cfg["training"]
-        if self.cfg.get("matmul_precision", "default") != "default":
-            raise ValueError("matmul_precision: only 'default' (fp32, TF32 off) is supported")
+        self.matmul_precision = precision.resolve(
+            self.cfg.get("matmul_precision", "default"))
         self.lambdas = dict(self.cfg["lambdas"])
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
@@ -237,6 +258,7 @@ class AutoDecoderTrainer:
         all_reduce_mean(flat, self.mesh)
         return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
+    @_scoped
     def _train_step(self, batch, lr: float, lr_lat: float):
         idx = batch["idx"].reshape(-1).long()
         with torch.no_grad():
@@ -278,6 +300,7 @@ class AutoDecoderTrainer:
         terms["gnorm_latents"] = torch.sqrt(torch.sum(g_table * g_table))
         return terms
 
+    @_scoped
     def _val_step(self, batch, lr_lat: float):
         idx = batch["idx"].reshape(-1).long()
         with torch.no_grad():
@@ -446,6 +469,7 @@ class IdentityTrainer(AutoDecoderTrainer):
     def _loss(self, params, table, batch, *, val: bool, rows=None):
         idx = batch["idx"].reshape(-1)
         terms = identity_sdf_loss(self.decoder, params, batch, table[idx], training=True,
+                                  remat=self.cfg.get("remat", False),
                                   fields_fn=self._fields_fn)
         loss = sum(self.lambdas[k] * terms[k] for k in terms)
         return loss, terms

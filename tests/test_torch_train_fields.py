@@ -229,7 +229,7 @@ def test_lanes_per_block_match_csrc():
     assert "nphm_train_fwd_lanes_per_block() { return field::kRows; }" in train
     assert "nphm_train_lanes_per_block() { return field::kRows; }" in train
     for kernel in ("train_bwd_fwd_kernel", "train_bwd_rev_kernel"):
-        assert f"field::launch({kernel}<16>, {kernel}<8>, ln, n_chunk, M," in train
+        assert f"field::launch({kernel}<16, P>, {kernel}<8, P>, ln, n_chunk, M," in train
     assert "const int64_t n_blk = M / field::kRows;" in train
     assert ff.FIT_LANES == tf.FWD_LANES == tf.BWD_LANES == rows == 64
     assert ff.DEFAULT_TILE % rows == 0
