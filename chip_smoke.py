@@ -151,9 +151,13 @@ Phases, in order; any failure exits non-zero:
    memory, step times and walls are logged beside the one-process ones.
    With two cards or more the same runs over NCCL, one rank a card (up to
    4); with one card the log says NCCL was not run.
-14. Matmul precision and remat: K3 and K4 at the batched launch shape
-   (40 x 1024) and K5, K6 at B=32 x 2048, at TF32 ("high") and BF16
-   ("bfloat16"), each against its plain version at the same precision
+14. Matmul precision and remat: each K3-K6 instantiation's registers,
+   local bytes, shared memory (held against the host's mirror,
+   ``fit_fields.smem_bytes``) and blocks per SM; K3 and K4 at the batched
+   launch shape (40 x 1024) and K5, K6 at B=32 x 2048, at TF32 ("high")
+   and BF16 ("bfloat16"), each timed beside the F32 instantiation on the
+   same inputs (the rows' ``f32_ms`` and ``vs_f32``) and held against its
+   plain version at the same precision
    (TOL_LOW, relative to the plain output's magnitude; K5/K6's plain
    versions in member chunks) and nearer to it than to the F32 kernel's
    output on the same inputs, two calls bit-identical, timed beside the
@@ -873,15 +877,17 @@ def check_k5_k6(shape, params, gen, device, rows):
     rows["train_bwd"] = dict(max_abs_err=e6, ms=ms6, plain_ms=plain6, library_ms=lib6, **b6)
 
 
-def k6_scratch_bytes(cfg, M: int) -> int:
-    """Bytes K6's scratch moves for one member over M lanes: its first pass
+def k6_scratch_bytes(cfg, M: int, name: str = "default") -> int:
+    """Bytes K6's scratch moves for one member over M lanes in the layout of
+    precision ``name`` (``train_fields.scratch_traffic``): its first pass
     writes the [h | q] rows of every hidden layer, the second reads them and
     writes the [zbar | pbar] rows of every hidden product, the contraction
-    reads all of them; each row holds 2M floats."""
-    shapes, _ = cfg.layer_shapes
-    outs = [n_out for _, n_out in shapes[:-1]]
-    hq, zp = sum(outs), sum(outs[1:])
-    return 4 * 2 * M * (2 * hq + zp + (hq + zp))
+    reads all of them; each row holds 2M floats (bf16 for [zbar | pbar] at
+    "bfloat16")."""
+    from nphm_tpu_torch.ops import precision
+    from nphm_tpu_torch.ops.train_fields import scratch_traffic
+
+    return scratch_traffic(cfg, M, precision.resolve(name))
 
 
 def baddbmm_chain_ms(cfg, n_members: int, M: int, passes: str, device, reps: int,
@@ -3397,6 +3403,13 @@ def check_k3_k4_low(shape, params, gen, device, rows, name: str):
             plain3 = cuda_ms(lambda: member_f_plain(cfg, layers, coords, active, tile, B), 5)
         ms4 = cuda_ms(lambda: torch.autograd.grad(Fk, ins, dF, retain_graph=True), 10)
         plain4 = cuda_ms(lambda: torch.autograd.grad(Fp, ins, dF, retain_graph=True), 5)
+        # the F32 instantiations on the same inputs, timed beside them
+        with precision.matmul_precision("default"):
+            with torch.no_grad():
+                f32_3 = cuda_ms(lambda: member_f(cfg, layers, coords, active, tile, B), 10)
+            F32 = member_f(cfg, layers, coords, active, tile, B)
+            f32_4 = cuda_ms(lambda: torch.autograd.grad(F32, ins, dF, retain_graph=True), 10)
+            del F32
     tol = TOL_LOW[name]
     same = bit_identical(runs[0], runs[1])
     pairs = live_lanes(active, tile, B, N)
@@ -3407,18 +3420,21 @@ def check_k3_k4_low(shape, params, gen, device, rows, name: str):
     lib3 = low_library_ms(cfg, A, M, "f", device, 10, name)
     lib4 = low_library_ms(cfg, A, M, "fr", device, 10, name)
     log(f"[K3/K4 {name}] M={B}x{Np}: relative error K3 {e3:.3e}, K4 {e4:.3e} (tol {tol:g}; "
-        f"from the F32 kernel K3 {g3:.3e}, K4 {g4:.3e}); two calls bit-identical {same}; K3 {ms3:.3f} ms, plain {plain3:.3f}, library "
-        f"{lib3:.3f}, bound {b3['bound_ms']:.3f} ({b3['bound_by']}); K4 {ms4:.3f} ms, plain "
-        f"{plain4:.3f}, library {lib4:.3f}, bound {b4['bound_ms']:.3f} ({b4['bound_by']})")
+        f"from the F32 kernel K3 {g3:.3e}, K4 {g4:.3e}); two calls bit-identical {same}; "
+        f"K3 {ms3:.3f} ms (F32 {f32_3:.3f}, ratio {ms3 / f32_3:.3f}), plain {plain3:.3f}, "
+        f"library {lib3:.3f} (ratio {ms3 / lib3:.3f}), bound {b3['bound_ms']:.3f} "
+        f"({b3['bound_by']}); K4 {ms4:.3f} ms (F32 {f32_4:.3f}, ratio {ms4 / f32_4:.3f}), "
+        f"plain {plain4:.3f}, library {lib4:.3f} (ratio {ms4 / lib4:.3f}), bound "
+        f"{b4['bound_ms']:.3f} ({b4['bound_by']})")
     expect(bool(all(torch.isfinite(t).all() for t in runs[0])), f"K3/K4 at {name} non-finite")
     expect(e3 <= tol and e4 <= tol, f"K3/K4 at {name} disagree with their plain versions")
     expect(e3 < g3 and e4 < g4, f"K3/K4 at {name} lie nearer the F32 kernel than their "
                                 f"plain versions at {name}")
     expect(same, f"two K3/K4 calls at {name} differ")
     rows[f"fit_fwd@S8_{name}"] = dict(max_abs_err=abs3, rel_err=e3, ms=ms3, plain_ms=plain3,
-                                      library_ms=lib3, **b3)
+                                      library_ms=lib3, f32_ms=f32_3, vs_f32=ms3 / f32_3, **b3)
     rows[f"fit_bwd@S8_{name}"] = dict(max_abs_err=abs4, rel_err=e4, ms=ms4, plain_ms=plain4,
-                                      library_ms=lib4, **b4)
+                                      library_ms=lib4, f32_ms=f32_4, vs_f32=ms4 / f32_4, **b4)
     del runs, plain, Fk, Fp
     torch.cuda.empty_cache()
 
@@ -3475,8 +3491,12 @@ def check_k5_k6_low(shape, params, gen, device, rows, name: str):
         with precision.matmul_precision("default"):
             F32, G32 = member_fields(cfg, layers, coords, active, tile, B)
             phi32 = (F32 * dF).sum() + (G32 * dG).sum()
-            f32 = (F32, G32, *torch.autograd.grad(phi32, ins))
-        gap = [float((k - c).detach().abs().max()) for k, c in zip(kernel, f32)]
+            f32 = (F32, G32, *torch.autograd.grad(phi32, ins, retain_graph=True))
+            gap = [float((k - c).detach().abs().max()) for k, c in zip(kernel, f32)]
+            # the F32 instantiations on the same inputs, timed beside them
+            with torch.no_grad():
+                f32_5 = cuda_ms(lambda: member_fields(cfg, layers, coords, active, tile, B), 5)
+            f32_6 = cuda_ms(lambda: torch.autograd.grad(phi32, ins, retain_graph=True), 3)
         del F32, G32, phi32, f32
         with torch.no_grad():
             ms5 = cuda_ms(lambda: member_fields(cfg, layers, coords, active, tile, B), 5)
@@ -3518,21 +3538,27 @@ def check_k5_k6_low(shape, params, gen, device, rows, name: str):
     torch.cuda.empty_cache()
     lib5 = low_library_ms(cfg, A, M, "fr", device, 3, name)
     lib6 = low_library_ms(cfg, A, M, "frfwrw", device, 3, name)
+    scr = A * k6_scratch_bytes(cfg, M, name)
     log(f"[K5/K6 {name}] M={B}x{Np}: relative error K5 {e5:.3e}, K6 {e6:.3e} (worst of "
         f"{n_out - 2} gradients; tol {tol:g}; from the F32 kernel K5 {g5:.3e}, K6 {g6:.3e}); "
-        f"two calls bit-identical {same}; K5 {ms5:.3f} "
-        f"ms, plain {plain5:.3f} (in member chunks of {PLAIN_MEMBER_CHUNK}), library "
-        f"{lib5:.3f}, bound {b5['bound_ms']:.3f} ({b5['bound_by']}); K6 {ms6:.3f} ms, plain "
-        f"{plain6:.3f}, library {lib6:.3f}, bound {b6['bound_ms']:.3f} ({b6['bound_by']})")
+        f"two calls bit-identical {same}; K5 {ms5:.3f} ms (F32 {f32_5:.3f}, ratio "
+        f"{ms5 / f32_5:.3f}), plain {plain5:.3f} (in member chunks of {PLAIN_MEMBER_CHUNK}), "
+        f"library {lib5:.3f} (ratio {ms5 / lib5:.3f}), bound {b5['bound_ms']:.3f} "
+        f"({b5['bound_by']}); K6 {ms6:.3f} ms (F32 {f32_6:.3f}, ratio {ms6 / f32_6:.3f}), "
+        f"plain {plain6:.3f}, library {lib6:.3f} (ratio {ms6 / lib6:.3f}), bound "
+        f"{b6['bound_ms']:.3f} ({b6['bound_by']}); K6's scratch moves {scr / 1e9:.2f} GB "
+        f"({scr / PEAK_HBM_BYTES_S * 1e3:.3f} ms at {PEAK_HBM_BYTES_S / 1e12:g} TB/s)")
     expect(all(d == d for d in diff), f"K5/K6 at {name} non-finite")
     expect(e5 <= tol and e6 <= tol, f"K5/K6 at {name} disagree with their plain versions")
     expect(e5 < g5 and e6 < g6, f"K5/K6 at {name} lie nearer the F32 kernel than their "
                                 f"plain versions at {name}")
     expect(same, f"two K5/K6 calls at {name} differ")
     rows[f"train_fwd@{name}"] = dict(max_abs_err=max(diff[:2]), rel_err=e5, ms=ms5,
-                                     plain_ms=plain5, library_ms=lib5, **b5)
+                                     plain_ms=plain5, library_ms=lib5, f32_ms=f32_5,
+                                     vs_f32=ms5 / f32_5, **b5)
     rows[f"train_bwd@{name}"] = dict(max_abs_err=max(diff[2:]), rel_err=e6, ms=ms6,
-                                     plain_ms=plain6, library_ms=lib6, **b6)
+                                     plain_ms=plain6, library_ms=lib6, f32_ms=f32_6,
+                                     vs_f32=ms6 / f32_6, **b6)
 
 
 def precision_counters():
@@ -3654,11 +3680,46 @@ def npm_remat_path(npm, device):
     expect(same, "remat changed the NPM stage-1 updates")
 
 
+def occupancy_report(shape, params, device):
+    """Registers and local (stack) bytes a thread, shared memory and blocks
+    per SM of K3-K6's instantiations at each precision, as the built library
+    reports them for the NPHM widths; each launch's shared memory must equal
+    the host's mirror (``fit_fields.smem_bytes``) and leave a block
+    resident."""
+    import torch
+
+    from nphm_tpu_torch.ops import fit_fields as ff
+    from nphm_tpu_torch.ops import precision
+    from nphm_tpu_torch.ops.train_fields import occupancy
+
+    cfg = shape.cfg
+    layers, _ = ff.prepare_train_operands(params, cfg, torch.zeros((2, cfg.lat_dim),
+                                                                   device=device))
+    for kernel, key, sized in (("fit_fwd", "fit_fwd", "fit_fwd"),
+                               ("fit_bwd", "fit_bwd", "fit_bwd"),
+                               ("train_fwd", "train_fwd", "train_fwd"),
+                               ("train_bwd_fwd", "train_bwd", "train_bwd"),
+                               ("train_bwd_rev", "train_bwd", "train_bwd"),
+                               ("lane_contract", "train_bwd", "lane_contract")):
+        for p in precision.Precision:
+            occ = occupancy(kernel, cfg, layers, 2, 64, p)
+            mirror = ff.smem_bytes(sized, cfg, ff.ROUTES[key][p])
+            log(f"[occupancy] {kernel} at {p.name} (route {occ['route']}): "
+                f"{occ['registers']} registers, {occ['local_bytes']} local (stack) bytes a "
+                f"thread, {occ['smem_bytes']} B shared memory (host mirror {mirror}), "
+                f"{occ['blocks_per_sm']} block(s) per SM")
+            expect(occ["smem_bytes"] == mirror,
+                   f"{kernel} at {p.name}: the host's shared-memory mirror disagrees")
+            expect(occ["blocks_per_sm"] >= 1, f"{kernel} at {p.name}: no block fits an SM")
+
+
 def precision_path(models, npm, device, rows):
-    """Phase 14: K3-K6 at TF32 and BF16 against their plain versions, the
-    identity step and the batched fit at each precision, and remat on the
-    NPM stage 1.  Returns the main path's counters."""
+    """Phase 14: K3-K6's instantiations' occupancy, K3-K6 at TF32 and BF16
+    against their plain versions, the identity step and the batched fit at
+    each precision, and remat on the NPM stage 1.  Returns the main path's
+    counters."""
     shape, params_shape, gen = models[0], models[1], models[4]
+    occupancy_report(shape, params_shape, device)
     for name in LOW_PRECISIONS:
         check_k3_k4_low(shape, params_shape, gen, device, rows, name)
         check_k5_k6_low(shape, params_shape, gen, device, rows, name)

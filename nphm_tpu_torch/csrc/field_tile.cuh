@@ -15,8 +15,9 @@
 //                   written as G = dF/dcoords.
 //
 // Every hidden product (the layers forward, their transposes in reverse) is
-// tc::mm64 at the precision P (3xTF32 at tc::kF32, one pass on rounded
-// operands at kTF32 and kBF16): mma.sync over a point-major activation tile
+// tc::mm64 at the route P (3xTF32 at tc::kF32, one pass on rounded
+// operands at kTF32 and kBF16, one bf16 MMA a K step of 16 on bf16 weights
+// at kBF16Mma, whose activation rows pad to 16): mma.sync over a point-major activation tile
 // in shared memory ([64][act_ld(width)]), the member's K-major weights
 // staged by TMA through the ring (tc_tile.cuh).  Each warp stores its raw
 // sums; bias and softplus then run as a balanced block-wide pass (a thread
@@ -156,10 +157,11 @@ __device__ __forceinline__ void init_ring(const tc::Ring& ring) {
   }
 }
 
-// Zero columns [w, round8(w)) of a [64][ld] activation: the products read
-// activation columns up to the next multiple of 8.
-__device__ __forceinline__ void zero_pad(float* h, int ld, int w) {
-  const int pad = ((w + 7) & ~7) - w;
+// Zero columns [w, w rounded up to kp) of a [64][ld] activation: the
+// products read activation columns up to the next multiple of their K step
+// (tc::k_pad: 8, or 16 for kBF16Mma).
+__device__ __forceinline__ void zero_pad(float* h, int ld, int w, int kp = 8) {
+  const int pad = ((w + kp - 1) & -kp) - w;
   for (int it = threadIdx.x; it < pad * kRows; it += blockDim.x)
     h[(it / pad) * ld + w + it % pad] = 0.f;
 }
@@ -169,7 +171,7 @@ __device__ __forceinline__ void zero_pad(float* h, int ld, int w) {
 // zeroed.  A thread per output column and 16-row block, its rows
 // independent.
 __device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float* xs,
-                                            const int* rows, float* h, int ld) {
+                                            const int* rows, float* h, int ld, int kp = 8) {
   constexpr int T = kRows;
   const int H0 = (int)tr.n_out[0];
   const float beta = (float)tr.beta;
@@ -189,14 +191,14 @@ __device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float*
       h[l * ld + o] = tc::softplus_fast(z + __ldg(b + rows[l] * brs + o), beta, inv_beta);
     }
   }
-  zero_pad(h, ld, H0);
+  zero_pad(h, ld, H0, kp);
 }
 
 // Hidden layer i of member m over the raw sums `out` ([64][ld]) in place:
 // bias, the skip layer's point term and softplus, pad columns zeroed; a
 // thread per column and 16-row block (balanced, unlike the MMA epilogue).
 __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const float* xs,
-                                          const int* rows, float* out, int ld) {
+                                          const int* rows, float* out, int ld, int kp = 8) {
   constexpr int T = kRows;
   const int H = (int)tr.n_out[i];
   const float beta = (float)tr.beta;
@@ -222,7 +224,7 @@ __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const f
       out[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
     }
   }
-  zero_pad(out, ld, H);
+  zero_pad(out, ld, H, kp);
 }
 
 // The block's work in MODE.  coords: [A][3][M]; dF: [A][M] (K4); active:
@@ -243,6 +245,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                                      int cull_tile, int act_floats, int stage) {
   constexpr bool kReverse = MODE != kFitFwd;
   constexpr int T = kRows;
+  constexpr int kp = tc::k_pad(P);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
@@ -279,7 +282,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   {
     int cur = 0;
     for (int i = 0; i < L - 1; ++i) {
-      ld[i] = tc::act_ld((int)tr.n_out[i]);
+      ld[i] = tc::act_ld((int)tr.n_out[i], kp);
       ho[i] = kReverse ? cur : (i & 1) * (act_floats / 2);
       cur += T * ld[i];
     }
@@ -312,7 +315,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   __syncthreads();
 
   // forward: layer 0 from the 3 point inputs, then the hidden products
-  layer0_pass(tr, m, xs, rows, smem + ho[0], ld[0]);
+  layer0_pass(tr, m, xs, rows, smem + ho[0], ld[0], kp);
   __syncthreads();
   for (int i = 1; i < L - 1; ++i) {
     // each warp stores its raw sums, then the block applies bias, point
@@ -331,7 +334,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                     [&](int, int) { return 0.f; },
                     [&](int l, int o, float acc, float) { out[l * ldo + o] = acc; });
     __syncthreads();
-    bias_pass(tr, i, m, xs, rows, out, ldo);
+    bias_pass(tr, i, m, xs, rows, out, ldo, kp);
     if (kReverse) {
       float* h = smem + ho[i - 1];
       const int Hp = (int)tr.n_out[i - 1];
@@ -400,15 +403,20 @@ struct Launch {
 // when act_bufs > 0, act_bufs of the widest (K6); point_floats floats of
 // per-point values follow them, then the ring.  Returns 0, a runtime error
 // code, or make_map's code for a refused descriptor.  The weights' leading
-// dims ldw/ldwt are multiples of 8 with zero columns past the width, and
-// every product is at most tc::kMaxN wide.  max_ks: the widest K slice the
-// caller has an instantiation for (16, or 32 for K1).
+// dims ldw/ldwt are multiples of 8 with zero columns past the width (at
+// route tc::kBF16Mma: bf16, multiples of 16, K in kPerm order, and a ring
+// slice of ks words holds 2 ks of them), and every product is at most
+// tc::kMaxN wide.  max_ks: the widest K slice the caller has an
+// instantiation for (16, or 32 for K1).
 inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launch* ln,
-                 int act_bufs = 0, int point_floats = 8 * kRows, int max_ks = 16) {
+                 int act_bufs = 0, int point_floats = 8 * kRows, int max_ks = 16,
+                 int route = tc::kF32) {
   const int L = (int)tr->n_layers;
+  const int kp = tc::k_pad(route);
+  const bool bf16 = route == tc::kBF16Mma;
   int act_floats = 0, widest = 0, nmax = 8;
   for (int i = 0; i < L - 1; ++i) {
-    const int a = kRows * tc::act_ld((int)tr->n_out[i]);
+    const int a = kRows * tc::act_ld((int)tr->n_out[i], kp);
     act_floats += a;
     widest = a > widest ? a : widest;
     if (i > 0) {
@@ -438,29 +446,49 @@ inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launc
   while (ln->ks > 8 && fixed + ring_bytes(ln->ks) > optin) ln->ks /= 2;
   ln->stage = ring_bytes(ln->ks) / ((int)sizeof(float) * tc::kRingStages);
   ln->smem = fixed + ring_bytes(ln->ks);
-  const int KS = ln->ks;
+  const int box = bf16 ? 2 * ln->ks : ln->ks;
   for (int i = 1; i < L - 1; ++i) {
     const int n_in = (int)tr->n_in[i], n_out = (int)tr->n_out[i];
     int rc = tc::make_map(&maps->fwd[i - 1], tr->wt[i], (int)tr->ldwt[i],
-                          (int64_t)n_members * n_out, (int)tr->ldwt[i], KS, (n_out + 7) & ~7);
+                          (int64_t)n_members * n_out, (int)tr->ldwt[i], box, (n_out + 7) & ~7,
+                          bf16);
     if (rc == 0 && reverse)
       rc = tc::make_map(&maps->rev[i - 1], tr->w[i], (int)tr->ldw[i],
-                        (int64_t)n_members * n_in, (int)tr->ldw[i], KS, (n_in + 7) & ~7);
+                        (int64_t)n_members * n_in, (int)tr->ldw[i], box, (n_in + 7) & ~7, bf16);
     if (rc != 0) return rc;
   }
   return 0;
 }
 
-// f(std::integral_constant<int, P>()) for the precision code `precision`
-// (tc::Precision); cudaErrorInvalidValue for an unknown code.
-template <class F>
-inline int with_precision(int precision, F f) {
-  switch (precision) {
-    case tc::kF32: return f(std::integral_constant<int, tc::kF32>());
-    case tc::kTF32: return f(std::integral_constant<int, tc::kTF32>());
-    case tc::kBF16: return f(std::integral_constant<int, tc::kBF16>());
-    default: return (int)cudaErrorInvalidValue;
-  }
+// f(std::integral_constant<int, R>()) for the route code `route` among the
+// instantiated routes Rs (tc::Precision and the routes beside it, chosen by
+// the host: ops/fit_fields.py ROUTES); cudaErrorInvalidValue for any other
+// code, so a route the entry point does not instantiate never runs.
+template <int... Rs, class F>
+inline int with_route(int route, F f) {
+  int rc = (int)cudaErrorInvalidValue;
+  ((route == Rs ? (rc = f(std::integral_constant<int, Rs>()), true) : false) || ...);
+  return rc;
+}
+
+// out[0..3] = registers a thread, local (spilled) bytes a thread, dynamic
+// shared memory and resident blocks per SM of `kernel` launched with
+// `threads` threads and `smem` bytes; returns a runtime error code.
+template <class Kernel>
+inline int occupancy(Kernel kernel, int threads, int smem, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return 0;
 }
 
 // Launch the instantiation for ln's slice width (k16 or k8) over (members,

@@ -20,17 +20,24 @@
 //
 // Both are field_tile.cuh's body on the tensor cores (modes kFitFwd and
 // kFitBwd: 3xTF32 mma.sync over 16 warps, weights staged by TMA), each
-// instantiated for the three product precisions (tc::Precision; the entry
-// points take its code).  Bounds on this card, tensor-core operations run
-// as 3xTF32 at 495 TFLOP/s of TF32 (one pass at the lower precisions): K3
-// ~81k multiply-adds per point and member, K4 ~161k (the recomputed
-// forward and the reverse sweep).
+// instantiated for three routes (the entry points take the route code the
+// host chose, ops/fit_fields.py ROUTES): K3 at tc::kF32, kTF32 and
+// kBF16Mma (bf16 weights rounded once per call, one m16n8k16 .bf16 MMA a
+// product step), K4 at kF32, kTF32 and kBF16 (operands rounded per fragment
+// for one TF32 pass).  Bounds on this card, tensor-core operations run as
+// 3xTF32 at 495 TFLOP/s of TF32 (one pass at the lower precisions, at the
+// bf16 rate for bf16): K3 ~81k multiply-adds per point and member, K4 ~161k
+// (the recomputed forward and the reverse sweep).
 //
 // mma.sync rather than wgmma: wgmma takes its .tf32 A operand from shared
 // memory (both halves of 184 KB of activations: no room) or from registers,
 // and its N is an instruction constant, so every hidden width (101 -> 104,
 // 200) would need its own instruction and accumulator count; mma.sync tiles
 // any width in 8-wide steps and splits both operands where they are loaded.
+// At bf16 the same holds for K3 (kBF16Mma): its activations stay fp32 for
+// the bias and softplus passes and the head, so its A operand packs from
+// them in registers, and the weights, rounded once on the host, halve the
+// ring's bytes a K step.
 //
 // First designs: 32-point blocks of 8 warps, an fp32 register-tiled product
 // reading weights from L2 with __ldg; K4 with serial bias and d(coords)
@@ -41,6 +48,7 @@
 namespace {
 
 namespace field = nphm::field;
+namespace tc = nphm::tc;
 
 template <int KS, int P>
 __global__ void __launch_bounds__(field::kThreads, 1)
@@ -70,21 +78,46 @@ fit_bwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
 extern "C" int nphm_fit_lanes_per_block() { return field::kRows; }
 
 // coords: [A][3][M]; active: [M / cull_tile][A]; F: [A][M].  M and
-// cull_tile are multiples of 64; precision: a tc::Precision code.
+// cull_tile are multiples of 64; route: tc::kF32, kTF32 or kBF16Mma (the
+// hidden weights of *tr then bf16, field::setup).
 extern "C" int nphm_fit_fwd(const nphm::Trunk* tr, const float* coords,
                             const int* active, float* F, int64_t M,
-                            int n_members, int cull_tile, int precision, void* stream) {
+                            int n_members, int cull_tile, int route, void* stream) {
   if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
-  const int rc = field::setup(tr, n_members, false, &maps, &ln);
+  const int rc = field::setup(tr, n_members, false, &maps, &ln, 0, 8 * field::kRows, 16, route);
   if (rc != 0) return rc;
-  return field::with_precision(precision, [&](auto p) {
+  return field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
     constexpr int P = decltype(p)::value;
     return field::launch(fit_fwd_kernel<16, P>, fit_fwd_kernel<8, P>, ln, n_members, M,
                          stream, *tr, maps, coords, active, F, M, n_members, cull_tile,
                          ln.act_floats, ln.stage);
+  });
+}
+
+// occupancy(out[4]) of K3 (`backward` 0) or K4 (1) at `route` as they
+// launch over trunk *tr (field::occupancy): registers, local bytes,
+// shared memory, blocks per SM.
+extern "C" int nphm_fit_occupancy(const nphm::Trunk* tr, int n_members, int backward,
+                                  int route, int* out) {
+  field::Maps maps = {};
+  field::Launch ln;
+  const int rc = backward ? field::setup(tr, n_members, true, &maps, &ln)
+                          : field::setup(tr, n_members, false, &maps, &ln, 0,
+                                         8 * field::kRows, 16, route);
+  if (rc != 0) return rc;
+  if (backward)
+    return field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
+      constexpr int P = decltype(p)::value;
+      return field::occupancy(ln.ks == 16 ? fit_bwd_kernel<16, P> : fit_bwd_kernel<8, P>,
+                              field::kThreads, ln.smem, out);
+    });
+  return field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return field::occupancy(ln.ks == 16 ? fit_fwd_kernel<16, P> : fit_fwd_kernel<8, P>,
+                            field::kThreads, ln.smem, out);
   });
 }
 
@@ -95,7 +128,7 @@ extern "C" int nphm_fit_fwd(const nphm::Trunk* tr, const float* coords,
 extern "C" int nphm_fit_bwd(const nphm::Trunk* tr, const float* coords, const float* dF,
                             const int* active, float* dcoords, float* part0,
                             float* part_s, float* d_bias0, float* d_bias_s, int64_t M,
-                            int n_members, int n_rows, int cull_tile, int precision,
+                            int n_members, int n_rows, int cull_tile, int route,
                             void* stream) {
   if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
@@ -103,7 +136,7 @@ extern "C" int nphm_fit_bwd(const nphm::Trunk* tr, const float* coords, const fl
   field::Launch ln;
   int rc = field::setup(tr, n_members, true, &maps, &ln);
   if (rc != 0) return rc;
-  rc = field::with_precision(precision, [&](auto p) {
+  rc = field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
     constexpr int P = decltype(p)::value;
     return field::launch(fit_bwd_kernel<16, P>, fit_bwd_kernel<8, P>, ln, n_members, M,
                          stream, *tr, maps, coords, dF, active, dcoords, part0, part_s, M,

@@ -21,7 +21,9 @@
 //
 // mm64 and K6's lane contraction also run at two lower precisions (a
 // template parameter, ops/precision.py): one mma.sync pass on operands
-// rounded to TF32, or to bf16 held in TF32 registers.
+// rounded to TF32, or to bf16 held in TF32 registers (K4, K5), and a
+// route that rounds the weights once per call on the host: K3's and K6's
+// bf16 products as m16n8k16 .bf16 MMAs on bf16 weights (kBF16Mma below).
 #pragma once
 
 #include <cuda.h>
@@ -71,6 +73,18 @@ __device__ __forceinline__ void split_mma(float x, uint32_t& big, uint32_t& smal
 // is a TF32 value (the same 8-bit exponent, 7 of TF32's 10 mantissa bits),
 // so the MMA reads it exactly.
 enum Precision : int { kF32 = 0, kTF32 = 1, kBF16 = 2 };
+
+// A route beside the three precisions, for the instantiations whose weights
+// the host prepares once per call (ops/fit_fields.py ROUTES): kBF16Mma,
+// kBF16's products as one m16n8k16 .bf16 MMA each (the bf16 tensor-core
+// rate): B is bf16 in memory and in the TMA ring (half the bytes of a
+// slice), its K order permuted within each group of 16 (kPerm) so that the
+// A operand, fp32 in shared memory, loads with the fp32 ldmatrix pattern
+// and packs two values a register (cvt.rn.bf16x2.f32).
+constexpr int kBF16Mma = 4;
+
+// The K padding of a route's operands: m16n8k16 reads K in steps of 16.
+__host__ __device__ constexpr int k_pad(int p) { return p == kBF16Mma ? 16 : 8; }
 
 // An fp32 operand's bits as a one-pass product at precision P reads them.
 template <int P>
@@ -243,9 +257,12 @@ constexpr int kNT = 4;                     // n8 tiles per warp
 constexpr int kMaxN = kGroups * kNT * 8;   // widest product: 256 outputs
 
 // Row stride (floats) of a [64][w] activation tile in shared memory: w
-// rounded to the MMA's K step of 8, plus 4, so that the eight 16-byte rows
-// an ldmatrix phase reads fall in distinct banks.
-__host__ __device__ __forceinline__ int act_ld(int w) { return ((w + 7) & ~7) + 4; }
+// rounded to the MMA's K step (kp: 8, or 16 for kBF16Mma, k_pad), plus 4,
+// so that the eight 16-byte rows an ldmatrix phase reads fall in distinct
+// banks.
+__host__ __device__ __forceinline__ int act_ld(int w, int kp = 8) {
+  return ((w + kp - 1) & -kp) + 4;
+}
 
 // Floats of one ring stage of mm64<KS> for products up to n outputs: the
 // [round8(n)][KS] slice TMA writes, rounded up to 1 KB so that every stage
@@ -270,6 +287,35 @@ __device__ __forceinline__ int swz(int n, int c) {
 template <int KS>
 __host__ __device__ __forceinline__ int n_slices(int K) {
   return (((K + 7) & ~7) + KS - 1) / KS;
+}
+
+// d += a * b, bf16 operands (two a register, the lower half the lower K
+// index), fp32 accumulation: the bf16 tensor-core path.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16 (nearest even, as ops/precision.py's
+// bf16_round) and packed, lo in the lower half.
+__device__ __forceinline__ uint32_t pack_bf16(uint32_t lo, uint32_t hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(__uint_as_float(hi)),
+      "f"(__uint_as_float(lo)));
+  return r;
+}
+
+// The K order of kBF16Mma's B operand: position s of each group of 16
+// holds K index kPerm(s) of the group.  An fp32 ldmatrix x4 over two
+// 8-column halves (tc::ldsm_x4 below) gives lane (g, t) the K indices t,
+// 4 + t (first half) and 8 + t, 12 + t (second): packed in that order,
+// they are the A fragment of m16n8k16 at positions 2t, 2t + 1, 2t + 8,
+// 2t + 9, which kPerm maps to the same K indices.
+__host__ __device__ constexpr int kPerm(int s) {
+  return (s & 8) | ((s & 1) << 2) | ((s & 7) >> 1);
 }
 
 // Four 8x4 tiles of 32-bit values (ldmatrix's 8x8 b16 matrices): thread
@@ -307,6 +353,39 @@ __device__ __forceinline__ void load_operand(uint32_t x, uint32_t& big, uint32_t
   }
 }
 
+// A route's K in 32-bit words of its B operand: kBF16Mma holds two bf16 a
+// word, over K rounded up to 16.
+template <int P>
+__host__ __device__ constexpr int k_words(int K) {
+  return P == kBF16Mma ? ((K + 15) & ~15) >> 1 : K;
+}
+
+// One m16n8k16 .bf16 step of a warp (route kBF16Mma) over its m16 tiles
+// (rows of A from a_lane, fp32 in shared memory, lda floats a row) and NJ
+// n8 tiles, at word column kw of the staged bf16 B fragments bf[j][kk / 4
+// ...] (a word step of 8 is 16 K): A packed from two 8-column fp32
+// ldmatrix loads in kPerm order.
+template <int NJ, int BW>
+__device__ __forceinline__ void mma_step_bf16(float (&acc)[NJ][kMT][4], const float* a_lane,
+                                              int lda, int kw, const uint32_t (&bf)[NJ][BW],
+                                              int kk) {
+  uint32_t a[kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    uint32_t r[4], q[4];
+    ldsm_x4(r, a_lane + mt * 16 * lda + 2 * kw);
+    ldsm_x4(q, a_lane + mt * 16 * lda + 2 * kw + 8);
+    a[mt][0] = pack_bf16(r[0], r[2]);
+    a[mt][1] = pack_bf16(r[1], r[3]);
+    a[mt][2] = pack_bf16(q[0], q[2]);
+    a[mt][3] = pack_bf16(q[1], q[3]);
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) mma_bf16(acc[j][mt], a[mt], bf[j][kk / 4], bf[j][kk / 4 + 1]);
+}
+
 // One product's B operand for mm64: K-major rows row0 .. row0 + N - 1 of
 // the tensor behind `map` (boxes of KS columns x round8(N) rows,
 // tc::make_map), K deep.
@@ -340,22 +419,25 @@ constexpr int kProducer = 32 * (kMmaWarps - 1);
 // belong to `cur` (whose first slice is ring.slices) or to `next`; a stage
 // is reused once every warp has released its previous slice.  S: the
 // ring's depth (K2 runs a deeper ring of narrower stages).
-template <int KS, int S = kRingStages>
+template <int KS, int S = kRingStages, int P = kF32>
 __device__ __forceinline__ void ring_issue(Ring& ring, const Operand& cur,
                                            const Operand* next, uint32_t target) {
-  const uint32_t n_cur = (uint32_t)n_slices<KS>(cur.K);
+  // a slice is KS words a row: KS fp32 columns, or 2 KS bf16 at kBF16Mma
+  constexpr int kElems = P == kBF16Mma ? 2 * KS : KS;
+  const uint32_t n_cur = (uint32_t)n_slices<KS>(k_words<P>(cur.K));
   while (ring.issued < target) {
     const uint32_t g = ring.issued;
     const bool in_cur = g < ring.slices + n_cur;
     if (!in_cur &&
-        (next == nullptr || g - ring.slices - n_cur >= (uint32_t)n_slices<KS>(next->K)))
+        (next == nullptr ||
+         g - ring.slices - n_cur >= (uint32_t)n_slices<KS>(k_words<P>(next->K))))
       return;
     const Operand& b = in_cur ? cur : *next;
     const int s = (int)(in_cur ? g - ring.slices : g - ring.slices - n_cur);
     const int st = (int)(g % S);
     if (g >= (uint32_t)S) mbar_wait(&ring.empty[st], (g / S - 1) & 1);
     mbar_expect_tx(&ring.full[st], (uint32_t)(((b.N + 7) & ~7) * KS * 4));
-    tma_load_2d(ring.buf + st * ring.stage, b.map, &ring.full[st], s * KS, b.row0);
+    tma_load_2d(ring.buf + st * ring.stage, b.map, &ring.full[st], s * kElems, b.row0);
     ++ring.issued;
   }
 }
@@ -374,8 +456,8 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int N = b.N;
-  const int K8 = (b.K + 7) & ~7;
-  const int n_sl = n_slices<KS>(b.K);
+  const int K8 = (k_words<P>(b.K) + 7) & ~7;  // words of B
+  const int n_sl = n_slices<KS>(k_words<P>(b.K));
   // ldmatrix row addresses: A rows m_base + mt*16 + (lane & 15), k half
   // (lane >> 4); B rows nt*8 + (lane & 7), k chunk (lane >> 3)
   const float* a_lane = A + (m_base + (lane & 15)) * lda + ((lane >> 4) << 2);
@@ -394,7 +476,7 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
   constexpr int KH = KS < 16 ? KS : 16;
   for (int s = 0; s < n_sl; ++s) {
     const uint32_t g = ring.slices + s;
-    if (threadIdx.x == kProducer) ring_issue<KS>(ring, b, next, g + kRingStages);
+    if (threadIdx.x == kProducer) ring_issue<KS, kRingStages, P>(ring, b, next, g + kRingStages);
     mbar_wait(&ring.full[g % kRingStages], (g / kRingStages) & 1);
     const float* buf = ring.buf + (g % kRingStages) * ring.stage;
 #pragma unroll
@@ -415,34 +497,38 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 #pragma unroll
         for (int kk = 0; kk < KH; kk += 8) {
           if (k0 + kk < K8) {
-            uint32_t ab[kMT][4], as[kMT][4], bb[NJ][2], bs[NJ][2];
+            if constexpr (P == kBF16Mma) {
+              mma_step_bf16(acc, a_lane, lda, k0 + kk, bf, kk);
+            } else {
+              uint32_t ab[kMT][4], as[kMT][4], bb[NJ][2], bs[NJ][2];
 #pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              uint32_t r[4];
-              ldsm_x4(r, a_lane + mt * 16 * lda + k0 + kk);
+              for (int mt = 0; mt < kMT; ++mt) {
+                uint32_t r[4];
+                ldsm_x4(r, a_lane + mt * 16 * lda + k0 + kk);
 #pragma unroll
-              for (int e = 0; e < 4; ++e) load_operand<P>(r[e], ab[mt][e], as[mt][e]);
-            }
+                for (int e = 0; e < 4; ++e) load_operand<P>(r[e], ab[mt][e], as[mt][e]);
+              }
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              load_operand<P>(bf[j][kk / 4], bb[j][0], bs[j][0]);
-              load_operand<P>(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
-            }
-            if constexpr (P == kF32) {
-              // small*big, big*small, then big*big: each pass's MMAs independent
+              for (int j = 0; j < NJ; ++j) {
+                load_operand<P>(bf[j][kk / 4], bb[j][0], bs[j][0]);
+                load_operand<P>(bf[j][kk / 4 + 1], bb[j][1], bs[j][1]);
+              }
+              if constexpr (P == kF32) {
+                // small*big, big*small, then big*big: each pass's MMAs independent
+#pragma unroll
+                for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                  for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], as[mt], bb[j]);
+#pragma unroll
+                for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                  for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bs[j]);
+              }
 #pragma unroll
               for (int j = 0; j < NJ; ++j)
 #pragma unroll
-                for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], as[mt], bb[j]);
-#pragma unroll
-              for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bs[j]);
+                for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bb[j]);
             }
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-              for (int mt = 0; mt < kMT; ++mt) mma_tf32(acc[j][mt], ab[mt], bb[j]);
           }
         }
       }
@@ -510,7 +596,7 @@ __device__ __forceinline__ void mm64(const float* A, int lda, const Operand& b,
     case 3: mm64_warp<KS, 3, P>(A, lda, b, next, ring, pre, epi); break;
     default: mm64_warp<KS, kNT, P>(A, lda, b, next, ring, pre, epi); break;
   }
-  ring.slices += n_slices<KS>(b.K);
+  ring.slices += n_slices<KS>(k_words<P>(b.K));
 }
 
 // dst[o] = sum over the 64 rows of d[t * ld + o], o < H: one warp per
@@ -552,29 +638,32 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A [rows][ld] fp32 matrix read in boxes of box_cols (32, 16 or 8) x
-// box_rows, swizzled across the box's box_cols * 4-byte rows (128, 64 or 32
-// bytes); columns >= cols and rows >= rows read as zeros.  Returns 0, a
-// runtime error code, or 10000 + the driver's code for a refused
-// descriptor.  The encoder needs a current context, which a thread that has
-// not touched the device yet (autograd's backward thread) lacks:
-// cudaSetDevice makes the primary one current.
-inline int make_map(CUtensorMap* map, const float* ptr, int cols, int64_t rows, int ld,
-                    int box_cols, int box_rows) {
+// A [rows][ld] fp32 matrix (bf16 when `bf16`: cols, ld and box_cols in
+// bf16 elements) read in boxes of box_cols x box_rows, swizzled across the
+// box's rows of 128, 64 or 32 bytes; columns >= cols and rows >= rows read
+// as zeros.  Returns 0, a runtime error code, or 10000 + the driver's code
+// for a refused descriptor.  The encoder needs a current context, which a
+// thread that has not touched the device yet (autograd's backward thread)
+// lacks: cudaSetDevice makes the primary one current.
+inline int make_map(CUtensorMap* map, const void* ptr, int cols, int64_t rows, int64_t ld,
+                    int box_cols, int box_rows, bool bf16 = false) {
   const EncodeTiled enc = encode_fn();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaSetDevice(dev);
   if (err != cudaSuccess) return (int)err;
+  const int elem_bytes = bf16 ? 2 : 4;
+  const int row_bytes = box_cols * elem_bytes;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUtensorMapSwizzle swizzle = box_cols == 32   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)ptr, dims,
+  const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)ptr, dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

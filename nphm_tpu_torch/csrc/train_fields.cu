@@ -37,17 +37,29 @@
 //  - lane_contract (a fixed split of the lanes) and sum_splits give dW_i =
 //    sum over lanes of zbar_i h_{i-1}^T + pbar_i q_{i-1}^T.
 // No float atomics anywhere: every sum has a fixed order, so results are
-// bit-identical run to run.  Every product kernel is instantiated for the
-// three product precisions (tc::Precision: 3xTF32, or one pass on TF32- or
-// bf16-rounded operands); the entry points take its code.
+// bit-identical run to run.  K5 is instantiated for the three product
+// precisions (tc::Precision: 3xTF32, or one pass on TF32- or bf16-rounded
+// operands), K6 for three routes (the entry points take the code the host
+// chose, ops/fit_fields.py ROUTES): tc::kF32 as above; tc::kTF32, one TF32
+// pass rounding each operand fragment as K5 does; tc::kBF16Mma, bf16
+// weights and one m16n8k16 .bf16 MMA a product step in both passes and in
+// the lane contraction, whose [zbar | pbar] rows are stored in bf16 (half
+// their bytes; only the contraction reads them, and the plain version
+// rounds them to bf16 there); its reverse pass asks L2 for its scratch
+// gathers a product ahead (prefetch_rows).
 //
 // Bounds on this card: K5 ~2x and K6 ~6x the primal multiply-adds (81.8k
 // per point and member at production width) as 3xTF32 at 495 TFLOP/s of
-// TF32; K6's scratch also moves ~1.6 GB a member at the training batch
-// (1202 rows of 2 x 65536 lanes written, read back and contracted).  K6's
-// design: its passes are field_tile.cuh's parts (mm64 fed by the TMA weight
-// ring, the block-wide bias/softplus pass, fixed-order shuffle trees) over
-// three rotating [64][act_ld(hmax)] activation buffers (four would not fit
+// TF32 (one pass at the lower precisions, at the bf16 rate for bf16); K6's
+// scratch also moves ~1.6 GB a member at the training batch (1202 rows of
+// 2 x 65536 lanes written, read back and contracted; ~1.37 GB at kBF16Mma).
+// Measured at the training batch (NVIDIA H100 80GB HBM3, 700 W,
+// `kernel_ab --kernels low`): at F32 its two passes take ~78% of K6 (the
+// reverse one 44%), the contraction ~20%; the passes' scratch traffic
+// 15-16 ms at every precision, their work outside the products ~60 ms of
+// 94.  K6's design: its passes are field_tile.cuh's parts (mm64 fed by
+// the TMA weight ring, the block-wide bias/softplus pass, fixed-order
+// shuffle trees) over three rotating [64][act_ld(hmax)] activation buffers (four would not fit
 // beside the ring): each hidden layer runs its two products on the same
 // weights, and the reverse epilogues gather what they need of h and q from
 // the scratch through mm64's pre hook.  The scratch is feature-major, so
@@ -120,26 +132,58 @@ __host__ __device__ __forceinline__ ScratchRows scratch_rows(const nphm::Trunk& 
 
 // The [64][ld] point-major tile x (width H) to scratch rows R[o * M2 + off
 // + t], transposed on store: warp w takes features w, w + 16, ..., its
-// lanes points t and t + 32, so each store is 128 contiguous bytes.
+// lanes points t and t + 32, so each store is 128 contiguous bytes.  Rows
+// that only the lane contraction reads ([zbar | pbar]) are stored as route
+// P's contraction reads them: at tc::kBF16Mma rounded to bf16 over the
+// first half of each row (lane t at bf16 element off + t), the 64 lanes in
+// tc::kPerm order within each group of 16, a packed pair a thread.
+template <int P = tc::kF32>
 __device__ __forceinline__ void store_rows(const float* x, int ld, int H,
                                            float* __restrict__ R, int64_t M2, int64_t off) {
   const int lane = threadIdx.x & 31;
-  for (int o = threadIdx.x >> 5; o < H; o += tc::kMmaWarps) {
-    float* r = R + o * M2 + off;
-    r[lane] = x[lane * ld + o];
-    r[lane + 32] = x[(lane + 32) * ld + o];
+  if constexpr (P == tc::kBF16Mma) {
+    const int g = (lane >> 3) * 16;
+    const int t0 = g + tc::kPerm(2 * (lane & 7));
+    const int t1 = g + tc::kPerm(2 * (lane & 7) + 1);
+    for (int o = threadIdx.x >> 5; o < H; o += tc::kMmaWarps) {
+      uint32_t* r = reinterpret_cast<uint32_t*>(R + o * M2) + off / 2;
+      r[lane] = tc::pack_bf16(__float_as_uint(x[t0 * ld + o]), __float_as_uint(x[t1 * ld + o]));
+    }
+  } else {
+    for (int o = threadIdx.x >> 5; o < H; o += tc::kMmaWarps) {
+      float* r = R + o * M2 + off;
+      r[lane] = x[lane * ld + o];
+      r[lane + 32] = x[(lane + 32) * ld + o];
+    }
   }
 }
 
-// Zero both halves of H scratch rows over the tile's 64 lanes (culled pairs).
+// Ask L2 for H scratch rows' two halves over the tile's 64 lanes (four
+// 128-byte lines a row), which the reverse pass reads a product later:
+// route tc::kBF16Mma prefetches the seeds' rows at the block's start and
+// each product's [h | q] gather before the product ahead of it, so the
+// gathers hit L2 instead of waiting on device memory (at tc::kTF32 the
+// prefetch made K6 ~0.5 ms slower, so it stays off there).
+__device__ __forceinline__ void prefetch_rows(const float* R, int H, int64_t M, int64_t p0) {
+  for (int it = threadIdx.x; it < H * 4; it += blockDim.x) {
+    const float* a = R + (it >> 2) * 2 * M + ((it >> 1) & 1) * M + p0 + (it & 1) * 32;
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(a));
+  }
+}
+
+// Zero both halves of H scratch rows over the tile's 64 lanes (culled
+// pairs), in store_rows<P>'s layout.
+template <int P = tc::kF32>
 __device__ __forceinline__ void zero_rows(float* __restrict__ R, int H, int64_t M,
                                           int64_t p0) {
   constexpr int T = field::kRows;
-  for (int it = threadIdx.x; it < H * 2 * T; it += blockDim.x) {
-    const int k = it / (2 * T);
-    const int rem = it - k * 2 * T;
-    const int half = rem / T;
-    R[k * 2 * M + half * M + p0 + (rem - half * T)] = 0.f;
+  constexpr int W = P == tc::kBF16Mma ? T / 2 : T;  // 32-bit words of a half
+  for (int it = threadIdx.x; it < H * 2 * W; it += blockDim.x) {
+    const int k = it / (2 * W);
+    const int rem = it - k * 2 * W;
+    const int half = rem / W;
+    const int64_t off = (half * M + p0) / (T / W);
+    R[k * 2 * M + off + (rem - half * W)] = 0.f;
   }
 }
 
@@ -185,6 +229,7 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                      int n_members, int cull_tile, int buf_floats, int stage, int m0,
                      int64_t scr_ms) {
   constexpr int T = field::kRows;
+  constexpr int kp = tc::k_pad(P);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
@@ -226,7 +271,7 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
   int hb = 0, qb = buf_floats, fb = 2 * buf_floats;
   {
     const int H = (int)tr.n_out[0];
-    const int ld = tc::act_ld(H);
+    const int ld = tc::act_ld(H, kp);
     const float* __restrict__ w = tr.w[0] + m * tr.w_ms[0];
     const float* __restrict__ b = tr.b[0] + m * tr.b_ms[0];
     const int64_t brs = tr.b_rs[0];
@@ -249,8 +294,8 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
         q[l * ld + o] = tc::softplus_grad_fast(hv, beta) * p;
       }
     }
-    field::zero_pad(h, ld, H);
-    field::zero_pad(q, ld, H);
+    field::zero_pad(h, ld, H, kp);
+    field::zero_pad(q, ld, H, kp);
     __syncthreads();
     float* R = sc + sr.hq[0] * M2;
     store_rows(h, ld, H, R, M2, p0);
@@ -259,8 +304,8 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
 
   for (int i = 1; i < L - 1; ++i) {
     const int H = (int)tr.n_out[i];
-    const int ld = tc::act_ld(H);
-    const int ldp = tc::act_ld((int)tr.n_out[i - 1]);
+    const int ld = tc::act_ld(H, kp);
+    const int ldp = tc::act_ld((int)tr.n_out[i - 1], kp);
     float* h = smem + fb;    // h_i
     float* hq = smem + hb;   // h_{i-1}, then q_i
     const float* qp = smem + qb;  // q_{i-1}
@@ -290,8 +335,8 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
           h[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
         }
       }
-      field::zero_pad(h, ld, H);
-      field::zero_pad(hq, ld, H);
+      field::zero_pad(h, ld, H, kp);
+      field::zero_pad(hq, ld, H, kp);
     }
     __syncthreads();
     const tc::Operand next = i + 1 < L - 1 ? fwd(i + 1) : tc::Operand{};
@@ -339,6 +384,7 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                      float* __restrict__ scr, int64_t M, int n_members, int cull_tile,
                      int hsum, int buf_floats, int stage, int m0, int n_part, int64_t scr_ms) {
   constexpr int T = field::kRows;
+  constexpr int kp = tc::k_pad(P);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
@@ -372,10 +418,12 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
     if (t < T)
       for (int c = 0; c < 3; ++c) dcoords[((int64_t)m * 3 + c) * M + p0 + t] = 0.f;
     for (int o = t; o < n_part; o += blockDim.x) pb[o] = 0.f;
-    for (int i = 1; i < L - 1; ++i) zero_rows(sc + sr.zp[i] * M2, (int)tr.n_out[i], M, p0);
+    for (int i = 1; i < L - 1; ++i) zero_rows<P>(sc + sr.zp[i] * M2, (int)tr.n_out[i], M, p0);
     return;
   }
 
+  if constexpr (P == tc::kBF16Mma)
+    prefetch_rows(sc + sr.hq[L - 2] * M2, (int)tr.n_out[L - 2], M, p0);
   float* xs = smem + 3 * buf_floats;
   float* vs = xs + 3 * T;
   float* dg = vs + 3 * T;
@@ -402,7 +450,7 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
   // head-weight partial sum over the tile of h dF + q: warp per column
   {
     const int H = (int)tr.n_out[L - 2];
-    const int ld = tc::act_ld(H);
+    const int ld = tc::act_ld(H, kp);
     const float* __restrict__ wl = tr.w[L - 1] + m * tr.w_ms[L - 1];
     const float* R = sc + sr.hq[L - 2] * M2;
     float* z = smem + zo;
@@ -423,14 +471,14 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
       s = field::warp_sum(s);
       if (lane == 0) pb[off_wlast + o] = s;
     }
-    field::zero_pad(z, ld, H);
-    field::zero_pad(p, ld, H);
+    field::zero_pad(z, ld, H, kp);
+    field::zero_pad(p, ld, H, kp);
     __syncthreads();
   }
 
   for (int i = L - 2; i >= 0; --i) {
     const int H = (int)tr.n_out[i];
-    const int ld = tc::act_ld(H);
+    const int ld = tc::act_ld(H, kp);
     float* z = smem + zo;
     float* p = smem + po;
     tc::colsum64(z, ld, H, pb + boff[i]);
@@ -441,18 +489,19 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
     }
     if (i > 0) {
       float* R = sc + sr.zp[i] * M2;
-      store_rows(z, ld, H, R, M2, p0);
-      store_rows(p, ld, H, R, M2, M + p0);
+      store_rows<P>(z, ld, H, R, M2, p0);
+      store_rows<P>(p, ld, H, R, M2, M + p0);
       const int Hin = (int)tr.n_in[i];
-      const int ldv = tc::act_ld(Hin);
+      const int ldv = tc::act_ld(Hin, kp);
       const float* Hr = sc + sr.hq[i - 1] * M2;  // [h_{i-1} | q_{i-1}]
+      if constexpr (P == tc::kBF16Mma) prefetch_rows(Hr, Hin, M, p0);
       float* u = smem + fo;  // vbar_{i-1}, then zbar_{i-1}
       const tc::Operand op = rev(i);
-      field::zero_pad(u, ldv, Hin);
+      field::zero_pad(u, ldv, Hin, kp);
       tc::mm64<KS, P>(p, ld, op, &op, ring, [&](int, int) { return 0.f; },
                       [&](int l, int k, float acc, float) { u[l * ldv + k] = acc; });
       __syncthreads();
-      field::zero_pad(p, ldv, Hin);  // pbar_i's buffer now takes pbar_{i-1}
+      field::zero_pad(p, ldv, Hin, kp);  // pbar_i's buffer now takes pbar_{i-1}
       const tc::Operand next = i > 1 ? rev(i - 1) : tc::Operand{};
       tc::mm64<KS, P>(z, ld, op, i > 1 ? &next : nullptr, ring,
                       [&](int l, int k) {
@@ -474,15 +523,39 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
     for (int c = 0; c < 3; ++c) dcoords[((int64_t)m * 3 + c) * M + p0 + t] = dg[c * T + t];
 }
 
-// Floats of one contraction ring stage: a [64][kCtrSlice] slice of the A
-// rows, then a [round8(C)][kCtrSlice] slice of the B rows, rounded up to 1 KB.
-__host__ __device__ __forceinline__ int ctr_stage_floats(int C) {
-  return (kCtrRows * kCtrSlice + ((C + 7) & ~7) * kCtrSlice + 255) & ~255;
+// Floats of a contraction ring stage's B slice: [round8(C)][kCtrSlice]
+// lanes of the B rows, fp32 (bf16 at tc::kBF16Mma: half the floats).
+__host__ __device__ __forceinline__ int ctr_b_floats(int C, int P) {
+  return ((C + 7) & ~7) * kCtrSlice / (P == tc::kBF16Mma ? 2 : 1);
+}
+
+// Floats of one contraction ring stage: a [64][kCtrSlice] fp32 slice of
+// the A rows, then the B slice, rounded up to 1 KB.
+__host__ __device__ __forceinline__ int ctr_stage_floats(int C, int P) {
+  return (kCtrRows * kCtrSlice + ctr_b_floats(C, P) + 255) & ~255;
+}
+
+// Bytes of shared memory of the contraction over trunk *tr at route P: its
+// ring, sized for the widest B side (the hidden inputs; at tc::kBF16Mma
+// the hidden outputs, whose [zbar | pbar] rows are the B side there), 1 KB
+// alignment, the mbarriers.
+inline int ctr_smem(const nphm::Trunk* tr, int P) {
+  int cmax = 8;
+  for (int i = 1; i < (int)tr->n_layers - 1; ++i) {
+    const int c = (int)(P == tc::kBF16Mma ? tr->n_out[i] : tr->n_in[i]);
+    cmax = c > cmax ? c : cmax;
+  }
+  return 4 * kCtrStages * ctr_stage_floats(cmax, P) + 1024 + 16 * kCtrStages;
 }
 
 // One warp's share of a contraction block: its NJ n8 tiles (grp + 8j) of
 // the C columns over the m16 tiles of its 32 rows, as tc::mm64_warp (at
-// precision P), with both operands streamed through the ring.
+// route P), with both operands streamed through the ring.  At kBF16Mma the
+// sides swap: A is the fp32 [h | q] rows, packed two a register in kPerm
+// order as mm64 packs activations, B the bf16 [zbar | pbar] rows stored in
+// that order, loaded as they are (the side re-read by each row tile is the
+// half-size one), one m16n8k16 .bf16 MMA per 16 lanes, and the output is
+// written transposed.
 template <int NJ, int P>
 __device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUtensorMap* mb,
                                               int row_a, int row_b, int C, int sl0, int n_sl,
@@ -495,7 +568,7 @@ __device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUten
   const int lane = threadIdx.x & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const uint32_t bytes = (uint32_t)(kCtrRows + ((C + 7) & ~7)) * kCtrSlice * 4;
+  const uint32_t bytes = (uint32_t)(kCtrRows * kCtrSlice + ctr_b_floats(C, P)) * 4;
   float acc[NJ > 0 ? NJ : 1][tc::kMT][4];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -522,7 +595,35 @@ __device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUten
     tc::mbar_wait(&full[st], (s / kCtrStages) & 1);
     const float* a = buf + st * stage;
     const float* b = a + kCtrRows * kCtrSlice;
-    if constexpr (NJ > 0) {
+    if constexpr (NJ > 0 && P == tc::kBF16Mma) {
+      // B: the slice's bf16 rows are kCtrSlice / 2 words (64-byte swizzle),
+      // both k16 steps in one ldmatrix x4
+      uint32_t bf[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        tc::ldsm_x4(bf[j], b + tc::swz<kCtrSlice / 2>((grp + tc::kGroups * j) * 8 + (lane & 7),
+                                                      (lane >> 3) << 2));
+#pragma unroll
+      for (int kh = 0; kh < kCtrSlice; kh += 16) {
+        uint32_t af[tc::kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < tc::kMT; ++mt) {
+          uint32_t r[4], q[4];
+          const int row = m_base + mt * 16 + (lane & 15);
+          tc::ldsm_x4(r, a + tc::swz<kCtrSlice>(row, kh + ((lane >> 4) << 2)));
+          tc::ldsm_x4(q, a + tc::swz<kCtrSlice>(row, kh + 8 + ((lane >> 4) << 2)));
+          af[mt][0] = tc::pack_bf16(r[0], r[2]);
+          af[mt][1] = tc::pack_bf16(r[1], r[3]);
+          af[mt][2] = tc::pack_bf16(q[0], q[2]);
+          af[mt][3] = tc::pack_bf16(q[1], q[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int mt = 0; mt < tc::kMT; ++mt)
+            tc::mma_bf16(acc[j][mt], af[mt], bf[j][kh / 8], bf[j][kh / 8 + 1]);
+      }
+    } else if constexpr (NJ > 0) {
 #pragma unroll
       for (int kh = 0; kh < kCtrSlice; kh += 16) {
         // B fragments of 16 lanes: bf[j][2 * (kk / 8) + {0, 1}]
@@ -575,7 +676,8 @@ __device__ __forceinline__ void contract_warp(const CUtensorMap* ma, const CUten
       for (int e = 0; e < 4; ++e) {
         const int n = (grp + tc::kGroups * j) * 8 + 2 * tig + (e & 1);
         const int r = r0 + m_base + mt * 16 + gid + 8 * (e >> 1);
-        if (n < C && r < R) out[(int64_t)r * C + n] = acc[j][mt][e];
+        if (n < C && r < R)
+          out[P == tc::kBF16Mma ? (int64_t)n * R + r : (int64_t)r * C + n] = acc[j][mt][e];
       }
 }
 
@@ -651,17 +753,18 @@ extern "C" int nphm_train_split_k() { return kSplitK; }
 
 // coords: [A][3][M]; active: [M / cull_tile][A] -> F [A][M], G [A][3][M].
 // M and cull_tile are multiples of 64; every hidden product is at most
-// tc::kMaxN wide; precision: a tc::Precision code.
+// tc::kMaxN wide; route: tc::kF32, kTF32 or kBF16 (operands rounded per
+// fragment).
 extern "C" int nphm_train_fwd(const nphm::Trunk* tr, const float* coords,
                               const int* active, float* F, float* G, int64_t M,
-                              int n_members, int cull_tile, int precision, void* stream) {
+                              int n_members, int cull_tile, int route, void* stream) {
   if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
   const int rc = field::setup(tr, n_members, true, &maps, &ln);
   if (rc != 0) return rc;
-  return field::with_precision(precision, [&](auto p) {
+  return field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
     constexpr int P = decltype(p)::value;
     return field::launch(train_fwd_kernel<16, P>, train_fwd_kernel<8, P>, ln, n_members, M,
                          stream, *tr, maps, coords, active, F, G, M, n_members, cull_tile,
@@ -699,7 +802,7 @@ static int train_bwd(const nphm::Trunk* tr, const TrainGrads* g, const float* co
   // buffers and K6's per-point values
   field::Maps maps = {};
   field::Launch ln;
-  int rc = field::setup(tr, n_members, true, &maps, &ln, 3, kPointFloats);
+  int rc = field::setup(tr, n_members, true, &maps, &ln, 3, kPointFloats, 16, P);
   if (rc != 0) return rc;
   const int buf_floats = ln.act_floats / 3;
   rc = field::launch(train_bwd_fwd_kernel<16, P>, train_bwd_fwd_kernel<8, P>, ln, n_chunk, M,
@@ -738,9 +841,7 @@ static int train_bwd(const nphm::Trunk* tr, const TrainGrads* g, const float* co
   if (err != cudaSuccess) return (int)err;
 
   // hidden weight gradients: contract the scratch over the lanes
-  int cmax = 8;
-  for (int i = 1; i < L - 1; ++i) cmax = tr->n_in[i] > cmax ? (int)tr->n_in[i] : cmax;
-  const int smem = 4 * kCtrStages * ctr_stage_floats(cmax) + 1024 + 16 * kCtrStages;
+  const int smem = ctr_smem(tr, P);
   err = cudaFuncSetAttribute(lane_contract<P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -752,13 +853,24 @@ static int train_bwd(const nphm::Trunk* tr, const TrainGrads* g, const float* co
   for (int i = 1; i < L - 1; ++i) {
     const int R = (int)tr->n_out[i];
     const int C = (int)tr->n_in[i];
-    rc = tc::make_map(&mb, scr, (int)M2, rows, (int)M2, kCtrSlice, (C + 7) & ~7);
-    if (rc != 0) return rc;
-    const dim3 grid((unsigned)((R + kCtrRows - 1) / kCtrRows), kSplitK,
-                    (unsigned)n_chunk);
-    lane_contract<P><<<grid, field::kThreads, smem, st>>>(
-        ma, mb, gsp, (int)sr.total, (int)sr.zp[i], (int)sr.hq[i - 1], R, C, n_sl,
-        ctr_stage_floats(C));
+    if constexpr (P == tc::kBF16Mma) {
+      // rows: the fp32 [h | q] rows (ma); columns: the [zbar | pbar] rows,
+      // bf16 over the first half of each 2M-float row (store_rows)
+      rc = tc::make_map(&mb, scr, (int)M2, rows, 2 * M2, kCtrSlice, (R + 7) & ~7, true);
+      if (rc != 0) return rc;
+      const dim3 grid((unsigned)((C + kCtrRows - 1) / kCtrRows), kSplitK, (unsigned)n_chunk);
+      lane_contract<P><<<grid, field::kThreads, smem, st>>>(
+          ma, mb, gsp, (int)sr.total, (int)sr.hq[i - 1], (int)sr.zp[i], C, R, n_sl,
+          ctr_stage_floats(R, P));
+    } else {
+      rc = tc::make_map(&mb, scr, (int)M2, rows, (int)M2, kCtrSlice, (C + 7) & ~7);
+      if (rc != 0) return rc;
+      const dim3 grid((unsigned)((R + kCtrRows - 1) / kCtrRows), kSplitK,
+                      (unsigned)n_chunk);
+      lane_contract<P><<<grid, field::kThreads, smem, st>>>(
+          ma, mb, gsp, (int)sr.total, (int)sr.zp[i], (int)sr.hq[i - 1], R, C, n_sl,
+          ctr_stage_floats(C, P));
+    }
     const int64_t rc_el = (int64_t)R * C;
     sum_splits<<<n_grid(n_chunk * rc_el), 256, 0, st>>>(
         gsp, g->dw[i] + (int64_t)m0 * rc_el, n_chunk, rc_el);
@@ -768,16 +880,49 @@ static int train_bwd(const nphm::Trunk* tr, const TrainGrads* g, const float* co
   return 0;
 }
 
-// The backward at the precision code `precision` (tc::Precision):
-// train_bwd<P> above.
+// occupancy(out[4]) of K5 (`which` 0) or of K6's first pass (1), second
+// pass (2) or lane contraction (3) at `route` as they launch over trunk *tr
+// (field::occupancy): registers, local bytes, shared memory, blocks per
+// SM.
+extern "C" int nphm_train_occupancy(const nphm::Trunk* tr, int n_members, int which,
+                                    int route, int* out) {
+  field::Maps maps = {};
+  field::Launch ln;
+  if (which == 0) {
+    const int rc = field::setup(tr, n_members, true, &maps, &ln);
+    if (rc != 0) return rc;
+    return field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
+      constexpr int P = decltype(p)::value;
+      return field::occupancy(ln.ks == 16 ? train_fwd_kernel<16, P> : train_fwd_kernel<8, P>,
+                              field::kThreads, ln.smem, out);
+    });
+  }
+  const int rc = field::setup(tr, n_members, true, &maps, &ln, 3, kPointFloats, 16, route);
+  if (rc != 0) return rc;
+  return field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    if (which == 3)
+      return field::occupancy(lane_contract<P>, field::kThreads, ctr_smem(tr, P), out);
+    if (which == 1)
+      return field::occupancy(ln.ks == 16 ? train_bwd_fwd_kernel<16, P>
+                                          : train_bwd_fwd_kernel<8, P>,
+                              field::kThreads, ln.smem, out);
+    return field::occupancy(ln.ks == 16 ? train_bwd_rev_kernel<16, P>
+                                        : train_bwd_rev_kernel<8, P>,
+                            field::kThreads, ln.smem, out);
+  });
+}
+
+// The backward at route `route`: train_bwd<P> above at tc::kF32, kTF32
+// or kBF16Mma (bf16 hidden weights, field::setup).
 extern "C" int nphm_train_bwd(const nphm::Trunk* tr, const TrainGrads* g,
                               const float* coords, const float* dF,
                               const float* dG, const int* active,
                               float* dcoords, float* part, float* scr,
                               float* gsp, int64_t M, int n_members, int n_rows,
-                              int cull_tile, int hsum, int m0, int n_chunk, int precision,
+                              int cull_tile, int hsum, int m0, int n_chunk, int route,
                               void* stream) {
-  return field::with_precision(precision, [&](auto p) {
+  return field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
     return train_bwd<decltype(p)::value>(tr, g, coords, dF, dG, active, dcoords, part, scr,
                                          gsp, M, n_members, n_rows, cull_tile, hsum, m0,
                                          n_chunk, stream);

@@ -1,9 +1,9 @@
 """Time the fit kernels K3/K4, the training forward K5, the training
-backward K6, the search K2 or the ensemble grid K1 of two checkouts on one
-card, in turns.
+backward K6, the search K2 or the ensemble grid K1 of two or more
+checkouts on one card, in turns.
 
-    python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B
-        [--kernels fit|train|train_bwd|search|ensemble] [--order ABBA]
+    python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B [ROOT_C ...]
+        [--kernels fit|train|train_bwd|search|ensemble|low|f32] [--order ABBA]
 
 Each turn runs in a fresh process from one checkout: that checkout's
 ``chip_smoke.py`` builds its kernels (``device_and_build``) and the NPHM
@@ -26,11 +26,30 @@ models (``build_models``), then
   observations and warm at budget 3 from the plain search's cold roots and
   J^-1, on the random-init trunk and with its offset head scaled 90x;
 - ``--kernels ensemble``: K1 through ``nphm_grid_sdf`` on the 64^3 and the
-  res-256 brick grids (the extraction's launch), cull on.
+  res-256 brick grids (the extraction's launch), cull on;
+- ``--kernels low``: K3 to K6 at each precision ("default", "high",
+  "bfloat16"): K3 and K4 at the batched fit's launch shape (8 subjects x 5
+  scans x 1000 points, Morton-sorted, culled at 1e-10, as
+  ``chip_smoke.check_k3_k4_low``), K5 and K6 at the training batch, each
+  timed with CUDA events, and each call's device time split by CUDA kernel
+  (``torch.profiler``, the mean of 3 calls), so a kernel made of several
+  launches (K6: its two passes, the lane contraction, the fixed-order sums)
+  shows where its time goes.  No plain version runs;
+- ``--kernels f32``: the F32 rows outside K3-K6 and the F32 main path, each
+  through the checkout's own ``chip_smoke`` helpers (so each against its
+  plain version): K1 on the 64^3 and res-256 brick grids (``check_k1``),
+  K7 on the NPM res-256 grid (``check_k7``), on one 65 536-point chunk of
+  the res-256 brick grid under the NPHM compress field (the backward
+  warp's launch), on a 65 536-point posing chunk under a GNN field and on
+  3 876 864 grid points of the NPM identity trunk (the size of the NPM
+  sparse fine pass), and the identity trainer's step (B = 32, K5/K6; the
+  median of 5 after 2) and a PRECISION_FIT_STEPS-step batched fit (8
+  subjects, K2-K4; ms per subject-step, steady) at "default".
 
 Its rows print as one ``ROWS {...}`` JSON line; the summary gives each
 checkout's mean kernel times and the ratio A / B.  Comparing two versions is
-only fair within one call on one card, in turns (A, B, B, A by default).
+only fair within one call on one card, in turns (A, B, B, A by default;
+with more than two checkouts each runs once, in order, by default).
 """
 
 from __future__ import annotations
@@ -138,18 +157,178 @@ for res, reps in ((64, 10), (256, 3)):
 print("ROWS " + json.dumps(rows), flush=True)
 """
 
+_LOW = _TRAIN_INPUTS + """
+import re
+
+import numpy as np
+from torch.profiler import ProfilerActivity, profile
+
+from nphm_tpu_torch.ops import precision
+from nphm_tpu_torch.ops.fit_fields import member_f, morton_codes
+
+
+def split_ms(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {{}}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0:
+            m = re.search(r"([A-Za-z_]\\w*)(<[^()]*>)?\\(", e.key)
+            key = m.group(1) + (m.group(2) or "") if m else e.key[:48]
+            out[key] = round(out.get(key, 0.0) + t / 1e3 / reps, 4)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+Bf, S, Nf = 5 * c.BATCH_SUBJECTS, c.BATCH_SUBJECTS, 1000
+xf = torch.tensor(np.stack(c.observations(Bf, Nf, c.SEED + 2)), device=dev)
+latf = (torch.randn((S, cfg.lat_dim), generator=gen) * 0.01).to(dev)
+latf = latf.repeat_interleave(Bf // S, dim=0).contiguous()
+perm = torch.argsort(morton_codes(xf), dim=1, stable=True)
+xf = torch.gather(xf, 1, perm[..., None].expand(Bf, Nf, 3))
+Npf = -(-Nf // tile) * tile
+xf = torch.cat([xf, xf[:, -1:].expand(Bf, Npf - Nf, 3)], dim=1)
+Mf = Bf * Npf
+_, skip = cfg.layer_shapes
+dFf = torch.randn((A, Mf), generator=gen).to(dev)
+dF = torch.randn((A, B * Np), generator=gen).to(dev)
+dG = torch.randn((A, 3, B * Np), generator=gen).to(dev)
+rows = {{}}
+for name in ("default", "high", "bfloat16"):
+    with precision.matmul_precision(name):
+        lf = latf.clone().requires_grad_(True)
+        anch = predict_anchors(params, cfg, lf)
+        cen = torch.cat([anch, torch.zeros_like(anch[:, :1])], dim=1)
+        cf = (xf[:, :, None] - cen[:, None]) * mirror_scale(cfg, dev)
+        cf = cf.permute(2, 3, 0, 1).reshape(A, 3, Mf).detach().requires_grad_(True)
+        lay_f, _ = prepare_train_operands(params, cfg, lf)
+        act_f = active_mask(cfg, cf, tile, 1e-10)
+        ins_f = (lay_f[0]["b"], lay_f[skip]["b"], cf)
+        Fk = member_f(cfg, lay_f, cf, act_f, tile, Bf)
+        k3 = lambda: member_f(cfg, lay_f, cf, act_f, tile, Bf)
+        k4 = lambda: torch.autograd.grad(Fk, ins_f, dFf, retain_graph=True)
+        with torch.no_grad():
+            ms3 = c.cuda_ms(k3, 10)
+            sp3 = split_ms(k3)
+        ms4 = c.cuda_ms(k4, 10)
+        sp4 = split_ms(k4)
+        flat = [t.detach().clone().requires_grad_(True) for t in _flat(cfg, layers)]
+        cc = coords.detach().clone().requires_grad_(True)
+        ins = flat + [cc]
+        F, G = member_fields(cfg, _unflat(cfg, flat), cc, active, tile, B)
+        phi = (F * dF).sum() + (G * dG).sum()
+        k5 = lambda: member_fields(cfg, _unflat(cfg, flat), cc, active, tile, B)
+        k6 = lambda: torch.autograd.grad(phi, ins, retain_graph=True)
+        with torch.no_grad():
+            ms5 = c.cuda_ms(k5, 5)
+            sp5 = split_ms(k5)
+        ms6 = c.cuda_ms(k6, 5)
+        sp6 = split_ms(k6)
+        del F, G, phi, Fk
+    for k, ms, sp in (("fit_fwd", ms3, sp3), ("fit_bwd", ms4, sp4), ("train_fwd", ms5, sp5),
+                      ("train_bwd", ms6, sp6)):
+        rows[f"{{k}}@{{name}}"] = {{"ms": ms, "split_ms": sp}}
+        print(f"[K3] {{k}} at {{name}}: {{ms:.3f}} ms; device split {{json.dumps(sp)}}",
+              flush=True)
+print("ROWS " + json.dumps(rows), flush=True)
+"""
+
+_F32 = """
+import statistics
+import tempfile
+import time
+
+from nphm_tpu_torch.fitting import FittingConfig, fit_joint_batch
+from nphm_tpu_torch.models.deformation import conditioning
+from nphm_tpu_torch.models.ensemble import predict_anchors
+from nphm_tpu_torch.ops.ensemble import DEFAULT_TILE, _brick_points, grid_axes, grid_tile
+from nphm_tpu_torch.training.trainer import IdentityTrainer
+
+models = (shape, params, _e, _pe, gen)
+npm = c.build_npm_models(dev)
+rows = {{}}
+c.check_k1(shape, params, gen, dev, rows)
+c.check_k7(models, npm, dev, rows)
+
+
+def cond_of(p_shape, p_expr, expr):
+    lat_s = (torch.randn((1, shape.lat_dim), generator=gen) * 0.01).to(dev)
+    lat_e = (torch.randn((1, expr.lat_dim), generator=gen) * 0.01).to(dev)
+    with torch.no_grad():
+        anchors = predict_anchors(p_shape, shape.cfg, lat_s)
+        return conditioning(p_expr, expr.cfg, torch.cat([lat_s, lat_e], -1), anchors)[0]
+
+
+res = 256
+tile, brick = grid_tile(res, DEFAULT_TILE)
+axes = grid_axes(c.GRID_MIN, c.GRID_MAX, res, dev)
+warp = _brick_points(axes, torch.arange(1 << 16, device=dev), res, brick, tile)
+rows["deepsdf_trunk@warp"] = c.k7_launch_row(
+    _pe["trunk"], _e.cfg.trunk_cfg, warp, cond_of(params, _pe, _e),
+    "warp (one 65536-point chunk)", reps=5)
+g_shape, g_ps, g_e, g_pe, _g = c.build_mode_models(models, dev)["GNN"]
+pose = torch.tensor(c.observations(1, c.K7_POSE_POINTS, c.SEED + 22)[0], device=dev)
+rows["deepsdf_trunk@gnn_pose"] = c.k7_launch_row(
+    g_pe["trunk"], g_e.cfg.trunk_cfg, pose, cond_of(g_ps, g_pe, g_e),
+    "GNN 6x512, posing chunk", 5)
+n_shape, n_ps = npm[0], npm[1]
+fine = _brick_points(axes, torch.arange(3876864, device=dev), res, brick, tile)
+n_lat = (torch.randn(n_shape.lat_dim, generator=gen) * 0.01).to(dev)
+rows["deepsdf_trunk@npm_sparse_fine"] = c.k7_launch_row(
+    n_ps, n_shape.cfg, fine, n_lat, "npm_sparse_fine size (3876864 grid points)", reps=3)
+del warp, pose, fine
+torch.cuda.empty_cache()
+
+train_ds, val_ds = c.identity_sets(32, 2, 32)
+batch = next(iter(train_ds.batch_iter(seed=0)))
+with tempfile.TemporaryDirectory() as tmp:
+    tr = IdentityTrainer(shape, params, c.train_config(matmul_precision="default"), train_ds,
+                         val_ds, "precision", exp_dir=tmp, logger=c._History(), seed=c.SEED,
+                         device=dev)
+    steps = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._train_step(tr._batch(batch), tr.lr_at(0), tr.lr_lat_at(0))
+        torch.cuda.synchronize()
+        steps.append(1e3 * (time.perf_counter() - t0))
+step_ms = statistics.median(steps[2:])
+fcfg = FittingConfig(n_steps=c.PRECISION_FIT_STEPS, seed=c.SEED, matmul_precision="default")
+_le, _ls, _, hist = fit_joint_batch(shape, params, _e, _pe, c.batch_observations(), cfg=fcfg,
+                                    device=dev, verbose=False)
+sps = float(hist["steady_subject_steps_s"])
+print(f"[f32] identity step (B=32): median {{step_ms:.3f}} ms of steps 3-7 "
+      f"({{', '.join(f'{{t:.2f}}' for t in steps)}}); batched fit "
+      f"{{c.PRECISION_FIT_STEPS}} steps: {{sps:.2f}} subject-steps/s", flush=True)
+rows["identity_step"] = {{"ms": step_ms}}
+rows["batched_fit"] = {{"ms": 1e3 / sps}}
+print("ROWS " + json.dumps(rows), flush=True)
+"""
+
 KERNELS = {"fit": (_FIT, ("fit_fwd", "fit_bwd")), "train": (_TRAIN, ("train_fwd",)),
            "train_bwd": (_TRAIN_BWD, ("train_bwd",)),
            "search": (_SEARCH, ("search_init_15", "search_init_3", "search_x90_15",
                                 "search_x90_3")),
-           "ensemble": (_ENSEMBLE, ("ensemble_64", "ensemble_256"))}
+           "ensemble": (_ENSEMBLE, ("ensemble_64", "ensemble_256")),
+           "low": (_LOW, tuple(f"{k}@{p}" for p in ("default", "high", "bfloat16")
+                               for k in ("fit_fwd", "fit_bwd", "train_fwd", "train_bwd"))),
+           "f32": (_F32, ("ensemble_sdf", "ensemble_sdf@res256", "deepsdf_trunk",
+                          "deepsdf_trunk@warp", "deepsdf_trunk@gnn_pose",
+                          "deepsdf_trunk@npm_sparse_fine", "identity_step", "batched_fit"))}
 
 
-def run_turn(root: str, body: str) -> dict:
+def run_turn(root: str, body: str, log_path: str | None = None) -> dict:
     proc = subprocess.run([sys.executable, "-c", (_HEAD + body).format(root=root)],
                           cwd=root, capture_output=True, text=True)
+    if log_path is not None:
+        with open(log_path, "w") as f:
+            f.write(proc.stdout + proc.stderr)
     for line in proc.stdout.splitlines():
-        if line.startswith(("[K1]", "[K2]", "[K3]", "[K4]", "[K5]", "[K6]")):
+        if line.startswith(("[K1", "[K2]", "[K3]", "[K4]", "[K5]", "[K6]", "[K7", "[f32]")):
             print(f"  {line}", flush=True)
         if line.startswith("ROWS "):
             return json.loads(line[5:])
@@ -158,23 +337,38 @@ def run_turn(root: str, body: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("root_a")
-    ap.add_argument("root_b")
+    ap.add_argument("roots", nargs="+", help="checkouts A, B, C, ... (at least two)")
     ap.add_argument("--kernels", choices=sorted(KERNELS), default="fit")
-    ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--log", default=None,
+                    help="directory for each turn's whole output (the build's ptxas report)")
+    ap.add_argument("--order", default=None,
+                    help="turns by letter (default ABBA for two checkouts, else ABC...)")
     args = ap.parse_args(argv)
+    if len(args.roots) < 2:
+        ap.error("give at least two checkouts")
     body, names = KERNELS[args.kernels]
-    roots = {"A": os.path.abspath(args.root_a), "B": os.path.abspath(args.root_b)}
-    times = {"A": [], "B": []}
-    for turn in args.order:
+    letters = "ABCDEFGH"[: len(args.roots)]
+    roots = {t: os.path.abspath(r) for t, r in zip(letters, args.roots)}
+    order = args.order or ("ABBA" if len(roots) == 2 else letters)
+    times = {t: [] for t in roots}
+    last = {}
+    if args.log:
+        os.makedirs(args.log, exist_ok=True)
+    for i, turn in enumerate(order):
         print(f"[ab] turn {turn}: {roots[turn]}", flush=True)
-        rows = run_turn(roots[turn], body)
+        rows = run_turn(roots[turn], body,
+                        os.path.join(args.log, f"turn{i}_{turn}.log") if args.log else None)
         times[turn].append({k: rows[k]["ms"] for k in names})
+        last[turn] = {"split_ms": {k: rows[k]["split_ms"] for k in names
+                                   if "split_ms" in rows[k]}}
     means = {t: {k: sum(r[k] for r in rs) / len(rs) for k in names}
              for t, rs in times.items() if rs}
     summary = {"turns": times, "mean_ms": means}
     if times["A"] and times["B"]:
         summary["ratio_a_over_b"] = {k: means["A"][k] / means["B"][k] for k in names}
+    splits = {t: r.get("split_ms") for t, r in last.items()}
+    if any(splits.values()):
+        summary["split_ms"] = splits
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -95,6 +95,8 @@ _SIGNATURES = {
         _i32, _i64, _f32, _vp,
     ],
     "nphm_trunk_head": [_vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _i64, _vp],
+    "nphm_fit_occupancy": [ctypes.POINTER(Trunk), _i32, _i32, _i32, _vp],
+    "nphm_train_occupancy": [ctypes.POINTER(Trunk), _i32, _i32, _i32, _vp],
     "nphm_ensemble_points_per_block": [],
     "nphm_search_lanes_per_block": [],
     "nphm_fit_lanes_per_block": [],
@@ -202,12 +204,14 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_f32(*tensors):
-    """Raise unless every tensor is a contiguous float32 CUDA tensor."""
+def require_cuda_f32(*tensors, dtypes=(torch.float32,)):
+    """Raise unless every tensor is a contiguous CUDA tensor of one of
+    ``dtypes`` (float32 alone by default)."""
     dev = tensors[0].device
     for t in tensors:
-        if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
-            raise ValueError("kernel inputs must be contiguous float32 CUDA tensors")
+        if not (t.is_cuda and t.dtype in dtypes and t.is_contiguous()):
+            raise ValueError(f"kernel inputs must be contiguous {'/'.join(map(str, dtypes))} "
+                             "CUDA tensors")
         if t.device != dev:
             raise ValueError("kernel inputs must share one device")
         if t.data_ptr() % 16:

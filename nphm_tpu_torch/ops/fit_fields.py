@@ -14,7 +14,10 @@ Both run one block per (member, 64-point tile), their products on the
 tensor cores over the K-major weights below, staged in K slices through
 shared memory (``csrc/field_tile.cuh``), at ``precision.current()``: in
 3xTF32 (``ops/tf32.py``) at F32, in one pass on TF32- or bf16-rounded
-operands at TF32 and BF16.  K4 runs at its forward's precision.
+operands at TF32 and BF16.  K4 runs at its forward's precision.  Each
+kernel's route at each precision is in ``ROUTES``: K3 at BF16 reads its
+hidden weights in bf16, rounded once per call (``route_weights``), and
+runs one bf16 tensor-core MMA a product step; K4 rounds per fragment.
 
 Symmetric sharing and the mirror sign are expanded outside (torch autograd
 maps the bias and coordinate cotangents back to the latent), and so are the
@@ -33,6 +36,7 @@ launches of each precision's instantiation.
 from __future__ import annotations
 
 import ctypes
+import enum
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ from nphm_tpu_torch.models.ensemble import (
 )
 from nphm_tpu_torch.models.mlp import softplus_beta
 from nphm_tpu_torch.ops import _build, precision
+from nphm_tpu_torch.ops.precision import Precision
 
 SQRT2 = 1.4142135623730951
 DEFAULT_TILE = 512  # cull-tile size (points sharing one member predicate)
@@ -53,6 +58,53 @@ K_STEP = 8  # the MMA's K step: weight rows are padded to a multiple of it
 MAX_WIDTH = 256  # csrc/tc_tile.cuh kMaxN: the widest product of K3-K6
 FIT_LANES = 64  # points per K3/K4 block: csrc/tc_tile.cuh kRows
 CULL_EPS_TRAIN = 0.0
+
+
+class Route(enum.IntEnum):
+    """How a kernel instantiation runs its products (``csrc/tc_tile.cuh``
+    route codes): the three precisions with operands split or rounded per
+    fragment, and a route whose hidden weights the host rounds once per
+    call (``route_weights``)."""
+
+    F32 = 0  # 3xTF32
+    TF32 = 1  # one TF32 pass, operands rounded per fragment
+    BF16 = 2  # operands rounded to bf16 per fragment, one TF32 pass
+    BF16_MMA = 4  # bf16 weights in K_PERM order, one m16n8k16 .bf16 MMA a step
+
+
+# Each kernel's route at each precision.  K3 and K6 run bf16 MMAs at BF16;
+# every other instantiation rounds its operands per fragment.
+ROUTES = {
+    "fit_fwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
+                Precision.BF16: Route.BF16_MMA},
+    "fit_bwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
+                Precision.BF16: Route.BF16},
+    "train_fwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
+                  Precision.BF16: Route.BF16},
+    "train_bwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
+                  Precision.BF16: Route.BF16_MMA},
+}
+# csrc/tc_tile.cuh kPerm: position s of each group of 16 K indices of a
+# BF16_MMA weight row holds K index K_PERM[s] of the group
+K_PERM = (0, 4, 1, 5, 2, 6, 3, 7, 8, 12, 9, 13, 10, 14, 11, 15)
+
+
+def route_k_step(route: Route) -> int:
+    """The K padding of a route's weight rows (csrc/tc_tile.cuh k_pad)."""
+    return 16 if route == Route.BF16_MMA else K_STEP
+
+
+def route_weights(w: torch.Tensor, route: Route) -> torch.Tensor:
+    """K-major hidden weights [..., K] (K a multiple of ``route_k_step``,
+    zero columns past the width) as ``route`` reads them: at BF16_MMA
+    rounded to bf16 (nearest even, ``precision.bf16_round``) and stored as
+    bf16 with each group of 16 columns in ``K_PERM`` order; else unchanged."""
+    if route == Route.BF16_MMA:
+        # K_PERM within each half of 8: position 2t + u holds K index 4u + t
+        k = w.shape[-1]
+        halves = w.to(torch.bfloat16).reshape(*w.shape[:-1], k // 8, 2, 4)
+        return halves.transpose(-1, -2).reshape(w.shape).contiguous()
+    return w
 
 
 def prepare_train_operands(params, cfg: NPHMConfig, lat):
@@ -146,15 +198,17 @@ def member_f_plain(cfg: NPHMConfig, layers, coords, active, tile: int, n_rows: i
     return torch.where(live, f, 0.0)
 
 
-def _fit_trunk(cfg: NPHMConfig, layers, n_rows: int, row_len: int):
+def _fit_trunk(cfg: NPHMConfig, layers, n_rows: int, row_len: int,
+               route: Route = Route.F32):
     """Kernel-layout tensors and the ``Trunk`` descriptor for K3/K4 (and
-    K5/K6, ``ops/train_fields.py``).
+    K5/K6, ``ops/train_fields.py``) at ``route``.
 
     Hidden layers carry both K-major orientations: ``wt`` [A, out, ldwt]
     for forward products over the inputs, ``w`` [A, in, ldw] for reverse
     products over the outputs, their leading dims rounded to ``K_STEP``
-    with zero columns.  K3-K5 stage them in K slices and read zeros past the
-    width rounded to ``K_STEP``, so no wider padding is needed."""
+    (16 at BF16_MMA) with zero columns, as ``route_weights`` gives them.
+    K3-K6 stage them in K slices and read zeros past the width rounded to
+    the K step, so no wider padding is needed."""
     _shapes, skip_in = cfg.layer_shapes
     L = len(layers)
     specs, keep = [], []
@@ -174,10 +228,10 @@ def _fit_trunk(cfg: NPHMConfig, layers, n_rows: int, row_len: int):
         else:
             wd = lay["w"].detach()
             n_out, n_in = wd.shape[1], wd.shape[2]
-            ldw = _build.round_up(n_out, K_STEP)
-            ldwt = _build.round_up(n_in, K_STEP)
-            w = _build.padded(wd.transpose(1, 2), ldw)  # [A, in, ldw]
-            wt = _build.padded(wd, ldwt)  # [A, out, ldwt]
+            ldw = _build.round_up(n_out, route_k_step(route))
+            ldwt = _build.round_up(n_in, route_k_step(route))
+            w = route_weights(_build.padded(wd.transpose(1, 2), ldw), route)  # [A, in, ldw]
+            wt = route_weights(_build.padded(wd, ldwt), route)  # [A, out, ldwt]
             b = lay["b"].detach().contiguous()
             spec = dict(n_in=n_in, n_out=n_out, w=w, ldw=ldw, w_ms=n_in * ldw,
                         wt=wt, ldwt=ldwt, wt_ms=n_out * ldwt, b=b)
@@ -201,6 +255,59 @@ def _fit_trunk(cfg: NPHMConfig, layers, n_rows: int, row_len: int):
     return tr, keep, hmax, hsum
 
 
+SMEM_OPTIN = 232_448  # shared memory a block can opt into on Hopper
+
+
+def smem_bytes(kernel: str, cfg: NPHMConfig, route: Route) -> int:
+    """Dynamic shared memory of one block of ``kernel`` ("fit_fwd" K3,
+    "fit_bwd" K4, "train_fwd" K5, "train_bwd" K6's two passes,
+    "lane_contract" K6's contraction) at ``route`` over ``cfg``'s trunk: a
+    host copy of ``csrc/field_tile.cuh::setup`` and
+    ``csrc/train_fields.cu::ctr_smem``, for the CPU tests of the sizing.
+    The copy has no check of its own here: ``chip_smoke.py``'s phase 14
+    requires it to equal the built library's figure for every kernel and
+    route, so a change to either C++ function must be made here as well."""
+    shapes, skip = cfg.layer_shapes
+    outs = [n_out for _, n_out in shapes[:-1]]
+    # the hidden products' K (the skip layer's hidden part)
+    n_ins = [n_in - (cfg.d_in if i == skip else 0)
+             for i, (n_in, _) in enumerate(shapes[:-1]) if i > 0]
+    kp = route_k_step(route)
+    act = [64 * (_build.round_up(w, kp) + 4) for w in outs]
+    if kernel == "lane_contract":
+        # B side: the hidden inputs' [h | q] rows, fp32; at BF16_MMA the
+        # hidden outputs' [zbar | pbar] rows, bf16
+        bf16 = route == Route.BF16_MMA
+        cmax = max([8] + (outs[1:] if bf16 else n_ins))
+        b_floats = _build.round_up(cmax, 8) * 32 // (2 if bf16 else 1)
+        stage = (64 * 32 + b_floats + 255) & ~255
+        return 4 * 4 * stage + 1024 + 16 * 4
+    if kernel == "train_bwd":
+        act_floats, point_floats = 3 * max(act), 12 * 64
+    elif kernel == "fit_fwd":
+        act_floats, point_floats = 2 * max(act), 8 * 64
+    else:
+        act_floats, point_floats = sum(act), 8 * 64
+    nmax = max([8] + outs[1:] + n_ins)
+    fixed = 4 * (act_floats + point_floats) + 1024 + 16 * 3
+    ks = 16
+    while ks > 8 and fixed + 4 * 3 * ((_build.round_up(nmax, 8) * ks + 255) & ~255) > SMEM_OPTIN:
+        ks //= 2
+    return fixed + 4 * 3 * ((_build.round_up(nmax, 8) * ks + 255) & ~255)
+
+
+def same_weights(a: Route, b: Route) -> bool:
+    """Whether two routes read the same weight tensors: all but BF16_MMA
+    read them as given."""
+    return a == b or Route.BF16_MMA not in (a, b)
+
+
+def require_operands(*tensors):
+    """``_build.require_cuda_f32`` over a trunk's tensors (BF16_MMA's hidden
+    weights are bf16)."""
+    _build.require_cuda_f32(*tensors, dtypes=(torch.float32, torch.bfloat16))
+
+
 class _MemberF(torch.autograd.Function):
     """F = K3(coords); backward K4 -> (d_bias0, d_biasS, d_coords)."""
 
@@ -210,20 +317,24 @@ class _MemberF(torch.autograd.Function):
         prec = precision.current()
         A, _, M = coords.shape
         row_len = M // n_rows
-        tr, keep, _hmax, _hsum = _fit_trunk(cfg, layers, n_rows, row_len)
+        route = ROUTES["fit_fwd"][prec]
+        tr, keep, _hmax, _hsum = _fit_trunk(cfg, layers, n_rows, row_len, route)
         coords_c = coords.detach().contiguous()
-        _build.require_cuda_f32(coords_c, *keep)
+        _build.require_cuda_f32(coords_c)
+        require_operands(coords_c, *keep)
         _build.require_mask(active, (M // tile, A), coords.device)
         F = torch.empty((A, M), device=coords.device)
         rc = lib.nphm_fit_fwd(
             ctypes.byref(tr), coords_c.data_ptr(), active.data_ptr(), F.data_ptr(),
-            M, A, tile, int(prec), _build.stream_ptr(coords.device),
+            M, A, tile, int(route), _build.stream_ptr(coords.device),
         )
         _build.check(rc, "nphm_fit_fwd")
         member_f.launches += 1
         member_f.launches_at[prec] += 1
         ctx.save_for_backward(coords_c)
         ctx.fit = (tr, keep, active, tile, n_rows, prec)
+        if not same_weights(route, ROUTES["fit_bwd"][prec]):
+            ctx.fit_layers = (cfg, layers)  # K4's own trunk is built in backward
         return F
 
     @staticmethod
@@ -232,6 +343,10 @@ class _MemberF(torch.autograd.Function):
         tr, keep, active, tile, n_rows, prec = ctx.fit
         lib = _build.lib()
         A, _, M = coords.shape
+        if hasattr(ctx, "fit_layers"):
+            cfg, layers = ctx.fit_layers
+            tr, keep, _hmax, _hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows,
+                                                ROUTES["fit_bwd"][prec])
         n_blk = M // FIT_LANES
         H0, HS = tr.n_out[0], tr.n_out[tr.skip]
         dev = coords.device
@@ -245,8 +360,8 @@ class _MemberF(torch.autograd.Function):
         rc = lib.nphm_fit_bwd(
             ctypes.byref(tr), coords.data_ptr(), dF.data_ptr(), active.data_ptr(),
             dcoords.data_ptr(), part0.data_ptr(), part_s.data_ptr(),
-            d_bias0.data_ptr(), d_bias_s.data_ptr(), M, A, n_rows, tile, int(prec),
-            _build.stream_ptr(dev),
+            d_bias0.data_ptr(), d_bias_s.data_ptr(), M, A, n_rows, tile,
+            int(ROUTES["fit_bwd"][prec]), _build.stream_ptr(dev),
         )
         _build.check(rc, "nphm_fit_bwd")
         member_f.bwd_launches += 1

@@ -106,10 +106,11 @@ def matmul_precision(name):
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """fp32 -> fp32 holding the nearest bf16 value, ties to even (the
-    kernels' ``cvt.rn.bf16.f32``): add half a bf16 unit less one, plus the
-    kept part's lowest bit, and clear the 16 low bits."""
-    bits = x.to(torch.float32).contiguous().view(torch.int32)
-    return ((bits + (0x7FFF + ((bits >> 16) & 1))) & -0x10000).view(torch.float32)
+    kernels' ``cvt.rn.bf16.f32``): torch's bf16 cast and back, two
+    elementwise kernels (bit for bit the integer form: add half a bf16 unit
+    less one, plus the kept part's lowest bit, and clear the 16 low bits;
+    NaN payloads aside)."""
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
 
 
 def round_operand(x: torch.Tensor, p: Precision) -> torch.Tensor:

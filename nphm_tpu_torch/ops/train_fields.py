@@ -23,7 +23,11 @@ biases (``fit_fields.prepare_train_operands``):
 Every tensor-core product runs at ``precision.current()`` (3xTF32 at F32,
 one pass on TF32- or bf16-rounded operands at TF32 and BF16); K6 runs at
 its forward's precision, and the plain versions round their hidden
-products alike (``fit_fields.member_f_plain``).
+products alike (``fit_fields.member_f_plain``).  K6's route
+(``fit_fields.ROUTES``) reads hidden weights rounded once per call: to
+TF32 at TF32, to bf16 at BF16, where its products and its lane contraction
+run bf16 MMAs and its scratch holds the contraction-only rows
+[zbar | pbar] in bf16.  K5 rounds per fragment.
 
 Symmetric sharing, mirroring, the head bias and the Gaussian blend stay in
 torch, where autograd provides every derivative around the boundary.
@@ -48,12 +52,16 @@ from nphm_tpu_torch.ops import _build, precision
 from nphm_tpu_torch.ops.fit_fields import (
     CULL_EPS_TRAIN,
     DEFAULT_TILE,
+    ROUTES,
+    Route,
     _fit_trunk,
     active_mask,
     check_widths,
     member_f_plain,
     morton_codes,
     prepare_train_operands,
+    require_operands,
+    same_weights,
 )
 
 # K6's per-lane scratch (activations, tangents and cotangents of every
@@ -133,7 +141,8 @@ class _MemberFields(torch.autograd.Function):
         prec = precision.current()
         A, _, M = coords.shape
         layers = _unflat(cfg, [t.detach() for t in flat])
-        tr, keep, _hmax, hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows)
+        route = ROUTES["train_fwd"][prec]
+        tr, keep, _hmax, hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows, route)
         coords_c = coords.detach().contiguous()
         _build.require_cuda_f32(coords_c, *keep)
         _build.require_mask(active, (M // tile, A), coords.device)
@@ -141,7 +150,7 @@ class _MemberFields(torch.autograd.Function):
         G = torch.empty((A, 3, M), device=coords.device)
         rc = lib.nphm_train_fwd(
             ctypes.byref(tr), coords_c.data_ptr(), active.data_ptr(), F.data_ptr(),
-            G.data_ptr(), M, A, tile, int(prec), _build.stream_ptr(coords.device),
+            G.data_ptr(), M, A, tile, int(route), _build.stream_ptr(coords.device),
         )
         _build.check(rc, "nphm_train_fwd")
         member_fields.launches += 1
@@ -149,6 +158,8 @@ class _MemberFields(torch.autograd.Function):
         ctx.save_for_backward(coords_c)
         ctx.train = (cfg, tr, keep, active, tile, n_rows, hsum,
                      [tuple(t.shape) for t in flat], prec)
+        if not same_weights(route, ROUTES["train_bwd"][prec]):
+            ctx.train_layers = layers  # K6's own trunk is built in backward
         return F, G
 
     @staticmethod
@@ -159,10 +170,14 @@ class _MemberFields(torch.autograd.Function):
         lib = _build.lib()
         dev = coords.device
         A, _, M = coords.shape
+        if hasattr(ctx, "train_layers"):
+            tr, keep, _hmax, hsum = _fit_trunk(cfg, ctx.train_layers, n_rows, M // n_rows,
+                                               ROUTES["train_bwd"][prec])
         L, skip = tr.n_layers, tr.skip
         dF = torch.zeros((A, M), device=dev) if dF is None else dF.float().contiguous()
         dG = torch.zeros((A, 3, M), device=dev) if dG is None else dG.float().contiguous()
-        _build.require_cuda_f32(dF, dG, *keep)
+        _build.require_cuda_f32(dF, dG)
+        require_operands(dF, *keep)
 
         n_out = [tr.n_out[i] for i in range(L)]
         n_in = [tr.n_in[i] for i in range(L)]
@@ -198,7 +213,7 @@ class _MemberFields(torch.autograd.Function):
                 ctypes.byref(tr), ctypes.byref(g), coords.data_ptr(), dF.data_ptr(),
                 dG.data_ptr(), active.data_ptr(), dcoords.data_ptr(), part.data_ptr(),
                 scr.data_ptr(), gsp.data_ptr(), M, A, n_rows, tile, hsum, m0,
-                min(chunk, A - m0), int(prec), stream,
+                min(chunk, A - m0), int(ROUTES["train_bwd"][prec]), stream,
             )
             _build.check(rc, "nphm_train_bwd")
         member_fields.bwd_launches += 1
@@ -227,6 +242,44 @@ member_fields.launches = 0
 member_fields.bwd_launches = 0
 member_fields.launches_at = precision.counters()
 member_fields.bwd_launches_at = precision.counters()
+
+def scratch_traffic(cfg: NPHMConfig, M: int, prec: precision.Precision) -> int:
+    """Bytes K6's scratch moves for one member over M lanes at ``prec``'s
+    route: its first pass writes the [h | q] rows of every hidden layer, the
+    second reads them and writes the [zbar | pbar] rows of every hidden
+    product, the lane contraction reads those and the [h | q] rows again.
+    Each row holds 2M values: fp32, or bf16 for [zbar | pbar] at BF16_MMA
+    (the only rows that nothing but the contraction reads)."""
+    shapes, _ = cfg.layer_shapes
+    outs = [n_out for _, n_out in shapes[:-1]]
+    hq, zp = sum(outs), sum(outs[1:])
+    zp_bytes = 2 if ROUTES["train_bwd"][prec] == Route.BF16_MMA else 4
+    return 2 * M * (4 * 3 * hq + zp_bytes * 2 * zp)
+
+
+# occupancy's kernels: (entry point, its `which` argument, ROUTES key)
+_OCCUPANCY = {"fit_fwd": ("nphm_fit_occupancy", 0, "fit_fwd"),
+              "fit_bwd": ("nphm_fit_occupancy", 1, "fit_bwd"),
+              "train_fwd": ("nphm_train_occupancy", 0, "train_fwd"),
+              "train_bwd_fwd": ("nphm_train_occupancy", 1, "train_bwd"),
+              "train_bwd_rev": ("nphm_train_occupancy", 2, "train_bwd"),
+              "lane_contract": ("nphm_train_occupancy", 3, "train_bwd")}
+
+
+def occupancy(kernel: str, cfg: NPHMConfig, layers, n_rows: int, row_len: int,
+              prec: precision.Precision) -> dict:
+    """Registers and local (stack) bytes a thread, dynamic shared memory and
+    resident blocks per SM of ``kernel`` (a key of ``_OCCUPANCY``: K3, K4,
+    K5 or one of K6's three product kernels) at its route for ``prec``, as it
+    launches over these operands (CUDA tensors)."""
+    entry, which, key = _OCCUPANCY[kernel]
+    route = ROUTES[key][prec]
+    tr, _keep, _hmax, _hsum = _fit_trunk(cfg, layers, n_rows, row_len, route)
+    out = (ctypes.c_int * 4)()
+    rc = getattr(_build.lib(), entry)(ctypes.byref(tr), cfg.n_members, which, int(route), out)
+    _build.check(rc, entry)
+    return {"route": route.name, "registers": out[0], "local_bytes": out[1],
+            "smem_bytes": out[2], "blocks_per_sm": out[3]}
 
 
 def apply_nphm_train(params, cfg: NPHMConfig, xyz, lat, *, tile: int = DEFAULT_TILE,

@@ -315,6 +315,87 @@ def test_k6_is_bit_identical_run_to_run(device, cull_eps):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+# K3 and K6 at the lower precisions against their plain versions at the
+# same precision, relative to the plain output's magnitude (chip_smoke.py's
+# TOL_LOW): both round the same operands and sum in other orders.
+LOW_TOL = {"high": 1e-3, "bfloat16": 1e-2}
+
+
+def low_rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def k3_low_case(device, hidden, n_pts, B=3, tile=512):
+    """K3's inputs as apply_nphm_fit builds them (Morton-sorted, culled at
+    1e-10): (cfg, layers, coords, active, tile, B)."""
+    shape, params, gen = tiny_shape(device, hidden)
+    cfg = shape.cfg
+    xyz = (torch.randn((B, n_pts, 3), generator=gen) * 0.3).to(device)
+    perm = torch.argsort(ff.morton_codes(xyz), dim=1, stable=True)
+    xyz = torch.gather(xyz, 1, perm[..., None].expand(B, n_pts, 3))
+    Np = -(-n_pts // tile) * tile
+    xyz = torch.cat([xyz, xyz[:, -1:].expand(B, Np - n_pts, 3)], dim=1)
+    lat = (torch.randn((B, shape.lat_dim), generator=gen) * 0.1).to(device)
+    with torch.no_grad():
+        anchors = predict_anchors(params, cfg, lat)
+        centers = torch.cat([anchors, torch.zeros_like(anchors[:, :1])], dim=1)
+        coords = (xyz[:, :, None] - centers[:, None]) * mirror_scale(cfg, device)
+        coords = coords.permute(2, 3, 0, 1).reshape(cfg.n_members, 3, -1).contiguous()
+        layers, _ = ff.prepare_train_operands(params, cfg, lat)
+        active = ff.active_mask(cfg, coords, tile, 1e-10)
+    return cfg, layers, coords, active, tile, B
+
+
+@pytest.mark.parametrize("hidden,n_pts", [(16, 700), (36, 1000), (200, 700)])
+def test_k3_bf16_against_its_twin(device, hidden, n_pts):
+    """K3 at BF16 (bf16 weights rounded once per call, one m16n8k16 .bf16 MMA
+    a step) against member_f_plain at BF16, at hidden widths that are not
+    multiples of 16 (36, 200; the layer before the skip is narrower still):
+    within LOW_TOL, nearer its twin than the F32 kernel's output, two calls
+    bit-identical, and the BF16 instantiation launched."""
+    from nphm_tpu_torch.ops import precision
+
+    cfg, layers, coords, active, tile, B = k3_low_case(device, hidden, n_pts)
+    with precision.matmul_precision("bfloat16"):
+        before = ff.member_f.launches_at[precision.Precision.BF16]
+        with torch.no_grad():
+            runs = [ff.member_f(cfg, layers, coords, active, tile, B) for _ in range(2)]
+        assert ff.member_f.launches_at[precision.Precision.BF16] == before + 2
+        plain = ff.member_f_plain(cfg, layers, coords, active, tile, B)
+    with torch.no_grad():
+        f32 = ff.member_f(cfg, layers, coords, active, tile, B)
+    assert torch.isfinite(runs[0]).all()
+    assert torch.equal(runs[0], runs[1])
+    err = low_rel(runs[0], plain)
+    assert err <= LOW_TOL["bfloat16"]
+    assert float((runs[0] - plain).abs().max()) < float((f32 - plain).abs().max())
+
+
+@pytest.mark.parametrize("name", ["high", "bfloat16"])
+@pytest.mark.parametrize("hidden,cull_eps", [(16, 0.0), (36, 1e-10), (200, 0.0)])
+def test_k6_low_precision_against_its_twin(device, name, hidden, cull_eps):
+    """K6 at TF32 (one TF32 pass, operands rounded per fragment) and at
+    BF16 (bf16 weights, bf16 MMAs in its passes and its lane contraction,
+    [zbar | pbar] rows stored in bf16)
+    against the plain double backward at the same precision, at hidden
+    widths that are not multiples of 16, with and without culled pairs:
+    every gradient within LOW_TOL of its twin's magnitude and nearer its
+    twin than the F32 kernel's, two calls bit-identical."""
+    from nphm_tpu_torch.ops import precision
+
+    case = k6_case(device, hidden, cull_eps)
+    with precision.matmul_precision(name):
+        runs = [k6_grads(trf.member_fields, *case) for _ in range(2)]
+        plain = k6_grads(trf.member_fields_plain, *case)
+    f32 = k6_grads(trf.member_fields, *case)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for k, p, c in zip(runs[0], plain, f32):
+        assert torch.isfinite(k).all()
+        assert low_rel(k, p) <= LOW_TOL[name]
+        assert float((k - p).abs().max()) < float((c - p).abs().max())
+
+
 def test_k5_culled_pairs_write_zero(device):
     """K5 at cull_eps 1e-10 on Morton-sorted points: every culled (member,
     cull tile) pair gets exactly zero F and G, and the live ones match the
