@@ -163,7 +163,8 @@ Phases, in order; any failure exits non-zero:
    output on the same inputs, two calls bit-identical, timed beside the
    library call at that precision (``baddbmm`` with TF32 on, or on bf16
    operands) and bounded at one tensor-core pass at that precision's peak
-   (TF32, or bf16 for BF16); two ``IdentityTrainer``
+   (TF32, or bf16 for BF16), each BF16 row also beside the TF32 row
+   (``tf32_ms``, ``vs_tf32``); two ``IdentityTrainer``
    steps (B=32, the second timed) and a 20-step ``fit_joint_batch`` (8
    subjects) at "default", "high" and "bfloat16" from one start: finite,
    the lower precisions' first-step and final fit losses within
@@ -3730,6 +3731,13 @@ def precision_path(models, npm, device, rows):
             rows[f"{kernel}@S8_{name}"]["launches"] = by_prec[kernel][p]
         for kernel in ("train_fwd", "train_bwd"):
             rows[f"{kernel}@{name}"]["launches"] = by_prec[kernel][p]
+    # each BF16 row beside the TF32 row of the same kernel, timed in this run
+    for key in ("fit_fwd@S8_", "fit_bwd@S8_", "train_fwd@", "train_bwd@"):
+        low, tf32 = rows[key + "bfloat16"], rows[key + "high"]
+        low["tf32_ms"], low["vs_tf32"] = tf32["ms"], low["ms"] / tf32["ms"]
+        log(f"[precision] {key}bfloat16 {low['ms']:.3f} ms: {low['vs_f32']:.3f}x F32, "
+            f"{low['vs_tf32']:.3f}x TF32 ({tf32['ms']:.3f} ms), "
+            f"{low['ms'] / low['library_ms']:.3f}x the bf16 library call")
     npm_remat_path(npm, device)
     return counts
 

@@ -15,22 +15,31 @@
 //                   written as G = dF/dcoords.
 //
 // Every hidden product (the layers forward, their transposes in reverse) is
-// tc::mm64 at the route P (3xTF32 at tc::kF32, one pass on rounded
-// operands at kTF32 and kBF16, one bf16 MMA a K step of 16 on bf16 weights
-// at kBF16Mma, whose activation rows pad to 16): mma.sync over a point-major activation tile
-// in shared memory ([64][act_ld(width)]), the member's K-major weights
-// staged by TMA through the ring (tc_tile.cuh).  Each warp stores its raw
-// sums; bias and softplus then run as a balanced block-wide pass (a thread
-// per column and 16-row block), which in the reverse modes also turns the
-// consumed input activation into its softplus' (the reverse sweep's only use
-// of it), so the reverse epilogues are a multiply, and the reverse sweep
-// overwrites each of those with its cotangent in place.  The reverse modes
-// keep every hidden activation (184 KB at the NPHM widths: one block per
-// SM); K3 keeps two, in turn.  The head product and the reverse seed are one
-// pass over the last activation, and bias cotangents (tc::colsum64) and
+// tc::mm64 at the route P (3xTF32 at tc::kF32, one pass on TF32-rounded
+// operands at kTF32, one bf16 MMA a K step of 16 on bf16 weights at
+// kBF16Mma): mma.sync over a point-major activation tile in shared memory
+// ([64][act_ld(width)]), the member's K-major weights staged by TMA through
+// the ring (tc_tile.cuh).  Each warp stores its raw sums; bias and softplus
+// then run as a balanced block-wide pass (a thread per column and 16-row
+// block), which in the reverse modes also turns the consumed input
+// activation into its softplus' (the reverse sweep's only use of it), so
+// the reverse epilogues are a multiply, and the reverse sweep overwrites
+// each of those with its cotangent in place.  The reverse modes keep every
+// hidden activation (184 KB at the NPHM widths: one block per SM); K3
+// keeps two, in turn.  The head product and the reverse seed are one pass
+// over the last activation, and bias cotangents (tc::colsum64) and
 // d(coords) (point_grad) close with warp shuffle trees: every sum has a
 // fixed order, so results are deterministic.  Culled (member, tile) pairs
 // write zeros.
+//
+// At kBF16Mma the time outside the products is cut (measured with
+// tc::PhaseClock, python -m nphm_tpu_torch.kernel_ab --kernels phases):
+// layer 0 and the bias passes load a column's bias once for the block's
+// one conditioning row and unroll its rows; the reverse products' pre hook
+// takes softplus' of the activation it gathers, so no pass turns them
+// beforehand; K4's bias column sums run a thread per column; and the first
+// product's first weight slices are issued before layer 0.  F32 and TF32
+// keep the code above.
 #pragma once
 
 #include <type_traits>
@@ -157,11 +166,10 @@ __device__ __forceinline__ void init_ring(const tc::Ring& ring) {
   }
 }
 
-// Zero columns [w, w rounded up to kp) of a [64][ld] activation: the
-// products read activation columns up to the next multiple of their K step
-// (tc::k_pad: 8, or 16 for kBF16Mma).
-__device__ __forceinline__ void zero_pad(float* h, int ld, int w, int kp = 8) {
-  const int pad = ((w + kp - 1) & -kp) - w;
+// Zero columns [w, w rounded up to 8) of a [64][ld] activation: the
+// products read activation columns up to the next multiple of 8.
+__device__ __forceinline__ void zero_pad(float* h, int ld, int w) {
+  const int pad = ((w + 7) & ~7) - w;
   for (int it = threadIdx.x; it < pad * kRows; it += blockDim.x)
     h[(it / pad) * ld + w + it % pad] = 0.f;
 }
@@ -169,9 +177,13 @@ __device__ __forceinline__ void zero_pad(float* h, int ld, int w, int kp = 8) {
 // Layer 0 of member m over a 64-point tile from its 3 point inputs xs
 // ([3][64]): h = softplus(W0 x + b0[row]) into [64][ld], pad columns
 // zeroed.  A thread per output column and 16-row block, its rows
-// independent.
+// independent.  At route tc::kBF16Mma the block's 64 points share one
+// conditioning row (the entry points require row_len to be a multiple of
+// 64), so a thread loads its column's bias once and runs its rows
+// unrolled; the other routes keep a load per point.
+template <int P = tc::kF32>
 __device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float* xs,
-                                            const int* rows, float* h, int ld, int kp = 8) {
+                                            const int* rows, float* h, int ld) {
   constexpr int T = kRows;
   const int H0 = (int)tr.n_out[0];
   const float beta = (float)tr.beta;
@@ -183,22 +195,36 @@ __device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float*
     const int o = it % H0;
     const int l0 = (it / H0) * 16;
     const float w0 = w[o * 3], w1 = w[o * 3 + 1], w2 = w[o * 3 + 2];
+    if constexpr (P == tc::kBF16Mma) {
+      const float bo = __ldg(b + rows[0] * brs + o);
+#pragma unroll
+      for (int l = l0; l < l0 + 16; ++l) {
+        float z = w0 * xs[l];
+        z = fmaf(w1, xs[T + l], z);
+        z = fmaf(w2, xs[2 * T + l], z);
+        h[l * ld + o] = tc::softplus_fast(z + bo, beta, inv_beta);
+      }
+    } else {
 #pragma unroll 4
-    for (int l = l0; l < l0 + 16; ++l) {
-      float z = w0 * xs[l];
-      z = fmaf(w1, xs[T + l], z);
-      z = fmaf(w2, xs[2 * T + l], z);
-      h[l * ld + o] = tc::softplus_fast(z + __ldg(b + rows[l] * brs + o), beta, inv_beta);
+      for (int l = l0; l < l0 + 16; ++l) {
+        float z = w0 * xs[l];
+        z = fmaf(w1, xs[T + l], z);
+        z = fmaf(w2, xs[2 * T + l], z);
+        h[l * ld + o] = tc::softplus_fast(z + __ldg(b + rows[l] * brs + o), beta, inv_beta);
+      }
     }
   }
-  zero_pad(h, ld, H0, kp);
+  zero_pad(h, ld, H0);
 }
 
 // Hidden layer i of member m over the raw sums `out` ([64][ld]) in place:
 // bias, the skip layer's point term and softplus, pad columns zeroed; a
 // thread per column and 16-row block (balanced, unlike the MMA epilogue).
+// At tc::kBF16Mma, as layer0_pass: the bias loaded once, the rows
+// unrolled, and the point term only at the skip layer.
+template <int P = tc::kF32>
 __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const float* xs,
-                                          const int* rows, float* out, int ld, int kp = 8) {
+                                          const int* rows, float* out, int ld) {
   constexpr int T = kRows;
   const int H = (int)tr.n_out[i];
   const float beta = (float)tr.beta;
@@ -215,16 +241,50 @@ __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const f
       w1 = wp[o * 3 + 1];
       w2 = wp[o * 3 + 2];
     }
+    if constexpr (P == tc::kBF16Mma) {
+      const float bo = __ldg(b + rows[0] * brs + o);
+      if (wp != nullptr) {
+#pragma unroll
+        for (int l = l0; l < l0 + 16; ++l) {
+          float z = out[l * ld + o] + bo;
+          z = fmaf(w0, xs[l], z);
+          z = fmaf(w1, xs[T + l], z);
+          z = fmaf(w2, xs[2 * T + l], z);
+          out[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
+        }
+      } else {
+#pragma unroll
+        for (int l = l0; l < l0 + 16; ++l)
+          out[l * ld + o] = tc::softplus_fast(out[l * ld + o] + bo, beta, inv_beta);
+      }
+    } else {
 #pragma unroll 4
-    for (int l = l0; l < l0 + 16; ++l) {
-      float z = out[l * ld + o] + __ldg(b + rows[l] * brs + o);
-      z = fmaf(w0, xs[l], z);
-      z = fmaf(w1, xs[T + l], z);
-      z = fmaf(w2, xs[2 * T + l], z);
-      out[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
+      for (int l = l0; l < l0 + 16; ++l) {
+        float z = out[l * ld + o] + __ldg(b + rows[l] * brs + o);
+        z = fmaf(w0, xs[l], z);
+        z = fmaf(w1, xs[T + l], z);
+        z = fmaf(w2, xs[2 * T + l], z);
+        out[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
+      }
     }
   }
-  zero_pad(out, ld, H, kp);
+  zero_pad(out, ld, H);
+}
+
+// dst[o] = sum over the 64 rows of d[t * ld + o], o < H, at tc::kBF16Mma
+// (tc::colsum64 elsewhere): a thread per column, its rows in four
+// interleaved partial sums added in a fixed order (deterministic), so the
+// warps past the columns go on to point_grad at once.
+__device__ __forceinline__ void colsum64_cols(const float* d, int ld, int H,
+                                              float* __restrict__ dst) {
+  for (int o = threadIdx.x; o < H; o += blockDim.x) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int r = 0; r < kRows; r += 4)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[k] += d[(r + k) * ld + o];
+    dst[o] = (s[0] + s[1]) + (s[2] + s[3]);
+  }
 }
 
 // The block's work in MODE.  coords: [A][3][M]; dF: [A][M] (K4); active:
@@ -245,7 +305,6 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                                      int cull_tile, int act_floats, int stage) {
   constexpr bool kReverse = MODE != kFitFwd;
   constexpr int T = kRows;
-  constexpr int kp = tc::k_pad(P);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
@@ -282,7 +341,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   {
     int cur = 0;
     for (int i = 0; i < L - 1; ++i) {
-      ld[i] = tc::act_ld((int)tr.n_out[i], kp);
+      ld[i] = tc::act_ld((int)tr.n_out[i]);
       ho[i] = kReverse ? cur : (i & 1) * (act_floats / 2);
       cur += T * ld[i];
     }
@@ -303,6 +362,10 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                        (int)tr.n_in[i]};
   };
 
+  // phases of the block (tc::PhaseClock, a no-op in the default build)
+  enum { kSetup, kLayer0, kFwdProducts, kBias, kSweep, kHead, kRevSums, kRevProducts, kTail };
+  tc::PhaseClock clk;
+  clk.start();
   if (t < T) {
     for (int c = 0; c < 3; ++c) {
       xs[c * T + t] = coords[(m * 3 + c) * M + p0 + t];
@@ -313,15 +376,23 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   }
   init_ring(ring);
   __syncthreads();
+  if constexpr (P == tc::kBF16Mma) {
+    // the first product's first slices land while layer 0 runs
+    if (t == tc::kProducer && L > 2)
+      tc::ring_issue<KS, tc::kRingStages, P>(ring, fwd(1), nullptr, tc::kRingStages - 1);
+  }
+  clk.mark(kSetup);
 
   // forward: layer 0 from the 3 point inputs, then the hidden products
-  layer0_pass(tr, m, xs, rows, smem + ho[0], ld[0], kp);
+  layer0_pass<P>(tr, m, xs, rows, smem + ho[0], ld[0]);
   __syncthreads();
+  clk.mark(kLayer0);
   for (int i = 1; i < L - 1; ++i) {
     // each warp stores its raw sums, then the block applies bias, point
     // term and softplus in a balanced pass (a thread per column and 16-row
     // block) and, before a reverse sweep, turns the consumed input h_{i-1}
-    // into softplus'(z_{i-1})
+    // into softplus'(z_{i-1}) (at tc::kBF16Mma the reverse products' pre
+    // hook does that as it gathers h_{i-1}, so no pass goes over it here)
     float* out = smem + ho[i];
     const int ldo = ld[i];
     tc::Operand next{};
@@ -334,8 +405,10 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                     [&](int, int) { return 0.f; },
                     [&](int l, int o, float acc, float) { out[l * ldo + o] = acc; });
     __syncthreads();
-    bias_pass(tr, i, m, xs, rows, out, ldo, kp);
-    if (kReverse) {
+    clk.mark(kFwdProducts);
+    bias_pass<P>(tr, i, m, xs, rows, out, ldo);
+    clk.mark(kBias, true);
+    if (kReverse && P != tc::kBF16Mma) {
       float* h = smem + ho[i - 1];
       const int Hp = (int)tr.n_out[i - 1];
       const int ldh = ld[i - 1];
@@ -348,6 +421,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
       }
     }
     __syncthreads();
+    clk.mark(kSweep);
   }
 
   // the head product F (K3, K5) and the reverse seed (K4, K5) in one pass
@@ -356,17 +430,24 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                   MODE != kFitBwd ? F + m * M + p0 : nullptr);
   if (!kReverse) return;
   __syncthreads();
+  clk.mark(kHead);
 
   // activation L-2 now holds d_{L-2} = u * softplus'(z), the others
-  // softplus'(z_i); walk down to layer 0
+  // softplus'(z_i) (h_i at tc::kBF16Mma); walk down to layer 0
   for (int i = L - 2; i >= 0; --i) {
     const int H = (int)tr.n_out[i];
     float* d = smem + ho[i];
     if (i == skip || i == 0) {
       // (K4) bias cotangent partials; d(coords) += d_i . Wp_i (3 point inputs)
-      if (MODE == kFitBwd) tc::colsum64(d, ld[i], H, i == 0 ? out0 : out_s);
+      if constexpr (MODE == kFitBwd) {
+        if constexpr (P == tc::kBF16Mma)
+          colsum64_cols(d, ld[i], H, i == 0 ? out0 : out_s);
+        else
+          tc::colsum64(d, ld[i], H, i == 0 ? out0 : out_s);
+      }
       point_grad(d, ld[i], H, i == 0 ? tr.w[0] + m * tr.w_ms[0] : tr.wp + m * tr.wp_ms,
                  dg);
+      clk.mark(kRevSums, true);
     }
     if (i > 0) {
       // u_{i-1} = d_i W_i, then d_{i-1} = u_{i-1} * softplus'(z_{i-1}) in place
@@ -374,13 +455,24 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
       const int ldv = ld[i - 1];
       const tc::Operand next = i > 1 ? rev(i - 1) : tc::Operand{};
       tc::mm64<KS, P>(d, ld[i], rev(i), i > 1 ? &next : nullptr, ring,
-                      [&](int l, int k) { return prev[l * ldv + k]; },
+                      [&](int l, int k) {
+                        const float v = prev[l * ldv + k];
+                        if constexpr (P == tc::kBF16Mma)
+                          return tc::softplus_grad_fast(v, beta);  // v = h_{i-1}
+                        else
+                          return v;
+                      },
                       [&](int l, int k, float acc, float g) { prev[l * ldv + k] = acc * g; });
     }
     __syncthreads();
+    clk.mark(kRevProducts);
   }
   if (t < T)
     for (int c = 0; c < 3; ++c) dcoords[(m * 3 + c) * M + p0 + t] = dg[c * T + t];
+  clk.mark(kTail);
+#ifdef NPHM_PHASE_CLOCKS
+  if (t == 0) atomicAdd(&tc::phase_cycles[tc::kBlockSlot], 1ull);
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -412,11 +504,10 @@ inline int setup(const Trunk* tr, int n_members, bool reverse, Maps* maps, Launc
                  int act_bufs = 0, int point_floats = 8 * kRows, int max_ks = 16,
                  int route = tc::kF32) {
   const int L = (int)tr->n_layers;
-  const int kp = tc::k_pad(route);
   const bool bf16 = route == tc::kBF16Mma;
   int act_floats = 0, widest = 0, nmax = 8;
   for (int i = 0; i < L - 1; ++i) {
-    const int a = kRows * tc::act_ld((int)tr->n_out[i], kp);
+    const int a = kRows * tc::act_ld((int)tr->n_out[i]);
     act_floats += a;
     widest = a > widest ? a : widest;
     if (i > 0) {

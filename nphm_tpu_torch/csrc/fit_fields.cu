@@ -21,23 +21,24 @@
 // Both are field_tile.cuh's body on the tensor cores (modes kFitFwd and
 // kFitBwd: 3xTF32 mma.sync over 16 warps, weights staged by TMA), each
 // instantiated for three routes (the entry points take the route code the
-// host chose, ops/fit_fields.py ROUTES): K3 at tc::kF32, kTF32 and
-// kBF16Mma (bf16 weights rounded once per call, one m16n8k16 .bf16 MMA a
-// product step), K4 at kF32, kTF32 and kBF16 (operands rounded per fragment
-// for one TF32 pass).  Bounds on this card, tensor-core operations run as
-// 3xTF32 at 495 TFLOP/s of TF32 (one pass at the lower precisions, at the
-// bf16 rate for bf16): K3 ~81k multiply-adds per point and member, K4 ~161k
-// (the recomputed forward and the reverse sweep).
+// host chose, ops/fit_fields.py ROUTES): tc::kF32, kTF32 (operands rounded
+// per fragment for one TF32 pass) and kBF16Mma (bf16 weights rounded once
+// per call, one m16n8k16 .bf16 MMA a product step, in K4's reverse sweep
+// too); K4 launches over K3's trunk at every route.  Bounds on this card,
+// tensor-core operations run as 3xTF32 at 495 TFLOP/s of TF32 (one pass at
+// the lower precisions, at the bf16 rate for bf16): K3 ~81k multiply-adds
+// per point and member, K4 ~161k (the recomputed forward and the reverse
+// sweep).
 //
 // mma.sync rather than wgmma: wgmma takes its .tf32 A operand from shared
 // memory (both halves of 184 KB of activations: no room) or from registers,
 // and its N is an instruction constant, so every hidden width (101 -> 104,
 // 200) would need its own instruction and accumulator count; mma.sync tiles
 // any width in 8-wide steps and splits both operands where they are loaded.
-// At bf16 the same holds for K3 (kBF16Mma): its activations stay fp32 for
-// the bias and softplus passes and the head, so its A operand packs from
-// them in registers, and the weights, rounded once on the host, halve the
-// ring's bytes a K step.
+// At bf16 the same holds (kBF16Mma): the activations and K4's cotangents
+// stay fp32 for the bias and softplus passes, the head and the bias and
+// point sums, so the A operand packs from them in registers, and the
+// weights, rounded once on the host, halve the ring's bytes a K step.
 //
 // First designs: 32-point blocks of 8 warps, an fp32 register-tiled product
 // reading weights from L2 with __ldg; K4 with serial bias and d(coords)
@@ -77,13 +78,27 @@ fit_bwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
 
 extern "C" int nphm_fit_lanes_per_block() { return field::kRows; }
 
+#ifdef NPHM_PHASE_CLOCKS
+// out[tc::kPhaseSlots] = this file's phase clocks (tc::PhaseClock), summed
+// over the blocks since the last reset; zeroed after the read when `reset`.
+extern "C" int nphm_fit_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, tc::phase_cycles, sizeof(tc::phase_cycles));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zeros[tc::kPhaseSlots] = {};
+    err = cudaMemcpyToSymbol(tc::phase_cycles, zeros, sizeof(zeros));
+  }
+  return (int)err;
+}
+#endif
+
 // coords: [A][3][M]; active: [M / cull_tile][A]; F: [A][M].  M and
 // cull_tile are multiples of 64; route: tc::kF32, kTF32 or kBF16Mma (the
 // hidden weights of *tr then bf16, field::setup).
 extern "C" int nphm_fit_fwd(const nphm::Trunk* tr, const float* coords,
                             const int* active, float* F, int64_t M,
                             int n_members, int cull_tile, int route, void* stream) {
-  if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
+  if (M % field::kRows != 0 || cull_tile % field::kRows != 0 ||
+      tr->row_len % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
@@ -104,18 +119,14 @@ extern "C" int nphm_fit_occupancy(const nphm::Trunk* tr, int n_members, int back
                                   int route, int* out) {
   field::Maps maps = {};
   field::Launch ln;
-  const int rc = backward ? field::setup(tr, n_members, true, &maps, &ln)
-                          : field::setup(tr, n_members, false, &maps, &ln, 0,
-                                         8 * field::kRows, 16, route);
+  const int rc = field::setup(tr, n_members, backward != 0, &maps, &ln, 0, 8 * field::kRows,
+                              16, route);
   if (rc != 0) return rc;
-  if (backward)
-    return field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
-      constexpr int P = decltype(p)::value;
-      return field::occupancy(ln.ks == 16 ? fit_bwd_kernel<16, P> : fit_bwd_kernel<8, P>,
-                              field::kThreads, ln.smem, out);
-    });
   return field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
     constexpr int P = decltype(p)::value;
+    if (backward)
+      return field::occupancy(ln.ks == 16 ? fit_bwd_kernel<16, P> : fit_bwd_kernel<8, P>,
+                              field::kThreads, ln.smem, out);
     return field::occupancy(ln.ks == 16 ? fit_fwd_kernel<16, P> : fit_fwd_kernel<8, P>,
                             field::kThreads, ln.smem, out);
   });
@@ -130,13 +141,14 @@ extern "C" int nphm_fit_bwd(const nphm::Trunk* tr, const float* coords, const fl
                             float* part_s, float* d_bias0, float* d_bias_s, int64_t M,
                             int n_members, int n_rows, int cull_tile, int route,
                             void* stream) {
-  if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
+  if (M % field::kRows != 0 || cull_tile % field::kRows != 0 ||
+      tr->row_len % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
-  int rc = field::setup(tr, n_members, true, &maps, &ln);
+  int rc = field::setup(tr, n_members, true, &maps, &ln, 0, 8 * field::kRows, 16, route);
   if (rc != 0) return rc;
-  rc = field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
+  rc = field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
     constexpr int P = decltype(p)::value;
     return field::launch(fit_bwd_kernel<16, P>, fit_bwd_kernel<8, P>, ln, n_members, M,
                          stream, *tr, maps, coords, dF, active, dcoords, part0, part_s, M,

@@ -21,9 +21,9 @@
 //
 // mm64 and K6's lane contraction also run at two lower precisions (a
 // template parameter, ops/precision.py): one mma.sync pass on operands
-// rounded to TF32, or to bf16 held in TF32 registers (K4, K5), and a
-// route that rounds the weights once per call on the host: K3's and K6's
-// bf16 products as m16n8k16 .bf16 MMAs on bf16 weights (kBF16Mma below).
+// rounded to TF32 as fragments load, and bf16 products as m16n8k16 .bf16
+// MMAs on weights the host rounds to bf16 once per call (kBF16Mma below),
+// the route of K3-K6 at bf16.
 #pragma once
 
 #include <cuda.h>
@@ -66,37 +66,19 @@ __device__ __forceinline__ void split_mma(float x, uint32_t& big, uint32_t& smal
   small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// Product precisions (ops/precision.py Precision): kF32 the 3xTF32 split;
-// kTF32 one pass on the split's big halves (x rounded to nearest TF32, ties
-// away: ops/tf32.py::tf32_round); kBF16 one pass on x rounded to bf16,
-// nearest even (cvt.rn.bf16.f32), held in a TF32 register.  A bf16 value
-// is a TF32 value (the same 8-bit exponent, 7 of TF32's 10 mantissa bits),
-// so the MMA reads it exactly.
-enum Precision : int { kF32 = 0, kTF32 = 1, kBF16 = 2 };
+// Product routes (ops/fit_fields.py Route, chosen per precision by ROUTES):
+// kF32 the 3xTF32 split; kTF32 one pass on the split's big halves (x
+// rounded to nearest TF32, ties away: ops/tf32.py::tf32_round).
+enum Precision : int { kF32 = 0, kTF32 = 1 };
 
-// A route beside the three precisions, for the instantiations whose weights
-// the host prepares once per call (ops/fit_fields.py ROUTES): kBF16Mma,
-// kBF16's products as one m16n8k16 .bf16 MMA each (the bf16 tensor-core
-// rate): B is bf16 in memory and in the TMA ring (half the bytes of a
-// slice), its K order permuted within each group of 16 (kPerm) so that the
-// A operand, fp32 in shared memory, loads with the fp32 ldmatrix pattern
-// and packs two values a register (cvt.rn.bf16x2.f32).
+// The bf16 route, whose weights the host prepares once per call: kBF16Mma,
+// each product as one m16n8k16 .bf16 MMA a K step of 16 (the bf16
+// tensor-core rate): B is bf16 in memory and in the TMA ring (half the
+// bytes of a slice), its K order permuted within each group of 16 (kPerm)
+// so that the A operand, fp32 in shared memory, loads with the fp32
+// ldmatrix pattern and packs two values a register (cvt.rn.bf16x2.f32:
+// nearest even, as ops/precision.py's bf16_round).
 constexpr int kBF16Mma = 4;
-
-// The K padding of a route's operands: m16n8k16 reads K in steps of 16.
-__host__ __device__ constexpr int k_pad(int p) { return p == kBF16Mma ? 16 : 8; }
-
-// An fp32 operand's bits as a one-pass product at precision P reads them.
-template <int P>
-__device__ __forceinline__ uint32_t round_operand(uint32_t x) {
-  if constexpr (P == kTF32) {
-    return (x + 0x1000u) & 0xffffe000u;
-  } else {
-    uint16_t h;
-    asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(__uint_as_float(x)));
-    return (uint32_t)h << 16;
-  }
-}
 
 // Softplus(beta) and its derivative through the activation h = softplus(z)
 // (1 - e^{-beta h}) with the fast exp/log intrinsics: within ~1e-7 of
@@ -168,6 +150,50 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Per-phase clocks of the field kernels' blocks (field_tile.cuh), compiled
+// in only with NPHM_PHASE_CLOCKS defined (python -m
+// nphm_tpu_torch.kernel_ab --kernels phases builds a copy so): thread 0 of
+// each live block adds the clock64 cycles between its marks to
+// phase_cycles[slot], and the cycles it waits on ring slices to
+// phase_cycles[kRingWaitSlot].  The default build holds none of it.
+constexpr int kPhaseSlots = 16;
+constexpr int kRingWaitSlot = 14;
+constexpr int kBlockSlot = 15;  // the count of timed blocks
+#ifdef NPHM_PHASE_CLOCKS
+static __device__ unsigned long long phase_cycles[kPhaseSlots];
+#endif
+
+struct PhaseClock {
+#ifdef NPHM_PHASE_CLOCKS
+  long long last;
+  __device__ __forceinline__ void start() { last = clock64(); }
+  // close the phase in `slot` (after a block barrier first when `sync`)
+  __device__ __forceinline__ void mark(int slot, bool sync = false) {
+    if (sync) __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      atomicAdd(&phase_cycles[slot], (unsigned long long)(now - last));
+      last = now;
+    }
+  }
+#else
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int, bool = false) {}
+#endif
+};
+
+// mbar_wait on a ring slice's full barrier, timed under NPHM_PHASE_CLOCKS.
+__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
+#ifdef NPHM_PHASE_CLOCKS
+  const long long t0 = clock64();
+  mbar_wait(bar, parity);
+  if (threadIdx.x == 0)
+    atomicAdd(&phase_cycles[kRingWaitSlot], (unsigned long long)(clock64() - t0));
+#else
+  mbar_wait(bar, parity);
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -257,12 +283,11 @@ constexpr int kNT = 4;                     // n8 tiles per warp
 constexpr int kMaxN = kGroups * kNT * 8;   // widest product: 256 outputs
 
 // Row stride (floats) of a [64][w] activation tile in shared memory: w
-// rounded to the MMA's K step (kp: 8, or 16 for kBF16Mma, k_pad), plus 4,
-// so that the eight 16-byte rows an ldmatrix phase reads fall in distinct
+// rounded to 8 (the K step of an m16n8k8 MMA, and half that of kBF16Mma's
+// m16n8k16, whose tail reads no column past it: mma_step_bf16), plus 4, so
+// that the eight 16-byte rows an ldmatrix phase reads fall in distinct
 // banks.
-__host__ __device__ __forceinline__ int act_ld(int w, int kp = 8) {
-  return ((w + kp - 1) & -kp) + 4;
-}
+__host__ __device__ __forceinline__ int act_ld(int w) { return ((w + 7) & ~7) + 4; }
 
 // Floats of one ring stage of mm64<KS> for products up to n outputs: the
 // [round8(n)][KS] slice TMA writes, rounded up to 1 KB so that every stage
@@ -341,15 +366,15 @@ __device__ __forceinline__ void split_mma(uint32_t x, uint32_t& big, uint32_t& s
   split_mma(__uint_as_float(x), big, small);
 }
 
-// An operand fragment element as the product at precision P reads it: its
-// split at kF32 (big * big + big * small + small * big), else its rounding
-// in big alone (small unused).
+// An operand fragment element as the product at route P reads it: its
+// split at kF32 (big * big + big * small + small * big), else (kTF32) its
+// rounding to nearest TF32, ties away, in big alone (small unused).
 template <int P>
 __device__ __forceinline__ void load_operand(uint32_t x, uint32_t& big, uint32_t& small) {
   if constexpr (P == kF32) {
     split_mma(x, big, small);
   } else {
-    big = round_operand<P>(x);
+    big = (x + 0x1000u) & 0xffffe000u;
   }
 }
 
@@ -364,17 +389,20 @@ __host__ __device__ constexpr int k_words(int K) {
 // (rows of A from a_lane, fp32 in shared memory, lda floats a row) and NJ
 // n8 tiles, at word column kw of the staged bf16 B fragments bf[j][kk / 4
 // ...] (a word step of 8 is 16 K): A packed from two 8-column fp32
-// ldmatrix loads in kPerm order.
+// ldmatrix loads in kPerm order.  `upper`: whether A has the step's second
+// 8 columns; the last step of a K that is 8 past a multiple of 16 has not
+// (the tile pads its rows to 8 only), and packs zeros there, against the
+// zero K columns of B.
 template <int NJ, int BW>
 __device__ __forceinline__ void mma_step_bf16(float (&acc)[NJ][kMT][4], const float* a_lane,
                                               int lda, int kw, const uint32_t (&bf)[NJ][BW],
-                                              int kk) {
+                                              int kk, bool upper) {
   uint32_t a[kMT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
-    uint32_t r[4], q[4];
+    uint32_t r[4], q[4] = {0u, 0u, 0u, 0u};
     ldsm_x4(r, a_lane + mt * 16 * lda + 2 * kw);
-    ldsm_x4(q, a_lane + mt * 16 * lda + 2 * kw + 8);
+    if (upper) ldsm_x4(q, a_lane + mt * 16 * lda + 2 * kw + 8);
     a[mt][0] = pack_bf16(r[0], r[2]);
     a[mt][1] = pack_bf16(r[1], r[3]);
     a[mt][2] = pack_bf16(q[0], q[2]);
@@ -457,6 +485,7 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
   const int tig = lane & 3;
   const int N = b.N;
   const int K8 = (k_words<P>(b.K) + 7) & ~7;  // words of B
+  const int K8a = (b.K + 7) & ~7;              // columns of A (kBF16Mma)
   const int n_sl = n_slices<KS>(k_words<P>(b.K));
   // ldmatrix row addresses: A rows m_base + mt*16 + (lane & 15), k half
   // (lane >> 4); B rows nt*8 + (lane & 7), k chunk (lane >> 3)
@@ -477,7 +506,7 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
   for (int s = 0; s < n_sl; ++s) {
     const uint32_t g = ring.slices + s;
     if (threadIdx.x == kProducer) ring_issue<KS, kRingStages, P>(ring, b, next, g + kRingStages);
-    mbar_wait(&ring.full[g % kRingStages], (g / kRingStages) & 1);
+    ring_wait(&ring.full[g % kRingStages], (g / kRingStages) & 1);
     const float* buf = ring.buf + (g % kRingStages) * ring.stage;
 #pragma unroll
     for (int h = 0; h < KS / KH; ++h) {
@@ -498,7 +527,7 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
         for (int kk = 0; kk < KH; kk += 8) {
           if (k0 + kk < K8) {
             if constexpr (P == kBF16Mma) {
-              mma_step_bf16(acc, a_lane, lda, k0 + kk, bf, kk);
+              mma_step_bf16(acc, a_lane, lda, k0 + kk, bf, kk, 2 * (k0 + kk) + 8 < K8a);
             } else {
               uint32_t ab[kMT][4], as[kMT][4], bb[NJ][2], bs[NJ][2];
 #pragma unroll
@@ -565,8 +594,8 @@ __device__ __forceinline__ void mm64_warp(const float* A, int lda, const Operand
 }
 
 // For t < 64, n < N: epi(t, n, sum_k A[t * lda + k] * B[n][k], pre(t, n)),
-// with 3xTF32 mma.sync (P = kF32; one pass on rounded operands at kTF32 and
-// kBF16).  pre runs for every output before any epi, so its
+// with 3xTF32 mma.sync (P = kF32; one pass on rounded operands at kTF32,
+// bf16 MMAs at kBF16Mma).  pre runs for every output before any epi, so its
 // loads are not held behind epi's stores; it may return any value type
 // (K6's reverse pass gathers two floats).  A: [64][lda] in shared memory,
 // 16-byte aligned, columns [K, K rounded up to 8) zero, lda = act_ld(K or

@@ -37,14 +37,13 @@
 //  - lane_contract (a fixed split of the lanes) and sum_splits give dW_i =
 //    sum over lanes of zbar_i h_{i-1}^T + pbar_i q_{i-1}^T.
 // No float atomics anywhere: every sum has a fixed order, so results are
-// bit-identical run to run.  K5 is instantiated for the three product
-// precisions (tc::Precision: 3xTF32, or one pass on TF32- or bf16-rounded
-// operands), K6 for three routes (the entry points take the code the host
-// chose, ops/fit_fields.py ROUTES): tc::kF32 as above; tc::kTF32, one TF32
-// pass rounding each operand fragment as K5 does; tc::kBF16Mma, bf16
-// weights and one m16n8k16 .bf16 MMA a product step in both passes and in
-// the lane contraction, whose [zbar | pbar] rows are stored in bf16 (half
-// their bytes; only the contraction reads them, and the plain version
+// bit-identical run to run.  K5 and K6 are instantiated for three routes
+// (the entry points take the code the host chose, ops/fit_fields.py
+// ROUTES), and K6 launches over K5's trunk: tc::kF32 as above; tc::kTF32,
+// one TF32 pass rounding each operand fragment; tc::kBF16Mma, bf16 weights
+// and one m16n8k16 .bf16 MMA a product step in K5's sweeps, in K6's passes
+// and in its lane contraction, whose [zbar | pbar] rows are stored in bf16
+// (half their bytes; only the contraction reads them, and the plain version
 // rounds them to bf16 there); its reverse pass asks L2 for its scratch
 // gathers a product ahead (prefetch_rows).
 //
@@ -229,7 +228,6 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                      int n_members, int cull_tile, int buf_floats, int stage, int m0,
                      int64_t scr_ms) {
   constexpr int T = field::kRows;
-  constexpr int kp = tc::k_pad(P);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
@@ -271,7 +269,7 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
   int hb = 0, qb = buf_floats, fb = 2 * buf_floats;
   {
     const int H = (int)tr.n_out[0];
-    const int ld = tc::act_ld(H, kp);
+    const int ld = tc::act_ld(H);
     const float* __restrict__ w = tr.w[0] + m * tr.w_ms[0];
     const float* __restrict__ b = tr.b[0] + m * tr.b_ms[0];
     const int64_t brs = tr.b_rs[0];
@@ -294,8 +292,8 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
         q[l * ld + o] = tc::softplus_grad_fast(hv, beta) * p;
       }
     }
-    field::zero_pad(h, ld, H, kp);
-    field::zero_pad(q, ld, H, kp);
+    field::zero_pad(h, ld, H);
+    field::zero_pad(q, ld, H);
     __syncthreads();
     float* R = sc + sr.hq[0] * M2;
     store_rows(h, ld, H, R, M2, p0);
@@ -304,8 +302,8 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
 
   for (int i = 1; i < L - 1; ++i) {
     const int H = (int)tr.n_out[i];
-    const int ld = tc::act_ld(H, kp);
-    const int ldp = tc::act_ld((int)tr.n_out[i - 1], kp);
+    const int ld = tc::act_ld(H);
+    const int ldp = tc::act_ld((int)tr.n_out[i - 1]);
     float* h = smem + fb;    // h_i
     float* hq = smem + hb;   // h_{i-1}, then q_i
     const float* qp = smem + qb;  // q_{i-1}
@@ -335,8 +333,8 @@ train_bwd_fwd_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
           h[l * ld + o] = tc::softplus_fast(z, beta, inv_beta);
         }
       }
-      field::zero_pad(h, ld, H, kp);
-      field::zero_pad(hq, ld, H, kp);
+      field::zero_pad(h, ld, H);
+      field::zero_pad(hq, ld, H);
     }
     __syncthreads();
     const tc::Operand next = i + 1 < L - 1 ? fwd(i + 1) : tc::Operand{};
@@ -384,7 +382,6 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
                      float* __restrict__ scr, int64_t M, int n_members, int cull_tile,
                      int hsum, int buf_floats, int stage, int m0, int n_part, int64_t scr_ms) {
   constexpr int T = field::kRows;
-  constexpr int kp = tc::k_pad(P);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = (int)tr.n_layers;
@@ -450,7 +447,7 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
   // head-weight partial sum over the tile of h dF + q: warp per column
   {
     const int H = (int)tr.n_out[L - 2];
-    const int ld = tc::act_ld(H, kp);
+    const int ld = tc::act_ld(H);
     const float* __restrict__ wl = tr.w[L - 1] + m * tr.w_ms[L - 1];
     const float* R = sc + sr.hq[L - 2] * M2;
     float* z = smem + zo;
@@ -471,14 +468,14 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
       s = field::warp_sum(s);
       if (lane == 0) pb[off_wlast + o] = s;
     }
-    field::zero_pad(z, ld, H, kp);
-    field::zero_pad(p, ld, H, kp);
+    field::zero_pad(z, ld, H);
+    field::zero_pad(p, ld, H);
     __syncthreads();
   }
 
   for (int i = L - 2; i >= 0; --i) {
     const int H = (int)tr.n_out[i];
-    const int ld = tc::act_ld(H, kp);
+    const int ld = tc::act_ld(H);
     float* z = smem + zo;
     float* p = smem + po;
     tc::colsum64(z, ld, H, pb + boff[i]);
@@ -492,16 +489,16 @@ train_bwd_rev_kernel(nphm::Trunk tr, const __grid_constant__ field::Maps maps,
       store_rows<P>(z, ld, H, R, M2, p0);
       store_rows<P>(p, ld, H, R, M2, M + p0);
       const int Hin = (int)tr.n_in[i];
-      const int ldv = tc::act_ld(Hin, kp);
+      const int ldv = tc::act_ld(Hin);
       const float* Hr = sc + sr.hq[i - 1] * M2;  // [h_{i-1} | q_{i-1}]
       if constexpr (P == tc::kBF16Mma) prefetch_rows(Hr, Hin, M, p0);
       float* u = smem + fo;  // vbar_{i-1}, then zbar_{i-1}
       const tc::Operand op = rev(i);
-      field::zero_pad(u, ldv, Hin, kp);
+      field::zero_pad(u, ldv, Hin);
       tc::mm64<KS, P>(p, ld, op, &op, ring, [&](int, int) { return 0.f; },
                       [&](int l, int k, float acc, float) { u[l * ldv + k] = acc; });
       __syncthreads();
-      field::zero_pad(p, ldv, Hin, kp);  // pbar_i's buffer now takes pbar_{i-1}
+      field::zero_pad(p, ldv, Hin);  // pbar_i's buffer now takes pbar_{i-1}
       const tc::Operand next = i > 1 ? rev(i - 1) : tc::Operand{};
       tc::mm64<KS, P>(z, ld, op, i > 1 ? &next : nullptr, ring,
                       [&](int l, int k) {
@@ -751,20 +748,34 @@ extern "C" int nphm_train_fwd_lanes_per_block() { return field::kRows; }
 extern "C" int nphm_train_lanes_per_block() { return field::kRows; }
 extern "C" int nphm_train_split_k() { return kSplitK; }
 
+#ifdef NPHM_PHASE_CLOCKS
+// out[tc::kPhaseSlots] = this file's phase clocks (tc::PhaseClock), summed
+// over the blocks since the last reset; zeroed after the read when `reset`.
+extern "C" int nphm_train_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, tc::phase_cycles, sizeof(tc::phase_cycles));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zeros[tc::kPhaseSlots] = {};
+    err = cudaMemcpyToSymbol(tc::phase_cycles, zeros, sizeof(zeros));
+  }
+  return (int)err;
+}
+#endif
+
 // coords: [A][3][M]; active: [M / cull_tile][A] -> F [A][M], G [A][3][M].
 // M and cull_tile are multiples of 64; every hidden product is at most
-// tc::kMaxN wide; route: tc::kF32, kTF32 or kBF16 (operands rounded per
-// fragment).
+// tc::kMaxN wide; route: tc::kF32, kTF32 or kBF16Mma (the hidden weights
+// of *tr then bf16, field::setup).
 extern "C" int nphm_train_fwd(const nphm::Trunk* tr, const float* coords,
                               const int* active, float* F, float* G, int64_t M,
                               int n_members, int cull_tile, int route, void* stream) {
-  if (M % field::kRows != 0 || cull_tile % field::kRows != 0)
+  if (M % field::kRows != 0 || cull_tile % field::kRows != 0 ||
+      tr->row_len % field::kRows != 0)
     return (int)cudaErrorInvalidValue;
   field::Maps maps = {};
   field::Launch ln;
-  const int rc = field::setup(tr, n_members, true, &maps, &ln);
+  const int rc = field::setup(tr, n_members, true, &maps, &ln, 0, 8 * field::kRows, 16, route);
   if (rc != 0) return rc;
-  return field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
+  return field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
     constexpr int P = decltype(p)::value;
     return field::launch(train_fwd_kernel<16, P>, train_fwd_kernel<8, P>, ln, n_members, M,
                          stream, *tr, maps, coords, active, F, G, M, n_members, cull_tile,
@@ -889,9 +900,10 @@ extern "C" int nphm_train_occupancy(const nphm::Trunk* tr, int n_members, int wh
   field::Maps maps = {};
   field::Launch ln;
   if (which == 0) {
-    const int rc = field::setup(tr, n_members, true, &maps, &ln);
+    const int rc =
+        field::setup(tr, n_members, true, &maps, &ln, 0, 8 * field::kRows, 16, route);
     if (rc != 0) return rc;
-    return field::with_route<tc::kF32, tc::kTF32, tc::kBF16>(route, [&](auto p) {
+    return field::with_route<tc::kF32, tc::kTF32, tc::kBF16Mma>(route, [&](auto p) {
       constexpr int P = decltype(p)::value;
       return field::occupancy(ln.ks == 16 ? train_fwd_kernel<16, P> : train_fwd_kernel<8, P>,
                               field::kThreads, ln.smem, out);

@@ -3,7 +3,7 @@ backward K6, the search K2 or the ensemble grid K1 of two or more
 checkouts on one card, in turns.
 
     python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B [ROOT_C ...]
-        [--kernels fit|train|train_bwd|search|ensemble|low|f32] [--order ABBA]
+        [--kernels fit|train|train_bwd|search|ensemble|low|phases|f32] [--order ABBA]
 
 Each turn runs in a fresh process from one checkout: that checkout's
 ``chip_smoke.py`` builds its kernels (``device_and_build``) and the NPHM
@@ -35,6 +35,16 @@ models (``build_models``), then
   (``torch.profiler``, the mean of 3 calls), so a kernel made of several
   launches (K6: its two passes, the lane contraction, the fixed-order sums)
   shows where its time goes.  No plain version runs;
+- ``--kernels phases``: K4 and K5 at "default" and "bfloat16" at the shapes
+  of ``low``, each turn from a copy of its checkout whose kernels are built
+  with ``NPHM_PHASE_CLOCKS`` (``csrc/tc_tile.cuh``'s ``PhaseClock``: thread
+  0 of each block adds the clock64 cycles of each phase, the cycles it
+  waits on weight slices and the blocks to counters the probe reads), so
+  each call's block time splits by phase: setup, layer 0, the forward
+  products, the bias pass, the softplus' sweep, the head and seed pass,
+  the reverse bias and point sums, the reverse products and the tail (the
+  probe adds a block barrier after the bias pass and after the reverse
+  sums, so that each phase is closed);
 - ``--kernels f32``: the F32 rows outside K3-K6 and the F32 main path, each
   through the checkout's own ``chip_smoke`` helpers (so each against its
   plain version): K1 on the 64^3 and res-256 brick grids (``check_k1``),
@@ -57,8 +67,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 _HEAD = """
 import json, sys, torch
@@ -157,14 +169,56 @@ for res, reps in ((64, 10), (256, 3)):
 print("ROWS " + json.dumps(rows), flush=True)
 """
 
-_LOW = _TRAIN_INPUTS + """
-import re
-
+# K3/K4's batched fit launch (8 subjects x 5 scans x 1000 points,
+# Morton-sorted, as chip_smoke.check_k3_k4_low) beside the training batch,
+# and each kernel's calls at one precision: k3..k6 (K4 and K6 over their
+# forward's outputs)
+_LOW_INPUTS = _TRAIN_INPUTS + """
 import numpy as np
-from torch.profiler import ProfilerActivity, profile
 
 from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.ops.fit_fields import member_f, morton_codes
+
+Bf, S, Nf = 5 * c.BATCH_SUBJECTS, c.BATCH_SUBJECTS, 1000
+xf = torch.tensor(np.stack(c.observations(Bf, Nf, c.SEED + 2)), device=dev)
+latf = (torch.randn((S, cfg.lat_dim), generator=gen) * 0.01).to(dev)
+latf = latf.repeat_interleave(Bf // S, dim=0).contiguous()
+perm = torch.argsort(morton_codes(xf), dim=1, stable=True)
+xf = torch.gather(xf, 1, perm[..., None].expand(Bf, Nf, 3))
+Npf = -(-Nf // tile) * tile
+xf = torch.cat([xf, xf[:, -1:].expand(Bf, Npf - Nf, 3)], dim=1)
+Mf = Bf * Npf
+_, skip = cfg.layer_shapes
+dFf = torch.randn((A, Mf), generator=gen).to(dev)
+dF = torch.randn((A, B * Np), generator=gen).to(dev)
+dG = torch.randn((A, 3, B * Np), generator=gen).to(dev)
+
+
+def calls():
+    lf = latf.clone().requires_grad_(True)
+    anch = predict_anchors(params, cfg, lf)
+    cen = torch.cat([anch, torch.zeros_like(anch[:, :1])], dim=1)
+    cf = (xf[:, :, None] - cen[:, None]) * mirror_scale(cfg, dev)
+    cf = cf.permute(2, 3, 0, 1).reshape(A, 3, Mf).detach().requires_grad_(True)
+    lay_f, _ = prepare_train_operands(params, cfg, lf)
+    act_f = active_mask(cfg, cf, tile, 1e-10)
+    ins_f = (lay_f[0]["b"], lay_f[skip]["b"], cf)
+    Fk = member_f(cfg, lay_f, cf, act_f, tile, Bf)
+    flat = [t.detach().clone().requires_grad_(True) for t in _flat(cfg, layers)]
+    cc = coords.detach().clone().requires_grad_(True)
+    ins = flat + [cc]
+    F, G = member_fields(cfg, _unflat(cfg, flat), cc, active, tile, B)
+    phi = (F * dF).sum() + (G * dG).sum()
+    return (lambda: member_f(cfg, lay_f, cf, act_f, tile, Bf),
+            lambda: torch.autograd.grad(Fk, ins_f, dFf, retain_graph=True),
+            lambda: member_fields(cfg, _unflat(cfg, flat), cc, active, tile, B),
+            lambda: torch.autograd.grad(phi, ins, retain_graph=True))
+"""
+
+_LOW = _LOW_INPUTS + """
+import re
+
+from torch.profiler import ProfilerActivity, profile
 
 
 def split_ms(fn, reps=3):
@@ -184,56 +238,73 @@ def split_ms(fn, reps=3):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-Bf, S, Nf = 5 * c.BATCH_SUBJECTS, c.BATCH_SUBJECTS, 1000
-xf = torch.tensor(np.stack(c.observations(Bf, Nf, c.SEED + 2)), device=dev)
-latf = (torch.randn((S, cfg.lat_dim), generator=gen) * 0.01).to(dev)
-latf = latf.repeat_interleave(Bf // S, dim=0).contiguous()
-perm = torch.argsort(morton_codes(xf), dim=1, stable=True)
-xf = torch.gather(xf, 1, perm[..., None].expand(Bf, Nf, 3))
-Npf = -(-Nf // tile) * tile
-xf = torch.cat([xf, xf[:, -1:].expand(Bf, Npf - Nf, 3)], dim=1)
-Mf = Bf * Npf
-_, skip = cfg.layer_shapes
-dFf = torch.randn((A, Mf), generator=gen).to(dev)
-dF = torch.randn((A, B * Np), generator=gen).to(dev)
-dG = torch.randn((A, 3, B * Np), generator=gen).to(dev)
 rows = {{}}
 for name in ("default", "high", "bfloat16"):
     with precision.matmul_precision(name):
-        lf = latf.clone().requires_grad_(True)
-        anch = predict_anchors(params, cfg, lf)
-        cen = torch.cat([anch, torch.zeros_like(anch[:, :1])], dim=1)
-        cf = (xf[:, :, None] - cen[:, None]) * mirror_scale(cfg, dev)
-        cf = cf.permute(2, 3, 0, 1).reshape(A, 3, Mf).detach().requires_grad_(True)
-        lay_f, _ = prepare_train_operands(params, cfg, lf)
-        act_f = active_mask(cfg, cf, tile, 1e-10)
-        ins_f = (lay_f[0]["b"], lay_f[skip]["b"], cf)
-        Fk = member_f(cfg, lay_f, cf, act_f, tile, Bf)
-        k3 = lambda: member_f(cfg, lay_f, cf, act_f, tile, Bf)
-        k4 = lambda: torch.autograd.grad(Fk, ins_f, dFf, retain_graph=True)
+        k3, k4, k5, k6 = calls()
         with torch.no_grad():
             ms3 = c.cuda_ms(k3, 10)
             sp3 = split_ms(k3)
         ms4 = c.cuda_ms(k4, 10)
         sp4 = split_ms(k4)
-        flat = [t.detach().clone().requires_grad_(True) for t in _flat(cfg, layers)]
-        cc = coords.detach().clone().requires_grad_(True)
-        ins = flat + [cc]
-        F, G = member_fields(cfg, _unflat(cfg, flat), cc, active, tile, B)
-        phi = (F * dF).sum() + (G * dG).sum()
-        k5 = lambda: member_fields(cfg, _unflat(cfg, flat), cc, active, tile, B)
-        k6 = lambda: torch.autograd.grad(phi, ins, retain_graph=True)
         with torch.no_grad():
             ms5 = c.cuda_ms(k5, 5)
             sp5 = split_ms(k5)
         ms6 = c.cuda_ms(k6, 5)
         sp6 = split_ms(k6)
-        del F, G, phi, Fk
+        del k3, k4, k5, k6
     for k, ms, sp in (("fit_fwd", ms3, sp3), ("fit_bwd", ms4, sp4), ("train_fwd", ms5, sp5),
                       ("train_bwd", ms6, sp6)):
         rows[f"{{k}}@{{name}}"] = {{"ms": ms, "split_ms": sp}}
         print(f"[K3] {{k}} at {{name}}: {{ms:.3f}} ms; device split {{json.dumps(sp)}}",
               flush=True)
+print("ROWS " + json.dumps(rows), flush=True)
+"""
+
+# K4 and K5 at F32 and BF16 built with NPHM_PHASE_CLOCKS (csrc/tc_tile.cuh
+# PhaseClock): each block's cycles per phase, the mean over the live blocks
+_PHASES = _LOW_INPUTS + """
+import ctypes
+
+from nphm_tpu_torch.ops import _build
+
+PHASES = ("setup", "layer0", "fwd_products", "bias", "sweep", "head", "rev_sums",
+          "rev_products", "tail")
+
+
+def per_block(entry, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    out = (ctypes.c_ulonglong * 16)()
+    read = getattr(_build.lib(), entry)
+    _build.check(read(out, 1), entry)
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    _build.check(read(out, 1), entry)
+    blocks = max(out[15], 1)
+    cyc = {{p: out[i] / blocks for i, p in enumerate(PHASES)}}
+    cyc["ring_wait_thread0"] = out[14] / blocks
+    cyc["block"] = sum(out[i] for i in range(len(PHASES))) / blocks
+    cyc["blocks_per_call"] = out[15] / reps
+    return cyc
+
+
+rows = {{}}
+for name in ("default", "bfloat16"):
+    with precision.matmul_precision(name):
+        k3, k4, k5, k6 = calls()
+        ms4 = c.cuda_ms(k4, 5)
+        ph4 = per_block("nphm_fit_phase_cycles", k4, 3)
+        with torch.no_grad():
+            ms5 = c.cuda_ms(k5, 3)
+            ph5 = per_block("nphm_train_phase_cycles", k5, 2)
+        del k3, k4, k5, k6
+    for k, ms, ph in (("fit_bwd", ms4, ph4), ("train_fwd", ms5, ph5)):
+        r = rows[f"{{k}}@{{name}}"] = {{"ms": ms, "phases": {{p: round(v, 1)
+                                                            for p, v in ph.items()}}}}
+        print(f"[K4] {{k}} at {{name}}: {{ms:.3f}} ms; cycles a block "
+              f"{{json.dumps(r['phases'])}}", flush=True)
 print("ROWS " + json.dumps(rows), flush=True)
 """
 
@@ -314,11 +385,26 @@ KERNELS = {"fit": (_FIT, ("fit_fwd", "fit_bwd")), "train": (_TRAIN, ("train_fwd"
            "search": (_SEARCH, ("search_init_15", "search_init_3", "search_x90_15",
                                 "search_x90_3")),
            "ensemble": (_ENSEMBLE, ("ensemble_64", "ensemble_256")),
+           "phases": (_PHASES, tuple(f"{k}@{p}" for p in ("default", "bfloat16")
+                                     for k in ("fit_bwd", "train_fwd"))),
            "low": (_LOW, tuple(f"{k}@{p}" for p in ("default", "high", "bfloat16")
                                for k in ("fit_fwd", "fit_bwd", "train_fwd", "train_bwd"))),
            "f32": (_F32, ("ensemble_sdf", "ensemble_sdf@res256", "deepsdf_trunk",
                           "deepsdf_trunk@warp", "deepsdf_trunk@gnn_pose",
                           "deepsdf_trunk@npm_sparse_fine", "identity_step", "batched_fit"))}
+
+
+def phase_clock_copy(root: str, dst: str) -> str:
+    """A copy of checkout ``root`` at ``dst`` whose kernels build with
+    NPHM_PHASE_CLOCKS defined (and nothing built yet)."""
+    shutil.copytree(root, dst, ignore=shutil.ignore_patterns(
+        "_build", "_archive", ".git", "__pycache__"))
+    header = os.path.join(dst, "nphm_tpu_torch", "csrc", "tc_tile.cuh")
+    with open(header) as f:
+        src = f.read()
+    with open(header, "w") as f:
+        f.write("#define NPHM_PHASE_CLOCKS 1\n" + src)
+    return dst
 
 
 def run_turn(root: str, body: str, log_path: str | None = None) -> dict:
@@ -346,9 +432,19 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if len(args.roots) < 2:
         ap.error("give at least two checkouts")
-    body, names = KERNELS[args.kernels]
     letters = "ABCDEFGH"[: len(args.roots)]
     roots = {t: os.path.abspath(r) for t, r in zip(letters, args.roots)}
+    if args.kernels == "phases":
+        with tempfile.TemporaryDirectory(prefix="phase_clocks_") as tmp:
+            return run(args, {t: phase_clock_copy(r, os.path.join(tmp, t))
+                              for t, r in roots.items()})
+    return run(args, roots)
+
+
+def run(args, roots: dict) -> int:
+    """The turns of ``main`` over the checkouts ``roots`` (letter: path)."""
+    body, names = KERNELS[args.kernels]
+    letters = "".join(roots)
     order = args.order or ("ABBA" if len(roots) == 2 else letters)
     times = {t: [] for t in roots}
     last = {}
@@ -359,16 +455,17 @@ def main(argv=None) -> int:
         rows = run_turn(roots[turn], body,
                         os.path.join(args.log, f"turn{i}_{turn}.log") if args.log else None)
         times[turn].append({k: rows[k]["ms"] for k in names})
-        last[turn] = {"split_ms": {k: rows[k]["split_ms"] for k in names
-                                   if "split_ms" in rows[k]}}
+        last[turn] = {key: {k: rows[k][key] for k in names if key in rows[k]}
+                      for key in ("split_ms", "phases")}
     means = {t: {k: sum(r[k] for r in rs) / len(rs) for k in names}
              for t, rs in times.items() if rs}
     summary = {"turns": times, "mean_ms": means}
     if times["A"] and times["B"]:
         summary["ratio_a_over_b"] = {k: means["A"][k] / means["B"][k] for k in names}
-    splits = {t: r.get("split_ms") for t, r in last.items()}
-    if any(splits.values()):
-        summary["split_ms"] = splits
+    for key in ("split_ms", "phases"):
+        per = {t: r[key] for t, r in last.items()}
+        if any(per.values()):
+            summary[key] = per
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -13,11 +13,12 @@ member-local coordinates [A, 3, M]:
 Both run one block per (member, 64-point tile), their products on the
 tensor cores over the K-major weights below, staged in K slices through
 shared memory (``csrc/field_tile.cuh``), at ``precision.current()``: in
-3xTF32 (``ops/tf32.py``) at F32, in one pass on TF32- or bf16-rounded
-operands at TF32 and BF16.  K4 runs at its forward's precision.  Each
-kernel's route at each precision is in ``ROUTES``: K3 at BF16 reads its
-hidden weights in bf16, rounded once per call (``route_weights``), and
-runs one bf16 tensor-core MMA a product step; K4 rounds per fragment.
+3xTF32 (``ops/tf32.py``) at F32, in one pass on TF32-rounded operands at
+TF32, in bf16 tensor-core MMAs at BF16.  K4 runs at its
+forward's precision, over its forward's trunk.  Each kernel's route at each
+precision is in ``ROUTES``: at BF16 the hidden weights are bf16, rounded
+once per call (``route_weights``), and every product step is one bf16
+MMA, K4's reverse sweep included.
 
 Symmetric sharing and the mirror sign are expanded outside (torch autograd
 maps the bias and coordinate cotangents back to the latent), and so are the
@@ -62,28 +63,19 @@ CULL_EPS_TRAIN = 0.0
 
 class Route(enum.IntEnum):
     """How a kernel instantiation runs its products (``csrc/tc_tile.cuh``
-    route codes): the three precisions with operands split or rounded per
-    fragment, and a route whose hidden weights the host rounds once per
-    call (``route_weights``)."""
+    route codes): operands split or rounded per fragment, or hidden weights
+    the host rounds once per call (``route_weights``)."""
 
     F32 = 0  # 3xTF32
     TF32 = 1  # one TF32 pass, operands rounded per fragment
-    BF16 = 2  # operands rounded to bf16 per fragment, one TF32 pass
     BF16_MMA = 4  # bf16 weights in K_PERM order, one m16n8k16 .bf16 MMA a step
 
 
-# Each kernel's route at each precision.  K3 and K6 run bf16 MMAs at BF16;
-# every other instantiation rounds its operands per fragment.
-ROUTES = {
-    "fit_fwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
-                Precision.BF16: Route.BF16_MMA},
-    "fit_bwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
-                Precision.BF16: Route.BF16},
-    "train_fwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
-                  Precision.BF16: Route.BF16},
-    "train_bwd": {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
-                  Precision.BF16: Route.BF16_MMA},
-}
+# Each kernel's route at each precision: the same for K3-K6, so a backward
+# launches over its forward's trunk.
+ROUTES = {kernel: {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
+                   Precision.BF16: Route.BF16_MMA}
+          for kernel in ("fit_fwd", "fit_bwd", "train_fwd", "train_bwd")}
 # csrc/tc_tile.cuh kPerm: position s of each group of 16 K indices of a
 # BF16_MMA weight row holds K index K_PERM[s] of the group
 K_PERM = (0, 4, 1, 5, 2, 6, 3, 7, 8, 12, 9, 13, 10, 14, 11, 15)
@@ -272,8 +264,7 @@ def smem_bytes(kernel: str, cfg: NPHMConfig, route: Route) -> int:
     # the hidden products' K (the skip layer's hidden part)
     n_ins = [n_in - (cfg.d_in if i == skip else 0)
              for i, (n_in, _) in enumerate(shapes[:-1]) if i > 0]
-    kp = route_k_step(route)
-    act = [64 * (_build.round_up(w, kp) + 4) for w in outs]
+    act = [64 * (_build.round_up(w, 8) + 4) for w in outs]
     if kernel == "lane_contract":
         # B side: the hidden inputs' [h | q] rows, fp32; at BF16_MMA the
         # hidden outputs' [zbar | pbar] rows, bf16
@@ -294,12 +285,6 @@ def smem_bytes(kernel: str, cfg: NPHMConfig, route: Route) -> int:
     while ks > 8 and fixed + 4 * 3 * ((_build.round_up(nmax, 8) * ks + 255) & ~255) > SMEM_OPTIN:
         ks //= 2
     return fixed + 4 * 3 * ((_build.round_up(nmax, 8) * ks + 255) & ~255)
-
-
-def same_weights(a: Route, b: Route) -> bool:
-    """Whether two routes read the same weight tensors: all but BF16_MMA
-    read them as given."""
-    return a == b or Route.BF16_MMA not in (a, b)
 
 
 def require_operands(*tensors):
@@ -333,8 +318,6 @@ class _MemberF(torch.autograd.Function):
         member_f.launches_at[prec] += 1
         ctx.save_for_backward(coords_c)
         ctx.fit = (tr, keep, active, tile, n_rows, prec)
-        if not same_weights(route, ROUTES["fit_bwd"][prec]):
-            ctx.fit_layers = (cfg, layers)  # K4's own trunk is built in backward
         return F
 
     @staticmethod
@@ -343,10 +326,6 @@ class _MemberF(torch.autograd.Function):
         tr, keep, active, tile, n_rows, prec = ctx.fit
         lib = _build.lib()
         A, _, M = coords.shape
-        if hasattr(ctx, "fit_layers"):
-            cfg, layers = ctx.fit_layers
-            tr, keep, _hmax, _hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows,
-                                                ROUTES["fit_bwd"][prec])
         n_blk = M // FIT_LANES
         H0, HS = tr.n_out[0], tr.n_out[tr.skip]
         dev = coords.device
@@ -356,7 +335,8 @@ class _MemberF(torch.autograd.Function):
         part_s = torch.empty((A, n_blk, HS), device=dev)
         d_bias0 = torch.empty((A, n_rows, H0), device=dev)
         d_bias_s = torch.empty((A, n_rows, HS), device=dev)
-        _build.require_cuda_f32(dF, *keep)
+        _build.require_cuda_f32(dF)
+        require_operands(dF, *keep)
         rc = lib.nphm_fit_bwd(
             ctypes.byref(tr), coords.data_ptr(), dF.data_ptr(), active.data_ptr(),
             dcoords.data_ptr(), part0.data_ptr(), part_s.data_ptr(),

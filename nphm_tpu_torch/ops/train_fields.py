@@ -11,7 +11,7 @@ biases (``fit_fields.prepare_train_operands``):
 
 - K5 (forward) runs the primal sweep and one reverse sweep seeded by the
   head weights, giving F and G: one block per (member, 64-point tile), its
-  products on the tensor cores in 3xTF32 (K4's body, ``csrc/field_tile.cuh``);
+  products on the tensor cores (K4's body, ``csrc/field_tile.cuh``);
 - K6 (backward, the custom VJP) takes the cotangents (dF, dG), recomputes
   the primal, runs the tangent forward seeded by dG and the dual reverse
   sweep with the softplus'' cross terms, and returns d(coords) and the
@@ -21,13 +21,12 @@ biases (``fit_fields.prepare_train_operands``):
   for the hidden weight gradients.
 
 Every tensor-core product runs at ``precision.current()`` (3xTF32 at F32,
-one pass on TF32- or bf16-rounded operands at TF32 and BF16); K6 runs at
-its forward's precision, and the plain versions round their hidden
-products alike (``fit_fields.member_f_plain``).  K6's route
-(``fit_fields.ROUTES``) reads hidden weights rounded once per call: to
-TF32 at TF32, to bf16 at BF16, where its products and its lane contraction
-run bf16 MMAs and its scratch holds the contraction-only rows
-[zbar | pbar] in bf16.  K5 rounds per fragment.
+one pass on TF32-rounded operands at TF32, bf16 MMAs at BF16); K6 runs at
+its forward's precision, over its forward's trunk, and the plain versions
+round their hidden products alike (``fit_fields.member_f_plain``).  At
+BF16 (``fit_fields.ROUTES``) K5 and K6 read hidden weights rounded to bf16
+once per call, their products and K6's lane contraction run bf16 MMAs, and
+K6's scratch holds the contraction-only rows [zbar | pbar] in bf16.
 
 Symmetric sharing, mirroring, the head bias and the Gaussian blend stay in
 torch, where autograd provides every derivative around the boundary.
@@ -61,7 +60,6 @@ from nphm_tpu_torch.ops.fit_fields import (
     morton_codes,
     prepare_train_operands,
     require_operands,
-    same_weights,
 )
 
 # K6's per-lane scratch (activations, tangents and cotangents of every
@@ -144,7 +142,8 @@ class _MemberFields(torch.autograd.Function):
         route = ROUTES["train_fwd"][prec]
         tr, keep, _hmax, hsum = _fit_trunk(cfg, layers, n_rows, M // n_rows, route)
         coords_c = coords.detach().contiguous()
-        _build.require_cuda_f32(coords_c, *keep)
+        _build.require_cuda_f32(coords_c)
+        require_operands(coords_c, *keep)
         _build.require_mask(active, (M // tile, A), coords.device)
         F = torch.empty((A, M), device=coords.device)
         G = torch.empty((A, 3, M), device=coords.device)
@@ -158,8 +157,6 @@ class _MemberFields(torch.autograd.Function):
         ctx.save_for_backward(coords_c)
         ctx.train = (cfg, tr, keep, active, tile, n_rows, hsum,
                      [tuple(t.shape) for t in flat], prec)
-        if not same_weights(route, ROUTES["train_bwd"][prec]):
-            ctx.train_layers = layers  # K6's own trunk is built in backward
         return F, G
 
     @staticmethod
@@ -170,9 +167,6 @@ class _MemberFields(torch.autograd.Function):
         lib = _build.lib()
         dev = coords.device
         A, _, M = coords.shape
-        if hasattr(ctx, "train_layers"):
-            tr, keep, _hmax, hsum = _fit_trunk(cfg, ctx.train_layers, n_rows, M // n_rows,
-                                               ROUTES["train_bwd"][prec])
         L, skip = tr.n_layers, tr.skip
         dF = torch.zeros((A, M), device=dev) if dF is None else dF.float().contiguous()
         dG = torch.zeros((A, 3, M), device=dev) if dG is None else dG.float().contiguous()

@@ -371,6 +371,55 @@ def test_k3_bf16_against_its_twin(device, hidden, n_pts):
     assert float((runs[0] - plain).abs().max()) < float((f32 - plain).abs().max())
 
 
+@pytest.mark.parametrize("hidden,cull_eps", [(16, 0.0), (36, 1e-10), (200, 0.0),
+                                             (200, 1e-10)])
+def test_k4_k5_bf16_against_their_twins(device, hidden, cull_eps):
+    """K4 and K5 at BF16 (bf16 weights rounded once per call, one m16n8k16
+    .bf16 MMA a step in the forward and the reverse sweep) against their
+    plain versions at BF16, at tiny and production hidden widths (36 and
+    the layer before the skip are not multiples of 16), with and without
+    culled pairs: K4's cotangents of the two folded biases and the
+    coordinates, K5's F and G, each within LOW_TOL of its twin's magnitude
+    and nearer its twin than the F32 kernel's output, two calls
+    bit-identical, and the BF16 instantiations launched."""
+    from nphm_tpu_torch.ops import precision
+
+    bf16 = precision.Precision.BF16
+    cfg, flat, coords, active, tile, B, dF, _dG = k6_case(device, hidden, cull_eps)
+    layers = trf._unflat(cfg, [t.detach() for t in flat])
+    _, skip = cfg.layer_shapes
+    ins = [layers[0]["b"].clone().requires_grad_(True),
+           layers[skip]["b"].clone().requires_grad_(True),
+           coords.detach().clone().requires_grad_(True)]
+    lay = [dict(lay) for lay in layers]
+    lay[0]["b"], lay[skip]["b"] = ins[0], ins[1]
+
+    def k4(fn):
+        F = fn(cfg, lay, ins[2], active, tile, B)
+        return torch.autograd.grad(F, ins, dF)
+
+    def k5(fn):
+        with torch.no_grad():
+            return tuple(t.detach() for t in fn(cfg, layers, coords.detach(), active, tile, B))
+
+    with precision.matmul_precision("bfloat16"):
+        before = (ff.member_f.bwd_launches_at[bf16], trf.member_fields.launches_at[bf16])
+        runs4 = [k4(ff.member_f) for _ in range(2)]
+        runs5 = [k5(trf.member_fields) for _ in range(2)]
+        assert (ff.member_f.bwd_launches_at[bf16],
+                trf.member_fields.launches_at[bf16]) == (before[0] + 2, before[1] + 2)
+        plain4 = k4(ff.member_f_plain)
+        plain5 = trf.member_fields_plain(cfg, layers, coords.detach(), active, tile, B)
+    f32 = k4(ff.member_f) + k5(trf.member_fields)
+    for a, b in zip(runs4[0] + runs5[0], runs4[1] + runs5[1]):
+        assert torch.equal(a, b)
+    for k, p, c in zip(runs4[0] + runs5[0], plain4 + tuple(plain5), f32):
+        p = p.detach()
+        assert torch.isfinite(k).all()
+        assert low_rel(k, p) <= LOW_TOL["bfloat16"]
+        assert float((k - p).abs().max()) < float((c - p).abs().max())
+
+
 @pytest.mark.parametrize("name", ["high", "bfloat16"])
 @pytest.mark.parametrize("hidden,cull_eps", [(16, 0.0), (36, 1e-10), (200, 0.0)])
 def test_k6_low_precision_against_its_twin(device, name, hidden, cull_eps):

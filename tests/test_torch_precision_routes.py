@@ -1,12 +1,13 @@
-"""Host side of K3's and K6's routes at the lower precisions, on the CPU.
+"""Host side of K3-K6's routes at the lower precisions, on the CPU.
 
 The kernels themselves run only on the card (``tests/test_torch_kernels_cuda.py``,
 ``chip_smoke.py`` phase 14); what the wrappers prepare for them is checked
 here: the hidden weights rounded once per call for the bf16 MMAs
 (bit-equal to ``precision.bf16_round``, in the K order their fragments
-read), each kernel's route at each precision (K4, K5 and K6 at TF32 keep
-their per-fragment rounding), the launches' shared memory against the
-card's opt-in limit, and the bytes K6's scratch moves.
+read), each kernel's route at each precision (TF32 rounds per fragment,
+BF16 runs bf16 MMAs), each backward launching over its forward's trunk,
+the launches' shared memory against the card's opt-in limit, and the
+bytes K6's scratch moves.
 """
 
 import os
@@ -80,7 +81,7 @@ def test_route_weights_round_once_bit_equal(k):
     assert wb.dtype == torch.bfloat16 and wb.shape == w.shape and wb.is_contiguous()
     ref = precision.bf16_round(w)
     assert torch.equal(unpermute(wb).float().view(torch.int32), ref.view(torch.int32))
-    for r in (Route.F32, Route.TF32, Route.BF16):
+    for r in (Route.F32, Route.TF32):
         assert ff.route_weights(w, r) is w
 
 
@@ -106,24 +107,24 @@ def test_k_perm_is_the_fragment_order():
 
 @pytest.mark.parametrize("prec", list(Precision))
 def test_routes_k4_k5_keep_per_fragment_rounding(prec):
-    """K4 and K5 keep the route of their precision (operands rounded per
-    fragment, fp32 weights), as does K6 at TF32; K3 and K6 take bf16 MMAs
-    at BF16; F32 is 3xTF32 everywhere."""
-    assert ff.ROUTES["fit_bwd"][prec] == Route(int(prec))
-    assert ff.ROUTES["train_fwd"][prec] == Route(int(prec))
-    assert ff.ROUTES["fit_fwd"][prec] == {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
-                                          Precision.BF16: Route.BF16_MMA}[prec]
-    assert ff.ROUTES["train_bwd"][prec] == {Precision.F32: Route.F32,
-                                            Precision.TF32: Route.TF32,
-                                            Precision.BF16: Route.BF16_MMA}[prec]
+    """K3-K6 share one route at each precision: 3xTF32 at F32, one TF32
+    pass on operands rounded per fragment at TF32 (the only per-fragment
+    rounding left), bf16 MMAs on bf16 weights at BF16, K4 and K5 included
+    (no route rounds to bf16 per fragment any more)."""
+    want = {Precision.F32: Route.F32, Precision.TF32: Route.TF32,
+            Precision.BF16: Route.BF16_MMA}[prec]
+    assert set(ff.ROUTES) == {"fit_fwd", "fit_bwd", "train_fwd", "train_bwd"}
+    for kernel in ff.ROUTES:
+        assert ff.ROUTES[kernel][prec] == want
+    assert sorted(r.name for r in Route) == ["BF16_MMA", "F32", "TF32"]
 
 
 @pytest.mark.parametrize("prec", list(Precision))
 def test_each_kernel_gets_its_routes_weights(prec):
-    """The trunk each kernel launches over at its route: K4's and K5's stay
-    the fp32 layout of test_torch_fit_fields, K3's and K6's take their
-    route's rounding and K order; a backward builds its own trunk exactly
-    when its route reads other weights than its forward's."""
+    """The trunk each kernel launches over at its route: the fp32 layout of
+    test_torch_fit_fields at F32 and TF32, bf16 in K_PERM order padded to
+    K steps of 16 at BF16; a forward and its backward read the same
+    weights."""
     cfg, layers = tiny_layers()
     wd = layers[1]["w"]  # [A, out, in]
     ref = ff._fit_trunk(cfg, layers, 2, 128)
@@ -131,24 +132,99 @@ def test_each_kernel_gets_its_routes_weights(prec):
         route = ff.ROUTES[kernel][prec]
         _tr, keep, _, _ = ff._fit_trunk(cfg, layers, 2, 128, route)
         wt = keep[2]  # layer 1's forward weights [A, out, ldwt]
-        if kernel in ("fit_bwd", "train_fwd"):
-            assert all(a.dtype == torch.float32 and torch.equal(a, b)
-                       for a, b in zip(keep, ref[1]))
-        elif route == Route.BF16_MMA:
+        if route == Route.BF16_MMA:
             assert wt.dtype == torch.bfloat16 and wt.shape[-1] == 48  # 36 to K steps of 16
             assert torch.equal(unpermute(wt)[..., : wd.shape[2]].float(),
                                precision.bf16_round(wd))
         else:
-            assert torch.equal(wt[..., : wd.shape[2]], wd)
+            assert all(a.dtype == torch.float32 and torch.equal(a, b)
+                       for a, b in zip(keep, ref[1]))
     for fwd, bwd in (("fit_fwd", "fit_bwd"), ("train_fwd", "train_bwd")):
-        rf, rb = ff.ROUTES[fwd][prec], ff.ROUTES[bwd][prec]
-        assert ff.same_weights(rf, rb) == (prec != Precision.BF16)
+        assert ff.ROUTES[fwd][prec] == ff.ROUTES[bwd][prec]
+
+
+class _FakeLib:
+    """Stands in for the kernel library on the CPU: records the trunk and
+    route of each launch and returns success, writing nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name):
+        def entry(tr, *args):
+            t = tr._obj
+            ptrs = tuple(t.w[i] for i in range(t.n_layers)) + tuple(
+                t.wt[i] for i in range(t.n_layers))
+            self.calls.append((name, id(t), ptrs, args[-2]))
+            return 0
+        return entry
+
+    def __getattr__(self, name):
+        if name == "nphm_train_split_k":
+            return lambda: 32
+        return self._record(name)
+
+
+def fake_launches(monkeypatch):
+    """Route the wrappers' launches to a _FakeLib on CPU tensors, and count
+    route_weights calls."""
+    lib = _FakeLib()
+    monkeypatch.setattr(ff._build, "lib", lambda: lib)
+    monkeypatch.setattr(ff._build, "require_cuda_f32", lambda *a, **k: None)
+    monkeypatch.setattr(ff._build, "require_mask", lambda *a, **k: None)
+    monkeypatch.setattr(ff._build, "stream_ptr", lambda dev: 0)
+    rounds = []
+    real = ff.route_weights
+
+    def counted(w, route):
+        rounds.append(route)
+        return real(w, route)
+
+    monkeypatch.setattr(ff, "route_weights", counted)
+    return lib, rounds
+
+
+@pytest.mark.parametrize("prec", list(Precision))
+def test_backward_launches_over_its_forwards_trunk(monkeypatch, prec):
+    """K4 launches over the very trunk (the same descriptor and weight
+    tensors) that K3 launched over, and K6 over K5's, at every precision:
+    the backward builds no trunk and rounds no weight again."""
+    lib, rounds = fake_launches(monkeypatch)
+    cfg, layers = tiny_layers()
+    A, B, tile = cfg.n_members, 2, 128
+    _, skip = cfg.layer_shapes
+    coords = torch.randn((A, 3, B * tile), generator=torch.Generator().manual_seed(1))
+    active = torch.ones((B, A), dtype=torch.int32)
+    name = {Precision.F32: "default", Precision.TF32: "high", Precision.BF16: "bfloat16"}[prec]
+    with precision.matmul_precision(name):
+        ins = [layers[0]["b"].clone().requires_grad_(True),
+               layers[skip]["b"].clone().requires_grad_(True),
+               coords.clone().requires_grad_(True)]
+        F = ff._MemberF.apply(*ins, cfg, layers, active, tile, B)
+        n_fwd = len(rounds)
+        torch.autograd.grad(F.sum(), ins)
+        flat = [t.clone().requires_grad_(True) for t in trf._flat(cfg, layers)]
+        x = coords.clone().requires_grad_(True)
+        F, G = trf._MemberFields.apply(cfg, active, tile, B, x, *flat)
+        n_train = len(rounds)
+        torch.autograd.grad(F.sum() + G.sum(), flat + [x])
+    # both orientations of each hidden layer once per forward, none in a backward
+    n_hidden = len(layers) - 2
+    assert n_fwd == n_train - n_fwd == 2 * n_hidden and len(rounds) == n_train
+    assert [c[0] for c in lib.calls] == ["nphm_fit_fwd", "nphm_fit_bwd", "nphm_train_fwd",
+                                         "nphm_train_bwd"]
+    route = int(ff.ROUTES["fit_fwd"][prec])
+    for fwd, bwd in ((lib.calls[0], lib.calls[1]), (lib.calls[2], lib.calls[3])):
+        assert fwd[1] == bwd[1] and fwd[2] == bwd[2]  # one descriptor, the same tensors
+        assert fwd[3] == bwd[3] == route
 
 
 def test_launch_shared_memory_fits_the_card():
     """No K3-K6 instantiation the routes launch needs more shared memory
     than a Hopper block may opt into (232,448 bytes), at the NPHM widths;
-    the bf16 contraction's ring is smaller than the fp32 one."""
+    the bf16 contraction's ring is smaller than the fp32 one, and the
+    passes take the same shared memory at every route (activation rows pad
+    to 8, bf16 ring slices hold twice the K in the same bytes)."""
     cfg = nphm_cfg()
     for kernel, key in (("fit_fwd", "fit_fwd"), ("fit_bwd", "fit_bwd"),
                         ("train_fwd", "train_fwd"), ("train_bwd", "train_bwd"),
@@ -158,9 +234,8 @@ def test_launch_shared_memory_fits_the_card():
             assert 0 < b <= ff.SMEM_OPTIN == 232_448, (kernel, prec, b)
     assert ff.smem_bytes("lane_contract", cfg, Route.BF16_MMA) < ff.smem_bytes(
         "lane_contract", cfg, Route.F32)
-    # kBF16Mma pads activation rows to K steps of 16: 101 -> 112 + 4
-    assert ff.smem_bytes("fit_fwd", cfg, Route.BF16_MMA) >= ff.smem_bytes(
-        "fit_fwd", cfg, Route.F32)
+    for kernel in ("fit_fwd", "fit_bwd", "train_fwd", "train_bwd"):
+        assert ff.smem_bytes(kernel, cfg, Route.BF16_MMA) == ff.smem_bytes(kernel, cfg, Route.F32)
 
 
 def test_k6_scratch_traffic_per_precision():
@@ -173,3 +248,33 @@ def test_k6_scratch_traffic_per_precision():
     f32 = trf.scratch_traffic(cfg, M, Precision.F32)
     assert f32 == 4 * 2 * M * (3 * hq + 2 * zp) == trf.scratch_traffic(cfg, M, Precision.TF32)
     assert trf.scratch_traffic(cfg, M, Precision.BF16) == 4 * 2 * M * (3 * hq + zp)
+
+
+def test_phase_probe_copy_and_slots(tmp_path):
+    """kernel_ab --kernels phases builds a copy of a checkout with
+    NPHM_PHASE_CLOCKS defined and no build carried over, leaves the
+    checkout itself as it was, and reads the phases in field::tile's order
+    and the slots tc_tile.cuh writes the slice waits and the block count
+    to."""
+    from nphm_tpu_torch import kernel_ab
+
+    src = tmp_path / "root"
+    (src / "nphm_tpu_torch" / "csrc").mkdir(parents=True)
+    (src / "nphm_tpu_torch" / "_build").mkdir()
+    header = open(os.path.join(ROOT, "nphm_tpu_torch", "csrc", "tc_tile.cuh")).read()
+    (src / "nphm_tpu_torch" / "csrc" / "tc_tile.cuh").write_text(header)
+    dst = kernel_ab.phase_clock_copy(str(src), str(tmp_path / "copy"))
+    copied = open(os.path.join(dst, "nphm_tpu_torch", "csrc", "tc_tile.cuh")).read()
+    assert copied == "#define NPHM_PHASE_CLOCKS 1\n" + header
+    assert (src / "nphm_tpu_torch" / "csrc" / "tc_tile.cuh").read_text() == header
+    assert not os.path.exists(os.path.join(dst, "nphm_tpu_torch", "_build"))
+    tile = open(os.path.join(ROOT, "nphm_tpu_torch", "csrc", "field_tile.cuh")).read()
+    names = re.search(r"enum \{ (kSetup[^}]*) \};", tile).group(1).split(", ")
+    snake = [re.sub(r"(?<!^)([A-Z])", r"_\1", n[1:]).lower() for n in names]
+    body = kernel_ab.KERNELS["phases"][0]
+    probe = eval(re.search(r"PHASES = (\([^)]*\))", body, re.S).group(1))  # noqa: S307
+    assert tuple(snake) == probe
+    slots = dict(re.findall(r"constexpr int (k\w+Slots?) = (\d+);", header))
+    assert slots == {"kPhaseSlots": "16", "kRingWaitSlot": "14", "kBlockSlot": "15"}
+    assert "out[14]" in body and "out[15]" in body and len(probe) < 14
+
