@@ -248,7 +248,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_S = 3.35e12
 # Kernels whose products run as 3xTF32 on the tensor cores, and the kernel
 # functions (mangled-name fragments) whose SASS must hold HMMA/HGMMA: each
-# of K6's product kernels (its fixed-order sums run no product).
+# of K6's product kernels (its fixed-order sums run no product).  Those of
+# WGMMA_KERNELS must hold HGMMA (wgmma): K7's layer kernel; the others run
+# mma.sync (HMMA).
+WGMMA_KERNELS = ("trunk_layer_kernel",)
 TENSOR_CORE_KERNELS = {"ensemble_sdf": ("ensemble_sdf_kernel",),
                        "broyden_search": ("broyden_search_kernel",),
                        "fit_fwd": ("fit_fwd_kernel",), "fit_bwd": ("fit_bwd_kernel",),
@@ -381,16 +384,19 @@ def device_and_build():
     _build.lib()
     log(f"[build] nvcc built {os.path.relpath(_build.LIB_PATH, ROOT)} in {secs:.2f} s")
     for line in report.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "registers" in line or "spill" in line
+                or "wgmma" in line):
             log(f"[ptxas] {line.strip()}")
     counts = _build.sass_mma_counts()
     for name, fns in TENSOR_CORE_KERNELS.items():
         for fn in fns:
             n = {k: v for k, v in counts.items() if fn in k}
-            log(f"[sass] {name}: tensor-core instructions (HGMMA/HMMA) per kernel "
-                f"{json.dumps(n)}")
-            expect(bool(n) and all(v > 0 for v in n.values()),
+            log(f"[sass] {name}: tensor-core instructions per kernel {json.dumps(n)}")
+            expect(bool(n) and all(v["HGMMA"] + v["HMMA"] > 0 for v in n.values()),
                    f"{name}'s SASS holds no tensor-core instruction in {fn}")
+            if fn in WGMMA_KERNELS:
+                expect(all(v["HGMMA"] > 0 for v in n.values()),
+                       f"{name}'s SASS holds no HGMMA (wgmma) in {fn}")
     from nphm_tpu_torch.ops.native import get_lib
 
     t0 = time.perf_counter()

@@ -32,14 +32,10 @@
 // fixed order, so results are deterministic.  Culled (member, tile) pairs
 // write zeros.
 //
-// At kBF16Mma the time outside the products is cut (measured with
-// tc::PhaseClock, python -m nphm_tpu_torch.kernel_ab --kernels phases):
-// layer 0 and the bias passes load a column's bias once for the block's
-// one conditioning row and unroll its rows; the reverse products' pre hook
-// takes softplus' of the activation it gathers, so no pass turns them
-// beforehand; K4's bias column sums run a thread per column; and the first
-// product's first weight slices are issued before layer 0.  F32 and TF32
-// keep the code above.
+// At kBF16Mma (every mode) and in the fit modes at kF32 (K3, K4) the time
+// outside the products is cut (kCuts below; measured with tc::PhaseClock,
+// python -m nphm_tpu_torch.kernel_ab --kernels phases).  K5 at F32 and
+// every mode at TF32 keep the code above.
 #pragma once
 
 #include <type_traits>
@@ -166,6 +162,19 @@ __device__ __forceinline__ void init_ring(const tc::Ring& ring) {
   }
 }
 
+// The cuts outside the products (kCuts, by mode and route): layer 0 and the
+// bias passes load a column's bias once for the block's one conditioning
+// row and unroll its rows; the reverse products' pre hook takes softplus'
+// of the activation it gathers, so no sweep turns them beforehand; K4's
+// bias column sums run a thread per column; the first product's first
+// slices are issued before layer 0.  Each was kept by a same-call A/B
+// against the passes it replaced (PERF.md: kernel_ab --kernels low at
+// kBF16Mma, every mode; --kernels fit32 in the fit modes at tc::kF32); K5
+// at F32 and every mode at kTF32 keep those passes.
+template <int MODE, int P>
+constexpr bool kCuts = P == tc::kBF16Mma || ((MODE == kFitFwd || MODE == kFitBwd) &&
+                                              P == tc::kF32);
+
 // Zero columns [w, w rounded up to 8) of a [64][ld] activation: the
 // products read activation columns up to the next multiple of 8.
 __device__ __forceinline__ void zero_pad(float* h, int ld, int w) {
@@ -177,11 +186,11 @@ __device__ __forceinline__ void zero_pad(float* h, int ld, int w) {
 // Layer 0 of member m over a 64-point tile from its 3 point inputs xs
 // ([3][64]): h = softplus(W0 x + b0[row]) into [64][ld], pad columns
 // zeroed.  A thread per output column and 16-row block, its rows
-// independent.  At route tc::kBF16Mma the block's 64 points share one
+// independent.  With kOnce (kCuts) the block's 64 points share one
 // conditioning row (the entry points require row_len to be a multiple of
 // 64), so a thread loads its column's bias once and runs its rows
-// unrolled; the other routes keep a load per point.
-template <int P = tc::kF32>
+// unrolled; else a load per point.
+template <bool kOnce = false>
 __device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float* xs,
                                             const int* rows, float* h, int ld) {
   constexpr int T = kRows;
@@ -195,7 +204,7 @@ __device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float*
     const int o = it % H0;
     const int l0 = (it / H0) * 16;
     const float w0 = w[o * 3], w1 = w[o * 3 + 1], w2 = w[o * 3 + 2];
-    if constexpr (P == tc::kBF16Mma) {
+    if constexpr (kOnce) {
       const float bo = __ldg(b + rows[0] * brs + o);
 #pragma unroll
       for (int l = l0; l < l0 + 16; ++l) {
@@ -220,9 +229,9 @@ __device__ __forceinline__ void layer0_pass(const Trunk& tr, int m, const float*
 // Hidden layer i of member m over the raw sums `out` ([64][ld]) in place:
 // bias, the skip layer's point term and softplus, pad columns zeroed; a
 // thread per column and 16-row block (balanced, unlike the MMA epilogue).
-// At tc::kBF16Mma, as layer0_pass: the bias loaded once, the rows
-// unrolled, and the point term only at the skip layer.
-template <int P = tc::kF32>
+// With kOnce, as layer0_pass: the bias loaded once, the rows unrolled, and
+// the point term only at the skip layer.
+template <bool kOnce = false>
 __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const float* xs,
                                           const int* rows, float* out, int ld) {
   constexpr int T = kRows;
@@ -241,7 +250,7 @@ __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const f
       w1 = wp[o * 3 + 1];
       w2 = wp[o * 3 + 2];
     }
-    if constexpr (P == tc::kBF16Mma) {
+    if constexpr (kOnce) {
       const float bo = __ldg(b + rows[0] * brs + o);
       if (wp != nullptr) {
 #pragma unroll
@@ -271,7 +280,7 @@ __device__ __forceinline__ void bias_pass(const Trunk& tr, int i, int m, const f
   zero_pad(out, ld, H);
 }
 
-// dst[o] = sum over the 64 rows of d[t * ld + o], o < H, at tc::kBF16Mma
+// dst[o] = sum over the 64 rows of d[t * ld + o], o < H, where kCuts
 // (tc::colsum64 elsewhere): a thread per column, its rows in four
 // interleaved partial sums added in a fixed order (deterministic), so the
 // warps past the columns go on to point_grad at once.
@@ -376,7 +385,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   }
   init_ring(ring);
   __syncthreads();
-  if constexpr (P == tc::kBF16Mma) {
+  if constexpr (kCuts<MODE, P>) {
     // the first product's first slices land while layer 0 runs
     if (t == tc::kProducer && L > 2)
       tc::ring_issue<KS, tc::kRingStages, P>(ring, fwd(1), nullptr, tc::kRingStages - 1);
@@ -384,15 +393,15 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   clk.mark(kSetup);
 
   // forward: layer 0 from the 3 point inputs, then the hidden products
-  layer0_pass<P>(tr, m, xs, rows, smem + ho[0], ld[0]);
+  layer0_pass<kCuts<MODE, P>>(tr, m, xs, rows, smem + ho[0], ld[0]);
   __syncthreads();
   clk.mark(kLayer0);
   for (int i = 1; i < L - 1; ++i) {
     // each warp stores its raw sums, then the block applies bias, point
     // term and softplus in a balanced pass (a thread per column and 16-row
     // block) and, before a reverse sweep, turns the consumed input h_{i-1}
-    // into softplus'(z_{i-1}) (at tc::kBF16Mma the reverse products' pre
-    // hook does that as it gathers h_{i-1}, so no pass goes over it here)
+    // into softplus'(z_{i-1}) (where kCuts the reverse products' pre hook
+    // does that as it gathers h_{i-1}, so no pass goes over it here)
     float* out = smem + ho[i];
     const int ldo = ld[i];
     tc::Operand next{};
@@ -406,9 +415,9 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
                     [&](int l, int o, float acc, float) { out[l * ldo + o] = acc; });
     __syncthreads();
     clk.mark(kFwdProducts);
-    bias_pass<P>(tr, i, m, xs, rows, out, ldo);
+    bias_pass<kCuts<MODE, P>>(tr, i, m, xs, rows, out, ldo);
     clk.mark(kBias, true);
-    if (kReverse && P != tc::kBF16Mma) {
+    if (kReverse && !kCuts<MODE, P>) {
       float* h = smem + ho[i - 1];
       const int Hp = (int)tr.n_out[i - 1];
       const int ldh = ld[i - 1];
@@ -433,14 +442,14 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
   clk.mark(kHead);
 
   // activation L-2 now holds d_{L-2} = u * softplus'(z), the others
-  // softplus'(z_i) (h_i at tc::kBF16Mma); walk down to layer 0
+  // softplus'(z_i) (h_i where kCuts); walk down to layer 0
   for (int i = L - 2; i >= 0; --i) {
     const int H = (int)tr.n_out[i];
     float* d = smem + ho[i];
     if (i == skip || i == 0) {
       // (K4) bias cotangent partials; d(coords) += d_i . Wp_i (3 point inputs)
       if constexpr (MODE == kFitBwd) {
-        if constexpr (P == tc::kBF16Mma)
+        if constexpr (kCuts<MODE, P>)
           colsum64_cols(d, ld[i], H, i == 0 ? out0 : out_s);
         else
           tc::colsum64(d, ld[i], H, i == 0 ? out0 : out_s);
@@ -457,7 +466,7 @@ __device__ __forceinline__ void tile(const Trunk& tr, const Maps& maps,
       tc::mm64<KS, P>(d, ld[i], rev(i), i > 1 ? &next : nullptr, ring,
                       [&](int l, int k) {
                         const float v = prev[l * ldv + k];
-                        if constexpr (P == tc::kBF16Mma)
+                        if constexpr (kCuts<MODE, P>)
                           return tc::softplus_grad_fast(v, beta);  // v = h_{i-1}
                         else
                           return v;

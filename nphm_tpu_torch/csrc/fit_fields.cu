@@ -30,15 +30,33 @@
 // per point and member, K4 ~161k (the recomputed forward and the reverse
 // sweep).
 //
+// What bounds them: at F32 both run ~5-6x that bound.  The MMAs are about
+// a third of a K4 block (a copy without them ran in 0.64 of the time); the
+// rest is the passes outside the products and the weight slices' staging,
+// one 64-point tile a block reusing each slice 64 times.  The fit modes at
+// F32 therefore take the bf16 route's cuts outside the products (kCuts in
+// field_tile.cuh: the bias loaded once a block, the first slices issued
+// before layer 0, and in K4 softplus' taken in the reverse gather and a
+// thread per bias column): 0.90x (K3) and 0.91x (K4) of mma.sync without
+// them at the batched fit's shape (PERF.md).
+//
 // mma.sync rather than wgmma: wgmma takes its .tf32 A operand from shared
 // memory (both halves of 184 KB of activations: no room) or from registers,
-// and its N is an instruction constant, so every hidden width (101 -> 104,
-// 200) would need its own instruction and accumulator count; mma.sync tiles
-// any width in 8-wide steps and splits both operands where they are loaded.
-// At bf16 the same holds (kBF16Mma): the activations and K4's cotangents
-// stay fp32 for the bias and softplus passes, the head and the bias and
-// point sums, so the A operand packs from them in registers, and the
-// weights, rounded once on the host, halve the ring's bytes a K step.
+// and its N is an instruction constant.  A wgmma m64nNk8 .tf32 product with
+// A split in registers and B as TF32 halves split once on the host, staged
+// by TMA (the four warpgroups dividing N's n8 tiles), was built and
+// measured: its MMAs cost little, but the ring then carries both halves of
+// every slice, twice the bytes, and one producer thread's copies paced the
+// block.  K4, whose activations leave room only for three 8-column stages
+// of both halves, ran 1.2-1.5x slower in every variant; K3 with the same
+// cuts ran 0.99x mma.sync's time at the batched shape but 1.07x at the
+// serial fit's 5 x 1024 and slowed the batched fit, so both stay on
+// mma.sync, which tiles any width in 8-wide steps and splits both operands
+// where they are loaded.  At bf16 the same holds (kBF16Mma): the
+// activations and K4's cotangents stay fp32 for the bias and softplus
+// passes, the head and the bias and point sums, so the A operand packs from
+// them in registers, and the weights, rounded once on the host, halve the
+// ring's bytes a K step.
 //
 // First designs: 32-point blocks of 8 warps, an fp32 register-tiled product
 // reading weights from L2 with __ldg; K4 with serial bias and d(coords)

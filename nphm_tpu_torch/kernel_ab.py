@@ -3,7 +3,8 @@ backward K6, the search K2 or the ensemble grid K1 of two or more
 checkouts on one card, in turns.
 
     python3 -m nphm_tpu_torch.kernel_ab ROOT_A ROOT_B [ROOT_C ...]
-        [--kernels fit|train|train_bwd|search|ensemble|low|phases|f32] [--order ABBA]
+        [--kernels fit|fit32|train|train_bwd|search|ensemble|low|phases|f32]
+        [--order ABBA]
 
 Each turn runs in a fresh process from one checkout: that checkout's
 ``chip_smoke.py`` builds its kernels (``device_and_build``) and the NPHM
@@ -12,6 +13,12 @@ models (``build_models``), then
 - ``--kernels fit`` (default): ``check_k3_k4``, K3 and K4 at the fit's
   shapes (M = 5 x 1024), each against its plain version, timed with CUDA
   events;
+- ``--kernels fit32``: the F32 ("default") fit path: K3 and K4 alone at
+  the batched fit's launch shape of ``low`` (8 subjects x 5 scans x 1000
+  points) and at the serial fit's (1 subject x 5 scans), each timed twice
+  with CUDA events (10 calls a time, no plain version), then a
+  PRECISION_FIT_STEPS-step batched fit (ms per subject-step, steady) and
+  a 100-step ``fit_joint`` of 20 scans (ms per step, steady);
 - ``--kernels train``: K5 alone at the training batch (B = 32 rows x 1693
   points, padded to 2048, no culling), through ``member_fields`` under
   ``no_grad``, held once against ``member_fields_plain`` and timed with
@@ -179,17 +186,25 @@ import numpy as np
 from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.ops.fit_fields import member_f, morton_codes
 
-Bf, S, Nf = 5 * c.BATCH_SUBJECTS, c.BATCH_SUBJECTS, 1000
-xf = torch.tensor(np.stack(c.observations(Bf, Nf, c.SEED + 2)), device=dev)
-latf = (torch.randn((S, cfg.lat_dim), generator=gen) * 0.01).to(dev)
-latf = latf.repeat_interleave(Bf // S, dim=0).contiguous()
-perm = torch.argsort(morton_codes(xf), dim=1, stable=True)
-xf = torch.gather(xf, 1, perm[..., None].expand(Bf, Nf, 3))
-Npf = -(-Nf // tile) * tile
-xf = torch.cat([xf, xf[:, -1:].expand(Bf, Npf - Nf, 3)], dim=1)
-Mf = Bf * Npf
+
+def fit_inputs(n_obs, subjects, Nf=1000):
+    # K3/K4's inputs for n_obs scans of `subjects` subjects, Nf points
+    # each: the globals calls() reads
+    global Bf, xf, latf, Mf, dFf
+    Bf = n_obs
+    xf = torch.tensor(np.stack(c.observations(Bf, Nf, c.SEED + 2)), device=dev)
+    latf = (torch.randn((subjects, cfg.lat_dim), generator=gen) * 0.01).to(dev)
+    latf = latf.repeat_interleave(Bf // subjects, dim=0).contiguous()
+    perm = torch.argsort(morton_codes(xf), dim=1, stable=True)
+    xf = torch.gather(xf, 1, perm[..., None].expand(Bf, Nf, 3))
+    Npf = -(-Nf // tile) * tile
+    xf = torch.cat([xf, xf[:, -1:].expand(Bf, Npf - Nf, 3)], dim=1)
+    Mf = Bf * Npf
+    dFf = torch.randn((A, Mf), generator=gen).to(dev)
+
+
+fit_inputs(5 * c.BATCH_SUBJECTS, c.BATCH_SUBJECTS)
 _, skip = cfg.layer_shapes
-dFf = torch.randn((A, Mf), generator=gen).to(dev)
 dF = torch.randn((A, B * Np), generator=gen).to(dev)
 dG = torch.randn((A, 3, B * Np), generator=gen).to(dev)
 
@@ -258,6 +273,35 @@ for name in ("default", "high", "bfloat16"):
         rows[f"{{k}}@{{name}}"] = {{"ms": ms, "split_ms": sp}}
         print(f"[K3] {{k}} at {{name}}: {{ms:.3f}} ms; device split {{json.dumps(sp)}}",
               flush=True)
+print("ROWS " + json.dumps(rows), flush=True)
+"""
+
+_FIT32 = _LOW_INPUTS + """
+from nphm_tpu_torch.fitting import FittingConfig, fit_joint, fit_joint_batch
+
+rows = {{}}
+for tag, n_obs, subjects in (("", Bf, c.BATCH_SUBJECTS), ("@5x1024", 5, 1)):
+    fit_inputs(n_obs, subjects)
+    k3, k4, k5, k6 = calls()
+    for rep in ("", "_2"):
+        with torch.no_grad():
+            rows["fit_fwd" + tag + rep] = {{"ms": c.cuda_ms(k3, 10)}}
+        rows["fit_bwd" + tag + rep] = {{"ms": c.cuda_ms(k4, 10)}}
+    print(f"[K3] F32 {{tag or 'batched'}}: fit_fwd {{rows['fit_fwd' + tag]['ms']:.3f}}, "
+          f"{{rows['fit_fwd' + tag + '_2']['ms']:.3f}} ms; fit_bwd "
+          f"{{rows['fit_bwd' + tag]['ms']:.3f}}, {{rows['fit_bwd' + tag + '_2']['ms']:.3f}} ms",
+          flush=True)
+    del k3, k4, k5, k6
+fcfg = FittingConfig(n_steps=c.PRECISION_FIT_STEPS, seed=c.SEED, matmul_precision="default")
+*_, hist = fit_joint_batch(shape, params, _e, _pe, c.batch_observations(), cfg=fcfg,
+                           device=dev, verbose=False)
+rows["batched_fit"] = {{"ms": 1e3 / float(hist["steady_subject_steps_s"])}}
+scfg = FittingConfig(n_steps=100, seed=c.SEED)
+*_, hist = fit_joint(shape, params, _e, _pe, c.observations(20, 2500, c.SEED + 3),
+                     cfg=scfg, device=dev, verbose=False)
+rows["serial_fit"] = {{"ms": 1e3 / float(hist["steady_it_s"])}}
+print(f"[K3] batched fit {{rows['batched_fit']['ms']:.3f}} ms a subject-step; serial fit "
+      f"{{rows['serial_fit']['ms']:.3f}} ms a step", flush=True)
 print("ROWS " + json.dumps(rows), flush=True)
 """
 
@@ -380,7 +424,11 @@ rows["batched_fit"] = {{"ms": 1e3 / sps}}
 print("ROWS " + json.dumps(rows), flush=True)
 """
 
-KERNELS = {"fit": (_FIT, ("fit_fwd", "fit_bwd")), "train": (_TRAIN, ("train_fwd",)),
+KERNELS = {"fit": (_FIT, ("fit_fwd", "fit_bwd")),
+           "fit32": (_FIT32, tuple(k + t + r for t in ("", "@5x1024")
+                                   for k in ("fit_fwd", "fit_bwd") for r in ("", "_2"))
+                     + ("batched_fit", "serial_fit")),
+           "train": (_TRAIN, ("train_fwd",)),
            "train_bwd": (_TRAIN_BWD, ("train_bwd",)),
            "search": (_SEARCH, ("search_init_15", "search_init_3", "search_x90_15",
                                 "search_x90_3")),

@@ -161,9 +161,11 @@ def build() -> tuple[float, str]:
     return time.perf_counter() - t0, "".join(outs)
 
 
-def sass_mma_counts() -> dict[str, int]:
-    """Tensor-core instructions (``HGMMA``, ``HMMA``) per kernel in the built
-    library's SASS (``cuobjdump --dump-sass``), keyed by mangled name."""
+def sass_mma_counts() -> dict[str, dict[str, int]]:
+    """Tensor-core instructions per kernel in the built library's SASS
+    (``cuobjdump --dump-sass``), keyed by mangled name: ``HGMMA`` (the
+    warpgroup MMA, ``wgmma``) and ``HMMA`` (the warp-level ``mma.sync``)
+    apart."""
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", LIB_PATH], capture_output=True,
                           text=True, check=True).stdout
@@ -172,9 +174,11 @@ def sass_mma_counts() -> dict[str, int]:
         line = line.strip()
         if line.startswith("Function :"):
             name = line.split(":", 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and ("HGMMA" in line or "HMMA" in line):
-            counts[name] += 1
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[name][op] += 1
     return counts
 
 

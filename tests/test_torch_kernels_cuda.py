@@ -198,12 +198,14 @@ def tiny_shape(device, hidden):
     return shape, shape.init(gen, device), gen
 
 
-@pytest.mark.parametrize("hidden,n_pts", [(16, 700), (72, 1000), (200, 700)])
+@pytest.mark.parametrize("hidden,n_pts", [(16, 700), (72, 1000), (200, 700), (36, 1000),
+                                          (101, 700)])
 def test_k3_k4_tiny_widths(device, hidden, n_pts):
     """K3/K4 through apply_nphm_fit vs the plain version: hidden widths that
     are not multiples of K4's 16-wide K slice or 8-wide MMA tiles, and rows
     of points that are not multiples of its 64-point tile (padded inside
-    the 512-point cull tile)."""
+    the 512-point cull tile): 36 ends half-way through a 16-wide K slice
+    and 101 pads to 104, 13 n8 tiles, the NPHM ensemble's second width."""
     shape, params, gen = tiny_shape(device, hidden)
     xyz = (torch.randn((3, n_pts, 3), generator=gen) * 0.3).to(device)
     lat = (torch.randn((3, shape.lat_dim), generator=gen) * 0.1).to(device)
@@ -313,6 +315,58 @@ def test_k6_is_bit_identical_run_to_run(device, cull_eps):
     for _ in range(2):
         again = k6_grads(trf.member_fields, *case)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("cull_eps", [0.0, 1e-10])
+def test_k3_k4_f32_is_bit_identical_run_to_run(device, cull_eps):
+    """Two K3 and K4 calls at F32 (3xTF32 mma.sync with the cuts outside
+    the products) on the same inputs give F and the cotangents of the two
+    folded biases and of the coordinates bit for bit: every sum in a fixed
+    order, the bias partials through the fixed-order block sums.  At the
+    NPHM widths (5 rows of 1000 points, Morton-sorted), each within its gate
+    of the plain version; the F32 instantiations run, on the routes ROUTES
+    names."""
+    from nphm_tpu_torch.ops import precision
+
+    c = smoke()
+    f32 = precision.Precision.F32
+    shape, params, _e, _pe, gen = c.build_models(device)
+    cfg = shape.cfg
+    assert ff.ROUTES["fit_fwd"][f32] == ff.ROUTES["fit_bwd"][f32] == ff.Route.F32
+    B, N, tile, A = 5, 1000, 512, cfg.n_members
+    xyz = torch.tensor(np.stack(c.observations(B, N, c.SEED + 2)), device=device)
+    perm = torch.argsort(ff.morton_codes(xyz), dim=1, stable=True)
+    xyz = torch.gather(xyz, 1, perm[..., None].expand(B, N, 3))
+    xyz = torch.cat([xyz, xyz[:, -1:].expand(B, 1024 - N, 3)], dim=1)
+    lat = (torch.randn((B, cfg.lat_dim), generator=gen) * 0.01).to(device)
+    with torch.no_grad():
+        anchors = predict_anchors(params, cfg, lat)
+        centers = torch.cat([anchors, torch.zeros_like(anchors[:, :1])], dim=1)
+        coords = (xyz[:, :, None] - centers[:, None]) * mirror_scale(cfg, device)
+        coords = coords.permute(2, 3, 0, 1).reshape(A, 3, -1).contiguous()
+        layers, _ = ff.prepare_train_operands(params, cfg, lat)
+        active = ff.active_mask(cfg, coords, tile, cull_eps)
+    _, skip = cfg.layer_shapes
+    dF = torch.randn((A, B * 1024), generator=gen).to(device)
+    before = (ff.member_f.launches_at[f32], ff.member_f.bwd_launches_at[f32])
+    runs = []
+    for fn in (ff.member_f, ff.member_f, ff.member_f, ff.member_f_plain):
+        ins = [layers[0]["b"].clone().requires_grad_(True),
+               layers[skip]["b"].clone().requires_grad_(True),
+               coords.clone().requires_grad_(True)]
+        lay = [dict(la) for la in layers]
+        lay[0]["b"], lay[skip]["b"] = ins[0], ins[1]
+        F = fn(cfg, lay, ins[2], active, tile, B)
+        runs.append((F.detach(),) + torch.autograd.grad(F, ins, dF))
+    assert (ff.member_f.launches_at[f32], ff.member_f.bwd_launches_at[f32]) == (
+        before[0] + 3, before[1] + 3)
+    plain = runs.pop()
+    assert all(torch.isfinite(t).all() for t in runs[0])
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+    assert float((runs[0][0] - plain[0]).abs().max()) <= c.TOL_K3
+    for a, b in zip(runs[0][1:], plain[1:]):
+        assert float((a - b).abs().max()) <= c.TOL_K4 * float(b.abs().max())
 
 
 # K3 and K6 at the lower precisions against their plain versions at the

@@ -6,12 +6,15 @@ here: the hidden weights rounded once per call for the bf16 MMAs
 (bit-equal to ``precision.bf16_round``, in the K order their fragments
 read), each kernel's route at each precision (TF32 rounds per fragment,
 BF16 runs bf16 MMAs), each backward launching over its forward's trunk,
-the launches' shared memory against the card's opt-in limit, and the
-bytes K6's scratch moves.
+the launches' shared memory against the card's opt-in limit, the bytes
+K6's scratch moves, and the count of each kernel's tensor-core
+instructions that ``chip_smoke.py``'s phase 1 reads from the SASS.
 """
 
 import os
 import re
+import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 
 from nphm_tpu_torch.config import load_yaml, nphm_config_from_yaml
 from nphm_tpu_torch.models import NPHMConfig, make_nphm_decoder
+from nphm_tpu_torch.ops import _build
 from nphm_tpu_torch.ops import fit_fields as ff
 from nphm_tpu_torch.ops import precision
 from nphm_tpu_torch.ops import train_fields as trf
@@ -278,3 +282,38 @@ def test_phase_probe_copy_and_slots(tmp_path):
     assert slots == {"kPhaseSlots": "16", "kRingWaitSlot": "14", "kBlockSlot": "15"}
     assert "out[14]" in body and "out[15]" in body and len(probe) < 14
 
+
+
+def test_sass_mma_counts_keeps_hgmma_and_hmma_apart(monkeypatch):
+    """_build.sass_mma_counts reads cuobjdump's SASS listing of the built
+    library and counts, per kernel (keyed by its mangled name), the
+    warpgroup MMAs (HGMMA, wgmma) and the warp-level ones (HMMA, mma.sync)
+    apart, and a kernel without either as zeros: phase 1 requires HGMMA in
+    K7's layer kernel and one of the two in every product kernel."""
+    sass = textwrap.dedent("""
+        code for sm_90a
+                Function : _Z18trunk_layer_kernelv
+        /*0010*/                   HGMMA.64x128x8.F32.TF32 R24, gdesc[UR4], R24 ;
+        /*0020*/                   HGMMA.64x128x8.F32.TF32 R24, gdesc[UR8], R24, gsb0 ;
+        /*0030*/                   WARPSYNC.ALL ;
+                Function : _Z14fit_fwd_kernelILi16ELi0EEvv
+        /*0010*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0020*/                   HMMA.1688.F32.TF32 R16, R8, R14, R16 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+                Function : _Z18sum_block_partialsv
+        /*0010*/                   FADD R1, R2, R3 ;
+    """)
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return types.SimpleNamespace(stdout=sass)
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: os.path.join("toolkit", name))
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    assert _build.sass_mma_counts() == {
+        "_Z18trunk_layer_kernelv": {"HGMMA": 2, "HMMA": 0},
+        "_Z14fit_fwd_kernelILi16ELi0EEvv": {"HGMMA": 0, "HMMA": 3},
+        "_Z18sum_block_partialsv": {"HGMMA": 0, "HMMA": 0},
+    }
+    assert seen == [[os.path.join("toolkit", "cuobjdump"), "--dump-sass", _build.LIB_PATH]]
